@@ -1,0 +1,267 @@
+"""Streaming metrics for the paper's §VII figures (main-path subset).
+
+Port of the streaming half of ``repro/continuum/metrics.py``: the
+simulator's step loop carries an O(K·M) ``MetricAccumulator`` on the
+device and fills O(T) scalar ``StepSeries``; the ``*_stream`` readouts
+turn them into the Figs 3-8 statistics on the host. The per-instance
+latency quantile (Fig. 8) comes from a fixed geometric histogram
+sketch, as in the reference.
+
+Every count here is an integer-valued float32 sum (``index_add_`` in
+place of ``segment_sum``), so the order in which CUDA's atomic adds
+land cannot change it.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+# Geometric bins for the processing-latency sketch: 1e-4 s .. 10 s, 128
+# bins (~9.5% spacing).
+PROC_HIST_BINS = 128
+_PROC_EDGES = np.geomspace(1e-4, 10.0, PROC_HIST_BINS - 1).astype(np.float32)
+
+
+@functools.cache
+def _edges(device: torch.device) -> torch.Tensor:
+    # one upload per device, so the step loop never copies from the host
+    return torch.from_numpy(_PROC_EDGES).to(device)
+
+
+class MetricAccumulator(NamedTuple):
+    """O(K·M) on-device sufficient statistics for Figs 3-9 + regret.
+
+    Post-warmup fields accumulate once ``t_idx >= warmup_steps``; regret
+    and the variation budget cover the whole horizon. ``ev_succ`` /
+    ``ev_n`` are the event-relative recovery windows (slot 0 the
+    pre-event baseline, slots 1..B consecutive post-event buckets).
+    The resilience counters stay at their neutral values on this path
+    (``att_k`` equals issued requests; timeouts, drops, open breakers
+    zero)."""
+    succ_kc: torch.Tensor        # (K, C) post-warmup QoS successes per client slot
+    n_kc: torch.Tensor           # (K, C) post-warmup issued requests per client slot
+    arrivals_m: torch.Tensor     # (M,)  post-warmup arrivals per instance
+    choice_counts: torch.Tensor  # (K, M) post-warmup issued requests per (LB, instance)
+    proc_hist: torch.Tensor      # (M, B) post-warmup processing-latency sketch
+    regret_k: torch.Tensor       # (K,)  full-horizon oracle regret partial sum
+    vb_k: torch.Tensor           # (K,)  empirical variation budget partial sum
+    prev_mu: torch.Tensor        # (K, M) previous step's true mu (variation carry)
+    steps_measured: torch.Tensor  # ()   f32 count of post-warmup steps
+    ev_succ: torch.Tensor        # (E, 1+B) QoS successes per event window
+    ev_n: torch.Tensor           # (E, 1+B) issued requests per event window
+    att_k: torch.Tensor          # (K,)  post-warmup attempts (incl. retries)
+    timeout_k: torch.Tensor      # (K,)  post-warmup timed-out attempts
+    drop_k: torch.Tensor         # (K,)  post-warmup dropped requests
+    open_km: torch.Tensor        # (K, M) post-warmup breaker-open step counts
+
+
+class StepSeries(NamedTuple):
+    """Per-step scalar streams (leading axis T)."""
+    succ: torch.Tensor      # (T,) fleet-wide QoS successes this step
+    issued: torch.Tensor    # (T,) fleet-wide issued requests this step
+    regret: torch.Tensor    # (T,) system regret this step
+    attempts: torch.Tensor  # (T,) fleet-wide attempts
+
+
+class StreamOutputs(NamedTuple):
+    """``ctrl`` (control counters) and ``rec`` (flight recorder) are
+    ``None`` on this path, as on every open-loop reference run."""
+    acc: MetricAccumulator
+    series: StepSeries
+    ctrl: object = None
+    rec: object = None
+
+
+def init_accumulator(K: int, M: int, C: int, bins: int = PROC_HIST_BINS, *,
+                     n_marks: int, ev_buckets: int,
+                     device: torch.device) -> MetricAccumulator:
+    """Zeroed accumulator; ``n_marks``/``ev_buckets`` must match the
+    drivers (``scenarios.MAX_MARKS``) and ``SimConfig.ev_buckets``."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return MetricAccumulator(
+        succ_kc=z(K, C), n_kc=z(K, C), arrivals_m=z(M),
+        choice_counts=z(K, M), proc_hist=z(M, bins), regret_k=z(K),
+        vb_k=z(K), prev_mu=z(K, M), steps_measured=z(),
+        ev_succ=z(n_marks, 1 + ev_buckets), ev_n=z(n_marks, 1 + ev_buckets),
+        att_k=z(K), timeout_k=z(K), drop_k=z(K), open_km=z(K, M))
+
+
+def update_accumulator(
+    acc: MetricAccumulator,
+    *,
+    rewards: torch.Tensor,      # (K, C) 1/0 QoS outcome (unmasked)
+    issued: torch.Tensor,       # (K, C) bool request-issued mask
+    choices: torch.Tensor,      # (K, C) selected instance
+    procs: torch.Tensor,        # (K, C) processing-latency component
+    arrivals: torch.Tensor,     # (M,)  arrivals this step
+    regret: torch.Tensor,       # (K,)  per-player oracle regret this step
+    mu: torch.Tensor,           # (K, M) true success probabilities this step
+    t_idx: int,                 # global step index (a host integer)
+    warmup_steps: int,
+    marks: torch.Tensor | None = None,   # (E,) event-onset steps, -1 padded
+    ev_pre_steps: int = 1,
+    ev_bucket_steps: int = 1,
+    attempts: torch.Tensor | None = None,
+    dropped: torch.Tensor | None = None,
+    brk_open: torch.Tensor | None = None,
+    served: torch.Tensor | None = None,
+) -> MetricAccumulator:
+    """One on-device accumulator update; everything here is O(K·M).
+
+    ``t_idx`` is a host integer (the step loop runs on the host), so the
+    warmup and first-step gates cost no device work."""
+    K, C = rewards.shape
+    M, B = acc.proc_hist.shape
+    dev = rewards.device
+    issf = issued.to(torch.float32)
+    servf = issf if served is None else served.to(torch.float32)
+    meas = 1.0 if t_idx >= warmup_steps else 0.0
+    ch = choices.to(torch.int64)
+
+    # latency sketch + routing histogram: one flat index_add_ each
+    pbin = torch.clamp(torch.searchsorted(_edges(dev), procs, right=False),
+                       0, B - 1)
+    hist_upd = torch.zeros(M * B, dtype=torch.float32, device=dev).index_add_(
+        0, (ch * B + pbin).reshape(-1), servf.reshape(-1)).reshape(M, B)
+    kidx = torch.arange(K, device=dev)[:, None]
+    choice_upd = torch.zeros(K * M, dtype=torch.float32, device=dev).index_add_(
+        0, (kidx * M + ch).reshape(-1), servf.reshape(-1)).reshape(K, M)
+
+    # event-relative recovery windows: rows outside every window add 0.0
+    # to slot 0 where the reference drops them (x + 0.0 == x)
+    ev_succ, ev_n = acc.ev_succ, acc.ev_n
+    if marks is not None:
+        E, B1 = ev_succ.shape
+        rel = t_idx - marks.to(torch.int64)
+        pre = (rel >= -ev_pre_steps) & (rel < 0)
+        pb = torch.where(rel >= 0,
+                         torch.div(rel, ev_bucket_steps, rounding_mode="floor"),
+                         B1)
+        slot = torch.where(pre, 0, 1 + pb)
+        valid = (marks >= 0) & (pre | ((rel >= 0) & (pb < B1 - 1)))
+        slot = torch.where(valid, slot, 0)
+        eidx = torch.arange(E, device=dev)
+        vf = valid.to(torch.float32)
+        ev_succ = ev_succ.index_put((eidx, slot), vf * (rewards * issf).sum(),
+                                    accumulate=True)
+        ev_n = ev_n.index_put((eidx, slot), vf * issf.sum(), accumulate=True)
+
+    att = issf if attempts is None else attempts.to(torch.float32)
+    dropf = (torch.zeros_like(issf) if dropped is None
+             else dropped.to(torch.float32))
+    completed = issf * (1.0 - dropf)
+    open_upd = (acc.open_km if brk_open is None
+                else acc.open_km + meas * brk_open.to(torch.float32))
+
+    if t_idx > 0:
+        vb_step = torch.abs(mu - acc.prev_mu).max(-1).values
+    else:
+        vb_step = torch.zeros_like(acc.vb_k)
+    return MetricAccumulator(
+        succ_kc=acc.succ_kc + meas * rewards * issf,
+        n_kc=acc.n_kc + meas * issf,
+        arrivals_m=acc.arrivals_m + meas * arrivals,
+        choice_counts=acc.choice_counts + meas * choice_upd,
+        proc_hist=acc.proc_hist + meas * hist_upd,
+        regret_k=acc.regret_k + regret,
+        vb_k=acc.vb_k + vb_step,
+        prev_mu=mu,
+        steps_measured=acc.steps_measured + meas,
+        ev_succ=ev_succ,
+        ev_n=ev_n,
+        att_k=acc.att_k + meas * att.sum(-1),
+        timeout_k=acc.timeout_k + meas * (att - completed).sum(-1),
+        drop_k=acc.drop_k + meas * dropf.sum(-1),
+        open_km=open_upd,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Readouts (host side).
+# ---------------------------------------------------------------------------
+
+def _np(x, dtype=None) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def per_client_success_stream(acc: MetricAccumulator):
+    """(K, C) per-client success ratio + presence mask (Fig. 5)."""
+    s, n = _np(acc.succ_kc), _np(acc.n_kc)
+    return s / np.maximum(n, 1), n > 0
+
+
+def _qos_satisfaction(ratio, present, rho) -> float:
+    ok = (ratio >= rho) & present
+    return 100.0 * ok.sum() / max(present.sum(), 1)
+
+
+def client_qos_satisfaction_stream(acc: MetricAccumulator,
+                                   rho: float) -> float:
+    """% of clients whose success ratio >= rho (Fig. 3)."""
+    ratio, present = per_client_success_stream(acc)
+    return _qos_satisfaction(ratio, present, rho)
+
+
+def _jain(x: np.ndarray, reachable: np.ndarray | None) -> float:
+    if reachable is not None:
+        x = x[reachable]
+    s = x.sum()
+    if s <= 0:
+        return 0.0
+    return float(s * s / (len(x) * (x * x).sum()))
+
+
+def jain_fairness_stream(acc: MetricAccumulator,
+                         reachable: np.ndarray | None = None) -> float:
+    """Jain's index over per-instance request totals (Fig. 4)."""
+    return _jain(_np(acc.arrivals_m), reachable)
+
+
+def request_rate_per_instance_stream(acc: MetricAccumulator,
+                                     dt: float) -> np.ndarray:
+    """(M,) average req/s per instance (Fig. 7)."""
+    steps = max(float(_np(acc.steps_measured)), 1.0)
+    return _np(acc.arrivals_m) / (steps * dt)
+
+
+def proc_latency_quantile_stream(acc: MetricAccumulator,
+                                 q: float = 0.9) -> np.ndarray:
+    """(M,) q-quantile of processing latency from the histogram sketch
+    (Fig. 8)."""
+    hist = _np(acc.proc_hist, np.float64)
+    M, B = hist.shape
+    centers = np.empty(B)
+    centers[0] = _PROC_EDGES[0]
+    centers[1:-1] = np.sqrt(_PROC_EDGES[:-1] * _PROC_EDGES[1:])
+    centers[-1] = _PROC_EDGES[-1]
+    n = hist.sum(1)
+    rank = q * np.maximum(n - 1.0, 0.0)
+    cum = hist.cumsum(1)
+    idx = np.argmax(cum > rank[:, None], axis=1)
+    return np.where(n > 0, centers[idx], 0.0)
+
+
+def _rolling_ratio(r: np.ndarray, n: np.ndarray,
+                   window_steps: int) -> np.ndarray:
+    """(T,) windowed sum(r)/sum(n) with a growing left edge."""
+    T = len(r)
+    cs_r = np.concatenate([[0.0], np.cumsum(r, dtype=np.float64)])
+    cs_n = np.concatenate([[0.0], np.cumsum(n, dtype=np.float64)])
+    lo = np.maximum(0, np.arange(T) - window_steps + 1)
+    hi = np.arange(1, T + 1)
+    return (cs_r[hi] - cs_r[lo]) / np.maximum(cs_n[hi] - cs_n[lo], 1.0)
+
+
+def rolling_qos_series(series: StepSeries, window_steps: int) -> np.ndarray:
+    """(T,) rolling overall QoS success rate from the per-step streams
+    (Fig. 6)."""
+    return _rolling_ratio(_np(series.succ),
+                          _np(series.issued).astype(np.float64),
+                          window_steps)

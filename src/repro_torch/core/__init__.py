@@ -1,0 +1,36 @@
+"""QEdgeProxy core in PyTorch: the MP-MAB bandit (``bandit.py``), KDE
+QoS estimation (``kde.py``), SWRR routing (``swrr.py``), oracle regret
+(``oracle.py``) and player-indexed randomness that reproduces
+``jax.random`` (``prand.py``)."""
+from repro_torch.core.bandit import (
+    BanditParams,
+    BanditState,
+    init_state,
+    instance_added,
+    instance_removed,
+    maintenance,
+    maintenance_subset,
+    record,
+    record_feedback,
+    record_rings_batch,
+    select,
+    sync_active,
+)
+from repro_torch.core.kde import (
+    empirical_success_prob,
+    kde_success_prob,
+    masked_quantile,
+    normal_cdf,
+    silverman_bandwidth,
+)
+from repro_torch.core.oracle import oracle_weights, step_regret, variation_budget
+from repro_torch.core.swrr import swrr_select
+
+__all__ = [
+    "BanditParams", "BanditState", "init_state", "select", "record",
+    "record_feedback", "record_rings_batch", "maintenance",
+    "maintenance_subset", "instance_added", "instance_removed",
+    "sync_active", "kde_success_prob", "empirical_success_prob",
+    "silverman_bandwidth", "masked_quantile", "normal_cdf",
+    "oracle_weights", "step_regret", "variation_budget", "swrr_select",
+]

@@ -1,0 +1,42 @@
+"""Device dispatch for the port's kernels.
+
+A tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
+any other tensor goes to the CUDA kernel, which launches or raises (a
+missing ``nvcc``, a failed build, a tensor the kernel does not take, a
+refused launch). There is no mode switch and no fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import kde as _kde
+from repro_torch.kernels import ref
+from repro_torch.kernels import round_fused as _round
+
+
+def _on_host(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def bandit_maintenance_stats(lat, mask, rtt, tau, rho, min_bandwidth=1e-4):
+    """Fused Alg-1 window stats per (player, arm) row: Silverman
+    bandwidth + Gaussian-CDF success prob at tau + masked rho-quantile
+    of ``max(lat - rtt, 0)``. (rows, R) -> ((rows,), (rows,))."""
+    if _on_host(lat):
+        return ref.bandit_maintenance_stats(lat, mask, rtt, tau, rho,
+                                            min_bandwidth)
+    return _kde.fused_maintenance(lat, mask, rtt, tau, rho, min_bandwidth)
+
+
+def round_step(weights, cw, err, cooldown_until, in_pool, active,
+               lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
+               q, nc, z, rtt_t, s_m, served_per_round, t,
+               tau: float, err_thresh: int, cooldown: float):
+    """Fused simulator round: all C SWRR rounds of one step (selection,
+    shared-queue recursion, feedback control, ring writes). Returns a
+    ``ref.RoundStepOut``; the inputs are left untouched."""
+    fn = ref.round_step_swrr if _on_host(weights) else _round.round_step_swrr
+    return fn(weights, cw, err, cooldown_until, in_pool, active,
+              lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
+              q, nc, z, rtt_t, s_m, served_per_round, t,
+              tau=tau, err_thresh=err_thresh, cooldown=cooldown)
