@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check its kernels.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check its kernels.
 
     python3 chip_smoke.py                       # the check: one card, minutes
-    python3 chip_smoke.py --profile build/prof  # also a profiler breakdown
+    python3 chip_smoke.py --profile build/prof  # also profiler breakdowns
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device   -- the card (``nvidia-smi`` name and power limit).
 2. build    -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
 3. kernels  -- each CUDA kernel against its plain PyTorch version on the
-               card, at the main path's shapes and at a small one.
+               card, at the main paths' shapes and at small ones.
 4. testbed  -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                testbed for 180 s; at least 90% of clients must reach rho.
-5. fleet    -- the K=1000 x M=50 anchor cell for 300 steps; both kernels
-               must launch once per step.
-6. times    -- each kernel, its plain version and its bound, at the
-               fleet shapes, by CUDA events.
+5. fleet    -- the K=1000 x M=50 anchor cell for 300 steps; both simulator
+               kernels must launch once per step.
+6. serve    -- ``repro_torch.launch.serve`` with qwen3-4b at its published
+               width behind the QEdgeProxy router (3 replicas, one slow);
+               every request answers with finite logits, the attention
+               kernels launch once per layer per prefill / decode call,
+               maintenance once per router maintenance, and every
+               front-end weighs the slow replica below each fast one.
+7. times    -- each kernel, its plain version, the one PyTorch call that
+               computes the same function (where there is one) and its
+               bound, at the main paths' shapes, by CUDA events; then
+               serve_shares: each attention kernel's time x launches
+               over the serve run's median prefill / decode call.
+8. profile  -- with ``--profile``: torch.profiler over 20 fleet steps and
+               over one serving prefill and one decode call.
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -23,6 +34,8 @@ line and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -33,6 +46,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
 
 MAINT_TOL = 1e-5    # |mu| error: 64-term sums reassociated, CUDA erff/powf ULPs
 ROUND_RTOL = 0.0    # the round kernel rounds every float as its plain version
@@ -43,6 +57,28 @@ FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
 # the testbed's
 KERNEL_SIZES = ((-(-FLEET["K"] // 10) * FLEET["M"], FLEET["K"], FLEET["M"]),
                 (30, 30, 10))
+
+# The serving cell: qwen3-4b at its published width; a prompt of 1000 is
+# not a multiple of the prefill kernel's 64-row blocks and the 1016-slot
+# cache ends mid-tile in decode.
+SERVE = dict(replicas=3, frontends=4, requests=30, batch=4, prompt_len=1000,
+             decode_steps=16, tau=1.0, slow_replica=2)
+HEADS = dict(Hq=32, Hkv=8, D=128)                  # qwen3-4b attention
+# max |kernel - plain| at unit-scale inputs: float32 sums reassociated,
+# CUDA's expf; bfloat16 outputs round to 2**-8 of their magnitude
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (B, Hq, Hkv, S, D, dtype, causal, window): the serve prefill first
+FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
+                HEADS["D"], "bfloat16", True, None),
+               (2, 4, 2, 200, 64, "float32", True, 48),
+               (2, 4, 1, 130, 32, "float32", False, None),
+               (1, 4, 4, 40, 16, "float32", False, 8))
+# (B, Hq, Hkv, S, D, dtype, lengths): the serve decode cache first
+DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
+                 SERVE["prompt_len"] + SERVE["decode_steps"], HEADS["D"],
+                 "bfloat16", (1, 512, 513, 1016)),
+                (2, 8, 2, 100, 64, "float32", (1, 64)),
+                (2, 4, 1, 40, 16, "float32", (40, 17)))
 
 
 def emit(**fields) -> None:
@@ -135,6 +171,29 @@ def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev):
                  for a in arrays) + (float(t),)
 
 
+def attention_inputs(B: int, Hq: int, Hkv: int, S: int, D: int, dtype: str,
+                     seed: int, dev):
+    """Unit-scale prefill q (B,Hq,S,D), k and v (B,Hkv,S,D), drawn on the
+    card from a seeded generator."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=dev)
+                 .to(getattr(torch, dtype))
+                 for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+
+
+def decode_inputs(B: int, Hq: int, Hkv: int, S: int, D: int, dtype: str,
+                  lengths, seed: int, dev):
+    """Unit-scale decode q (B,Hq,D), a cache k and v (B,Hkv,S,D), and the
+    (B,) int32 valid lengths."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev)
+               .to(getattr(torch, dtype))
+               for shape in ((B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
 # ---------------------------------------------------------------------------
 # Phases.
 # ---------------------------------------------------------------------------
@@ -181,7 +240,45 @@ def phase_kernels(dev) -> dict:
         trips = int((args[3] != out.cooldown_until).sum())
         emit(phase="kernels", kernel="round_step_swrr", K=K, M=M, C=8,
              R=64, Rq=512, exact=True, max_abs_err=worst, trips=trips)
+
+    from repro_torch.kernels import decode_attention, flash_attention
+    for seed, case in enumerate(FLASH_CASES, 10):
+        B, Hq, Hkv, S, D, dtype, causal, window = case
+        q, k, v = attention_inputs(B, Hq, Hkv, S, D, dtype, seed, dev)
+        out = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        plain = ref.attention(q, k, v, causal=causal, window=window)
+        err = check_close("flash_attention", out, plain, ATTN_TOL[dtype])
+        errs.setdefault("flash_attention", err)
+        emit(phase="kernels", kernel="flash_attention", B=B, Hq=Hq, Hkv=Hkv,
+             S=S, D=D, dtype=dtype, causal=causal, window=window,
+             max_abs_err=err, tol=ATTN_TOL[dtype])
+    for seed, case in enumerate(DECODE_CASES, 20):
+        B, Hq, Hkv, S, D, dtype, lengths = case
+        q, k, v, length = decode_inputs(B, Hq, Hkv, S, D, dtype, lengths,
+                                        seed, dev)
+        out = decode_attention.decode_attention(q, k, v, length)
+        plain = ref.decode_attention(q, k, v, length)
+        err = check_close("decode_attention", out, plain, ATTN_TOL[dtype])
+        errs.setdefault("decode_attention", err)
+        emit(phase="kernels", kernel="decode_attention", B=B, Hq=Hq,
+             Hkv=Hkv, S=S, D=D, dtype=dtype, lengths=list(lengths),
+             max_abs_err=err, tol=ATTN_TOL[dtype])
     return errs
+
+
+def check_close(name: str, out, plain, tol: float) -> float:
+    """max |out - plain| in float32; raises past ``tol`` (NaN included)
+    or on a shape or dtype that differs."""
+    import torch
+    torch.cuda.synchronize()
+    if out.shape != plain.shape or out.dtype != plain.dtype:
+        raise AssertionError(f"{name}: {out.shape} {out.dtype} != plain "
+                             f"{plain.shape} {plain.dtype}")
+    err = (out.float() - plain.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name}: max abs error {err} > {tol}")
+    return err
 
 
 def check_conservation(acc) -> None:
@@ -260,9 +357,77 @@ def phase_fleet(dev) -> dict:
     return launches
 
 
+def phase_serve(dev) -> dict:
+    """The serving cell through the launcher a user runs; the launches
+    prove the path. Returns the launch counts and the per-call medians."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention, flash_attention, kde
+    from repro_torch.launch import serve
+    argv = ["--device", "cuda"]
+    for key, val in SERVE.items():
+        argv += [f"--{key.replace('_', '-')}", str(val)]
+    cfg = get_config("qwen3-4b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = (flash_attention.flash_attention,
+               decode_attention.decode_attention, kde.fused_maintenance)
+    for fn in kernels:
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        router = serve.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    *text, last = out.getvalue().strip().splitlines()
+    print("\n".join(text), file=sys.stderr)
+    rep = json.loads(last)
+    prefill_ms = float(np.median(rep["prefill_s"])) * 1e3
+    decode_ms = float(np.median(rep["decode_s"])) * 1e3
+    w = router.weights
+    slow = SERVE["slow_replica"]
+    fast = [m for m in range(SERVE["replicas"]) if m != slow]
+    emit(phase="serve", arch=rep["arch"], layers=cfg.num_layers,
+         d_model=cfg.d_model, params=cfg.param_count(), argv=argv,
+         seconds=secs, microbatches=rep["microbatches"],
+         prefills=rep["prefills"], decodes=rep["decodes"],
+         maintenance_calls=rep["maintenance_calls"], launches=launches,
+         prefill_ms_median=prefill_ms, decode_ms_median=decode_ms,
+         decode_tokens_per_s=SERVE["batch"] / decode_ms * 1e3,
+         decode_tokens_per_s_all=SERVE["batch"] * rep["decodes"]
+         / sum(rep["decode_s"]),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         qos_success_pct=100.0 * rep["qos_ok"] / rep["microbatches"],
+         weights=w.tolist(), qos_estimates=router.qos_estimates.tolist())
+    if rep["arch"] != cfg.name:
+        raise AssertionError(f"served {rep['arch']}, not {cfg.name}")
+    if not rep["logits_finite"]:
+        raise AssertionError("non-finite logits in a served request")
+    want = SERVE["requests"] * SERVE["frontends"]
+    if rep["microbatches"] != want or rep["prefills"] != want:
+        raise AssertionError(f"{rep['prefills']} prefills, {want} requests")
+    for name, n in (("flash_attention", cfg.num_layers * rep["prefills"]),
+                    ("decode_attention", cfg.num_layers * rep["decodes"]),
+                    ("fused_maintenance", rep["maintenance_calls"])):
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"the path needs {n}")
+    if not all(w[k, slow] < w[k, m] for k in range(len(w)) for m in fast):
+        raise AssertionError(f"slow replica {slow} not avoided: {w}")
+    return dict(launches=launches, layers=cfg.num_layers,
+                prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
 def phase_times(dev, launches: dict, errs: dict) -> list:
-    """Kernel, plain version and bound at the fleet shapes."""
-    from repro_torch.kernels import kde, ref, round_fused
+    """Kernel, plain version, library call and bound at the main paths'
+    shapes. The bound is the larger of the bytes the call must move
+    (each input read once, each output written once) over the memory
+    rate and its operations over the bf16 tensor-core rate."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import (decode_attention, flash_attention, kde,
+                                     ref, round_fused)
     (rows, K, M), C, R, Rq = KERNEL_SIZES[0], 8, 64, 512
     lat, mask, rtt = maintenance_inputs(rows, R, 5, dev)
     m_args = (lat, mask, rtt, 0.08, 0.9)
@@ -273,41 +438,70 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
     r_bytes = (nbytes(*r_args[:18])
                + nbytes(*(x for i, x in enumerate(state_in) if i != 5))
                + 2 * M * 4 + 3 * K * C * 4)        # q, arrivals; choices, lats, procs
+
+    B, Hq, Hkv, S, D, dtype, _, _ = FLASH_CASES[0]
+    fq, fk, fv = attention_inputs(B, Hq, Hkv, S, D, dtype, 30, dev)
+    f_bytes = 2 * nbytes(fq) + nbytes(fk, fv)            # out is q's size
+    f_flops = 4 * B * Hq * D * S * (S + 1) // 2          # causal pairs
+    Sc = DECODE_CASES[0][3]                              # last decode step
+    dq, dk, dv, dlen = decode_inputs(B, Hq, Hkv, Sc, D, dtype, [Sc] * B, 31,
+                                     dev)
+    d_bytes = 2 * nbytes(dq) + nbytes(dk, dv) + nbytes(dlen)
+    d_flops = 4 * Hq * D * Sc * B
+    live = (torch.arange(Sc, device=dev)[None, :] < dlen[:, None])
+    d_mask = live[:, None, None, :]
     rows_out = []
-    for name, src, replaces, kern, plain, args, kwargs, by, iters in (
+    for (name, src, replaces, kern, plain, library, args, kwargs, by, ops,
+         iters) in (
             ("round_step_swrr", "src/repro_torch/kernels/csrc/round_fused.cu",
              "src/repro/kernels/round_fused.py:183",
-             round_fused.round_step_swrr, ref.round_step_swrr, r_args, kw,
-             r_bytes, 20),
+             round_fused.round_step_swrr, ref.round_step_swrr, None, r_args,
+             kw, r_bytes, 0, 20),
             ("fused_maintenance", "src/repro_torch/kernels/csrc/maintenance.cu",
              "src/repro/kernels/kde.py:127", kde.fused_maintenance,
-             ref.bandit_maintenance_stats, m_args, {}, m_bytes, 200)):
+             ref.bandit_maintenance_stats, None, m_args, {}, m_bytes, 0, 200),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:97",
+             flash_attention.flash_attention, ref.attention,
+             lambda: F.scaled_dot_product_attention(
+                 fq, fk, fv, is_causal=True, enable_gqa=True),
+             (fq, fk, fv), {}, f_bytes, f_flops, 20),
+            ("decode_attention",
+             "src/repro_torch/kernels/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:64",
+             decode_attention.decode_attention, ref.decode_attention,
+             lambda: F.scaled_dot_product_attention(
+                 dq[:, :, None], dk, dv, attn_mask=d_mask, enable_gqa=True),
+             (dq, dk, dv, dlen), {}, d_bytes, d_flops, 200)):
         ms = cuda_ms(lambda: kern(*args, **kwargs), iters)
         plain_ms = cuda_ms(lambda: plain(*args, **kwargs), max(iters // 10, 3))
+        library_ms = None if library is None else cuda_ms(library, iters)
+        bytes_ms = by / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_FLOP_PER_S * 1e3
         rows_out.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=by / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes", library_ms=None))
-        emit(phase="times", bytes=by, **rows_out[-1])
+            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=library_ms))
+        emit(phase="times", bytes=by, flops=ops, **rows_out[-1])
     return rows_out
 
 
-def phase_profile(dev, trace_dir: Path) -> None:
-    """torch.profiler over 20 fleet steps: device time by kernel name.
-    The busy time sums the device-side events only (an op's device time
-    repeats its kernels')."""
+def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
+    """Run ``fn`` once under torch.profiler and emit the device time by
+    kernel name and the busy share of the wall time. The busy time sums
+    the device-side events only (an op's device time repeats its
+    kernels')."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.continuum import run_sim_stream
-    cfg, rtt = fleet_inputs(dev, 2.0)
-    run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -316,21 +510,50 @@ def phase_profile(dev, trace_dir: Path) -> None:
     dev_us = sum(e.self_device_time_total for e in kernels)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::")), key=lambda e: -e.count)
-    emit(phase="profile", steps=cfg.num_steps, wall_s=wall,
-         device_busy_us=dev_us, device_busy_share=dev_us / (wall * 1e6),
+    emit(phase="profile", path=name, wall_s=wall, device_busy_us=dev_us,
+         device_busy_share=dev_us / (wall * 1e6),
          kernel_launches=sum(e.count for e in kernels),
          top_kernels=[dict(name=e.key[:60], us=e.self_device_time_total,
                            calls=e.count) for e in kernels[:8]],
-         top_ops=[dict(name=e.key, calls=e.count) for e in ops[:8]])
+         top_ops=[dict(name=e.key, calls=e.count) for e in ops[:8]],
+         **fields)
     trace_dir.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(trace_dir / "fleet_trace.json"))
+    prof.export_chrome_trace(str(trace_dir / f"{name}_trace.json"))
+
+
+def phase_profile(dev, trace_dir: Path) -> None:
+    """Profiler breakdowns: 20 fleet steps; one prefill and one decode
+    call of the serving cell's model (qwen3-4b, batch 4, prompt 1000)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.continuum import run_sim_stream
+    from repro_torch.models import build_model
+    cfg, rtt = fleet_inputs(dev, 2.0)
+    run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
+    profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
+             "fleet", trace_dir, steps=cfg.num_steps)
+
+    mcfg = get_config("qwen3-4b")
+    model = build_model(mcfg, device=dev)
+    B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    _, cache = model.prefill({"tokens": tokens}, max_len=S + steps)   # warm
+    model.decode(cache, {"token": token, "pos": S})
+    profiled(lambda: model.prefill({"tokens": tokens}, max_len=S + steps),
+             "prefill", trace_dir, batch=B, prompt=S)
+    profiled(lambda: model.decode(cache, {"token": token, "pos": S + 1}),
+             "decode", trace_dir, batch=B, cache_slots=S + steps)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="add a torch.profiler breakdown of fleet steps and "
-                         "write its Chrome trace to DIR/fleet_trace.json")
+                    help="add torch.profiler breakdowns of fleet steps and of "
+                         "a serving prefill and decode call, and write their "
+                         "Chrome traces to DIR/{fleet,prefill,decode}_trace.json")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -353,7 +576,18 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_testbed(dev)
     launches = phase_fleet(dev)
+    served = phase_serve(dev)
+    launches.update({k: n for k, n in served["launches"].items()
+                     if k not in launches})
     kernels = phase_times(dev, launches, errs)
+    times = {row["name"]: row["ms"] for row in kernels}
+    # kernel time x launches per call over the serve run's median call
+    emit(phase="serve_shares",
+         flash_share_of_prefill=served["layers"] * times["flash_attention"]
+         / served["prefill_ms"],
+         decode_share_of_decode=served["layers"] * times["decode_attention"]
+         / served["decode_ms"],
+         maintenance_launches_in_serve=served["launches"]["fused_maintenance"])
     if args.profile is not None:
         phase_profile(dev, args.profile)
     print(smi)

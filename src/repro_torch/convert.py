@@ -11,16 +11,22 @@ JAX PRNG key is ``uint32[2]`` (``jax.random.key_data`` of a typed key,
 or a raw ``PRNGKey``), and the port keeps key words in int64 (see
 ``core.prand``). NamedTuples are matched by field name, so a JAX
 ``BanditState`` converts to the port's ``BanditState``.
+
+``model_params_to_torch`` carries a model's weights: the JAX package's
+``init_params`` pytree (as numpy, layers stacked on a leading L axis)
+into the port's ``Model``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.continuum.metrics import MetricAccumulator
 from repro_torch.continuum.scenarios import Drivers
 from repro_torch.core.bandit import BanditState
 from repro_torch.device import resolve_device
+from repro_torch.models.model_zoo import Model, build_model
 
 # The step carry's 9 slots, as the reference's ``build_sim_parts`` lays
 # them out; the last three are None on the ported path.
@@ -99,3 +105,33 @@ def carry_to_numpy(carry) -> tuple:
             array_to_numpy(prev_active),
             None if acc is None else _tuple_to_numpy(acc),
             array_to_numpy(groups), array_to_numpy(pids), *rest)
+
+
+def _flatten(tree, prefix: str = ""):
+    for name, sub in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            yield from _flatten(sub, key + ".")
+        else:
+            yield key, np.asarray(sub)
+
+
+def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
+    """The reference's ``init_params(key, cfg)`` pytree (numpy leaves:
+    ``embed.tok``/``embed.unembed``, ``final_norm``, ``layers.*`` with
+    a leading L axis) as the port's ``Model`` on ``device``. Matrices
+    are cast once to ``cfg.dtype`` (the reference casts at every use,
+    with the same rounding); norm weights stay float32. A missing,
+    extra or misshapen leaf raises (``load_state_dict``, strict)."""
+    model = build_model(cfg, device=device)
+    state = {}
+    for key, arr in _flatten(params):
+        if key.startswith("layers."):
+            rest = key[len("layers."):]
+            for i in range(arr.shape[0]):
+                state[f"params.layers.{i}.{rest}"] = torch.from_numpy(
+                    np.array(arr[i], copy=True))
+        else:
+            state[f"params.{key}"] = torch.from_numpy(np.array(arr, copy=True))
+    model.load_state_dict(state, strict=True)
+    return model

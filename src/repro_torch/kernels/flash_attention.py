@@ -1,0 +1,74 @@
+"""Causal GQA prefill attention as a CUDA kernel for Hopper.
+
+Port of the TPU kernel ``repro/kernels/flash_attention.py::
+flash_attention``: query head h attends over kv head ``h // (Hq /
+Hkv)`` with a causal mask, an optional sliding window and an online
+softmax over kv tiles, in float32 inside. The kernel is
+``csrc/flash_attention.cu`` (one CTA per (batch row, head, 64-row q
+block); its header says what bounds it and why it is built so);
+``ref.attention`` is its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+@functools.cache
+def _launcher():
+    return _build.function("flash_attention_launch", [
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P])
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(f"flash_attention: {what}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention over the full sequence, as ``ref.attention``.
+
+    ``q`` (B, Hq, S, D), ``k`` and ``v`` (B, Hkv, S, D), one dtype
+    (float32 or bfloat16), contiguous on one CUDA device, Hq a multiple
+    of Hkv, D in ``HEAD_DIMS``; ``window`` None or >= 1. Returns (B, Hq,
+    S, D) in q's dtype: within float32 rounding of the plain version
+    (sums in another order, CUDA's expf). Launches on the current stream.
+    """
+    launch = _launcher()
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+             "tensors must share a CUDA device")
+    _require(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+             "q, k, v must all be float32 or all bfloat16")
+    _require(k.shape == (B, Hkv, S, D) and v.shape == k.shape
+             and Hkv > 0 and Hq % Hkv == 0, "shapes")
+    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _require(window is None or window >= 1, f"window {window} < 1")
+    _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                 for t in (q, k, v)), "tensors must be contiguous")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    scale = scale if scale is not None else D ** -0.5
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 DTYPES[q.dtype], B, Hq, Hkv, S, D, scale, int(causal),
+                 window or 0,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_launch")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

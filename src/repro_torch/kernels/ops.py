@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kde as _kde
 from repro_torch.kernels import ref
 from repro_torch.kernels import round_fused as _round
@@ -40,3 +42,18 @@ def round_step(weights, cw, err, cooldown_until, in_pool, active,
               lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
               q, nc, z, rtt_t, s_m, served_per_round, t,
               tau=tau, err_thresh=err_thresh, cooldown=cooldown)
+
+
+def attention(q, k, v, causal: bool = True, window: int | None = None,
+              scale: float | None = None):
+    """Causal GQA attention (prefill), optional sliding window.
+    (B,Hq,S,D) x (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype."""
+    fn = ref.attention if _on_host(q) else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k, v, length, scale: float | None = None):
+    """One-token GQA attention against a KV cache, each batch row masked
+    to its first ``length[b]`` slots. (B,Hq,D) -> (B,Hq,D)."""
+    fn = ref.decode_attention if _on_host(q) else _dec.decode_attention
+    return fn(q, k, v, length, scale=scale)

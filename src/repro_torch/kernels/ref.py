@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Port of the two main-path oracles in ``repro/kernels/ref.py``. They are
-what the CPU runs for the kernels (``kernels/ops.py`` sends a CPU
-tensor here), and what ``chip_smoke.py`` holds each CUDA kernel
-against on the card. On the card nothing on the main path calls them.
+Port of the oracles in ``repro/kernels/ref.py`` for the kernels the
+port has: the simulator's maintenance statistics and fused round, and
+prefill and decode attention. They are what the CPU runs for the
+kernels (``kernels/ops.py`` sends a CPU tensor here), and what
+``chip_smoke.py`` holds each CUDA kernel against on the card. On the
+card nothing on the main path calls them.
 
 Kept self-contained (no ``repro_torch.core`` imports) for the reason
 the reference gives: ``core -> kernels -> core`` would cycle.
@@ -16,6 +18,65 @@ import torch
 
 _INV_SQRT2 = 0.7071067811865476
 _F32_MAX = torch.finfo(torch.float32).max
+_NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Attention (kernels/flash_attention.py::flash_attention and
+# kernels/decode_attention.py::decode_attention). Both compute in
+# float32 (q scaled by ``scale`` before the product, masked logits set
+# to -1e30, softmax) and cast the result to q's dtype.
+# ---------------------------------------------------------------------------
+
+def attention(
+    q: torch.Tensor,            # (B, Hq, S, D)
+    k: torch.Tensor,            # (B, Hkv, S, D)
+    v: torch.Tensor,            # (B, Hkv, S, D)
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Causal GQA attention with an optional sliding window; query head
+    ``h`` reads kv head ``h // (Hq / Hkv)``. (B, Hq, S, D) in q's dtype."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = (q.float() * scale).reshape(B, Hkv, G, S, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+    idx = torch.arange(S, device=q.device)
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= idx[:, None] >= idx[None, :]
+    if window is not None:
+        mask &= idx[:, None] - idx[None, :] < window
+    p = torch.softmax(torch.where(mask, logits, _NEG), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (B, Hq, D)
+    k: torch.Tensor,            # (B, Hkv, S, D) cache
+    v: torch.Tensor,            # (B, Hkv, S, D)
+    length: torch.Tensor,       # (B,) valid cache entries
+    scale: float | None = None,
+) -> torch.Tensor:
+    """One query token per head against the first ``length[b]`` cache
+    slots of batch row b. (B, Hq, D) in q's dtype; a row with length 0
+    gets a uniform average over its S slots, as the reference's softmax
+    over all-masked logits does (the kernel returns zeros there)."""
+    B, Hq, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = (q.float() * scale).reshape(B, Hkv, G, D)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qf, k.float())
+    valid = torch.arange(S, device=q.device)[None, :] < length[:, None]
+    p = torch.softmax(torch.where(valid[:, None, None, :], logits, _NEG),
+                      dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,119 @@
+"""Shared model building blocks.
+
+Port of ``repro/models/layers.py`` for the dense decoder: RMSNorm,
+rotary embedding, token embedding and unembedding, the SwiGLU MLP, and
+their ``init_*`` functions. Weights keep the reference's layouts
+(``(in, out)`` matrices, ``x @ w``) so converted JAX weights load as
+they are. The reference casts each float32 weight to the compute dtype
+at every use; the port holds matrices in that dtype from the start (a
+cast once at load, which rounds the same way) and keeps norm weights in
+float32. The reference's ``sharding.constrain`` calls are no-ops off a
+mesh and are dropped.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
+                scale: float | None = None) -> nn.Parameter:
+    """Normal(0, 1) * scale (default ``shape[0] ** -0.5``), drawn in
+    float32 on the generator's device and stored in ``dtype``."""
+    scale = scale if scale is not None else shape[0] ** -0.5
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def zeros_f32(n: int, device) -> nn.Parameter:
+    """A float32 norm weight (``(1 + w)`` scaling, so zeros are identity)."""
+    return nn.Parameter(torch.zeros(n, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in float32, cast back.
+    ``F.rms_norm`` computes the reference's expression in that order
+    (one fused op on the card, fewer host launches)."""
+    y = F.rms_norm(x.float(), x.shape[-1:], weight=1.0 + weight.float(),
+                   eps=eps)
+    return y.to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, D: int, theta: float):
+    """(cos, sin) for ``apply_rope``: (S, D) float32 from positions (S,),
+    or (B, 1, S, D) from positions (B, S), so they broadcast over the
+    heads of (B, H, S, D). Built once per forward or decode step and
+    shared by every layer's q and k."""
+    half = D // 2
+    freq = torch.pow(theta, -torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half)
+    angles = positions[..., :, None].float() * freq            # (..., S, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if positions.ndim == 2:                                    # over heads
+        cos, sin = cos[:, None], sin[:, None]
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotary embedding of x (B, H, S, D) in float32, cast back. With
+    the signed table, ``x*cos + rotate_half(x)*sin`` rounds exactly as
+    the reference's ``[x1*cos - x2*sin, x2*cos + x1*sin]``."""
+    cos, sin = tables
+    half = x.shape[-1] // 2
+    xf = x.float()
+    rot = torch.cat([xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., S, D) with D even; positions: (S,) or
+    (B, S). The two halves of D rotate as a pair, in float32."""
+    return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, tie: bool,
+               dtype: torch.dtype) -> nn.ParameterDict:
+    # tied: the table is also the unembedding, so keep logits O(1)
+    p = {"tok": _dense_init(gen, (vocab, d), dtype,
+                            scale=d ** -0.5 if tie else 1.0)}
+    if not tie:
+        p["unembed"] = _dense_init(gen, (d, vocab), dtype)
+    return nn.ParameterDict(p)
+
+
+def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["tok"])
+
+
+def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    w = p["unembed"] if "unembed" in p else p["tok"].T
+    return x @ w
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, f: int,
+             dtype: torch.dtype) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "wi": _dense_init(gen, (d, f), dtype),
+        "wg": _dense_init(gen, (d, f), dtype),
+        "wo": _dense_init(gen, (f, d), dtype),
+    })
+
+
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``silu(g)`` in float32, cast back, times ``h``, as the
+    reference casts. PyTorch's ``silu`` on a bfloat16 tensor computes in
+    float32 and rounds once, the same numbers without the two casts."""
+    h = x @ p["wi"]
+    g = x @ p["wg"]
+    return (F.silu(g) * h) @ p["wo"]

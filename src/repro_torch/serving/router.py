@@ -1,0 +1,120 @@
+"""QEdgeProxy replica router: the paper's technique as the serving
+framework's request scheduler.
+
+Port of ``repro/serving/router.py``. *Players* are front-end request
+shards (one per ingress), *arms* are model replicas. Rewards stay
+heterogeneous (front-end <-> replica distance, per-replica load) and
+collisions stay implicit (two front-ends picking the same replica
+lengthen its batch queue), as in the paper's MP-MAB.
+
+The bandit state lives on the router's device and goes through the
+port's ``core.bandit``: on the card, ``maintenance`` runs the CUDA
+maintenance kernel. Every membership change lands in ``self.events``
+as ``(t_seconds, kind, entity, value)``. ``export_trace`` (needs the
+``obs`` layer) and ``mesh_resized`` (needs ``fault/elastic.py``) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import bandit as qb
+from repro_torch.core import prand
+from repro_torch.device import resolve_device
+
+
+class QEdgeRouter:
+    """Routes request microbatches from K front-ends to M replicas."""
+
+    def __init__(
+        self,
+        num_frontends: int,
+        num_replicas: int,
+        params: Optional[qb.BanditParams] = None,
+        rtt: Optional[np.ndarray] = None,   # (K, M) static distance [s]
+        ring: int = 64,
+        seed: int = 0,
+        device=None,
+    ):
+        self.K, self.M = num_frontends, num_replicas
+        self.device = resolve_device(device)
+        self.params = params or qb.BanditParams()
+        self.rtt = torch.as_tensor(
+            rtt if rtt is not None else np.zeros((self.K, self.M)),
+            dtype=torch.float32).to(self.device)
+        self.state = qb.init_state(
+            self.K, self.M, self.params, ring=ring,
+            key=prand.prng_key(seed, self.device), device=self.device)
+        self.t0 = time.monotonic()
+        self.events: List[tuple] = []
+
+    def _now(self) -> float:
+        return time.monotonic() - self.t0
+
+    def _log(self, kind: str, entity: int, value: float):
+        self.events.append((self._now(), kind, int(entity), float(value)))
+
+    # -- request path -------------------------------------------------
+    def route(self) -> np.ndarray:
+        """Pick a replica for each front-end's next microbatch. (K,)"""
+        choice, self.state, _ = qb.select(self.state)
+        return choice.cpu().numpy()
+
+    def feedback(self, choice: Sequence[int], latency: Sequence[float],
+                 mask: Optional[Sequence[bool]] = None):
+        """Report measured per-microbatch latencies (seconds)."""
+        dev = self.device
+        m = (torch.ones(self.K, dtype=torch.bool, device=dev) if mask is None
+             else torch.as_tensor(np.asarray(mask, bool)).to(dev))
+        self.state = qb.record(
+            self.state, self.params,
+            torch.as_tensor(np.asarray(choice, np.int32)).to(dev),
+            torch.as_tensor(np.asarray(latency, np.float32)).to(dev),
+            self._now(), m)
+
+    def maintenance(self):
+        self.state = qb.maintenance(self.state, self.params, self.rtt,
+                                    self._now())
+
+    # -- elastic / fault hooks (paper Alg 3/4) ------------------------
+    def replicas_changed(self, active: Sequence[bool]):
+        act = np.asarray(active, bool)
+        self._log("replicas_changed", -1, float(act.sum()))
+        self.state = qb.sync_active(self.state, self.params,
+                                    torch.as_tensor(act).to(self.device))
+
+    def replica_failed(self, idx: int):
+        self._log("replica_failed", idx, 0.0)
+        act = self.state.active.cpu().numpy().copy()
+        act[idx] = False
+        self.replicas_changed(act)
+
+    def replica_joined(self, idx: int):
+        self._log("replica_joined", idx, 1.0)
+        act = self.state.active.cpu().numpy().copy()
+        act[idx] = True
+        self.replicas_changed(act)
+
+    def mesh_resized(self, surviving_rows: int):
+        raise NotImplementedError("mesh_resized needs fault/elastic.py, "
+                                  "which is not ported (ROADMAP A11)")
+
+    def export_trace(self, path: str) -> dict:
+        raise NotImplementedError("export_trace needs the obs layer, which "
+                                  "is not ported (ROADMAP A9)")
+
+    # -- introspection -------------------------------------------------
+    @property
+    def weights(self) -> np.ndarray:
+        return self.state.weights.cpu().numpy()
+
+    @property
+    def qos_estimates(self) -> np.ndarray:
+        return self.state.mu_hat.cpu().numpy()
+
+    def in_cooldown(self) -> np.ndarray:
+        return (self.state.cooldown_until > self._now()).cpu().numpy()

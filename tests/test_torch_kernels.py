@@ -173,8 +173,9 @@ def test_round_step_idle_rows_issue_nothing():
 def test_build_flags_target_hopper_and_forbid_fma():
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
     assert "--fmad=false" in _build.COMPILE_FLAGS
-    assert [s.name for s in _build.sources()] == ["maintenance.cu",
-                                                  "round_fused.cu"]
+    assert [s.name for s in _build.sources()] == [
+        "decode_attention.cu", "flash_attention.cu", "maintenance.cu",
+        "round_fused.cu"]
 
 
 def _no_nvcc(monkeypatch, tmp_path):
