@@ -6,27 +6,32 @@
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. device   -- the card (``nvidia-smi`` name and power limit).
-2. build    -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
-3. kernels  -- each CUDA kernel against its plain PyTorch version on the
-               card, at the main paths' shapes and at small ones.
-4. testbed  -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
-               testbed for 180 s; at least 90% of clients must reach rho.
-5. fleet    -- the K=1000 x M=50 anchor cell for 300 steps; both simulator
-               kernels must launch once per step.
-6. serve    -- ``repro_torch.launch.serve`` with qwen3-4b at its published
-               width behind the QEdgeProxy router (3 replicas, one slow);
-               every request answers with finite logits, the attention
-               kernels launch once per layer per prefill / decode call,
-               maintenance once per router maintenance, and every
-               front-end weighs the slow replica below each fast one.
-7. times    -- each kernel, its plain version, the one PyTorch call that
-               computes the same function (where there is one) and its
-               bound, at the main paths' shapes, by CUDA events; then
-               serve_shares: each attention kernel's time x launches
-               over the serve run's median prefill / decode call.
-8. profile  -- with ``--profile``: torch.profiler over 20 fleet steps and
-               over one serving prefill and one decode call.
+1. device    -- the card (``nvidia-smi`` name and power limit).
+2. build     -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
+3. kernels   -- each CUDA kernel against its plain PyTorch version on the
+                card, at the main paths' shapes and at small ones.
+4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
+                testbed for 180 s; at least 90% of clients must reach rho.
+5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
+                simulator kernels must launch once per step.
+6. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
+                published width behind the QEdgeProxy router (3 replicas,
+                one slow); every request answers with finite logits, the
+                attention kernels launch once per layer per prefill /
+                decode call, maintenance once per router maintenance, and
+                every front-end weighs the slow replica below each fast one.
+7. decode_graph -- mamba2-1.3b's decode step replayed as a CUDA graph
+                against the same step run eagerly: exactly equal.
+   serve_ssm -- the same cell with mamba2-1.3b at its published width: the
+                SSD kernel launches once per layer per prefill, maintenance
+                once per router maintenance, the same gates.
+8. times     -- each kernel, its plain version, the one PyTorch call that
+                computes the same function (where there is one) and its
+                bound, at the main paths' shapes, by CUDA events; then
+                serve_shares: each serving kernel's time x launches over
+                its serve run's median prefill / decode call.
+9. profile   -- with ``--profile``: torch.profiler over 20 fleet steps and
+                over one prefill and one decode call of each served model.
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import subprocess
@@ -50,6 +56,8 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data shee
 
 MAINT_TOL = 1e-5    # |mu| error: 64-term sums reassociated, CUDA erff/powf ULPs
 ROUND_RTOL = 0.0    # the round kernel rounds every float as its plain version
+# KDE alone: tests/test_kernels.py's bound (64-term sums reassociated, erff)
+KDE_TOL = dict(rtol=2e-5, atol=2e-6)
 
 TESTBED_HORIZON = 180.0                     # s: the paper's run
 FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
@@ -79,6 +87,26 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                  "bfloat16", (1, 512, 513, 1016)),
                 (2, 8, 2, 100, 64, "float32", (1, 64)),
                 (2, 4, 1, 40, 16, "float32", (40, 17)))
+# SSD, element by element (|out - plain| <= atol + rtol |plain|): float32
+# to tests/test_kernels.py's rtol = atol = 1e-3 (the chunked form
+# reassociates the decays); a bfloat16 output to one bfloat16 step of
+# its own magnitude (rtol 2**-7: the two float32 results, a few ULPs
+# apart, may round to neighbouring bfloat16 values) plus atol 1e-2 for
+# outputs near 0, where float32 sums in another order over 1000 rows of
+# magnitude ~10 differ by ~1e-4
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=2.0 ** -7, atol=1e-2)}
+SSM = dict(H=64, P=64, N=128, chunk=256)           # mamba2-1.3b SSD
+# (B, S, H, P, N, chunk, dtype, model-made inputs): the serve prefill
+# first; then tests/test_kernels.py's mamba2-like case, a ragged S at the
+# reduced config's widths and a ragged S with three heads
+SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
+              SSM["N"], SSM["chunk"], "bfloat16", True),
+             (1, 256, 2, 64, 128, 128, "float32", False),
+             (2, 130, 4, 16, 8, 16, "float32", False),
+             (1, 77, 3, 32, 16, 64, "float32", True))
+# (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
+KDE_SIZES = ((65536, 64), (300, 64))
 
 
 def emit(**fields) -> None:
@@ -194,6 +222,40 @@ def decode_inputs(B: int, Hq: int, Hkv: int, S: int, D: int, dtype: str,
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
+def ssd_inputs(B: int, S: int, H: int, P: int, N: int, dtype: str,
+               model: bool, seed: int, dev):
+    """x (B,S,H,P), dt (B,S,H), A (H,), Bm and Cm (B,S,N), drawn on the
+    card. ``model``: as mamba2 makes them (dt = softplus around -2, A =
+    -linspace(1, 16)); else as tests/test_kernels.py draws them (dt in
+    [0.001, 0.1], A in [-2, -0.5])."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=gen, device=dev)
+    if model:
+        dt = F.softplus(-2.0 + 0.5 * torch.randn((B, S, H), generator=gen,
+                                                 device=dev))
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        dt = 0.001 + 0.099 * torch.rand((B, S, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    Bm = torch.randn((B, S, N), generator=gen, device=dev)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev)
+    return x.to(getattr(torch, dtype)), dt, A, Bm, Cm
+
+
+def kde_inputs(rows: int, R: int, seed: int, dev):
+    """tests/test_kernels.py's KDE inputs, with empty rows."""
+    import torch
+    rng = np.random.default_rng(seed)
+    lat = rng.exponential(0.03, (rows, R)).astype(np.float32)
+    mask = rng.uniform(size=(rows, R)) < 0.7
+    mask[0::97] = False
+    bw = rng.uniform(1e-3, 1e-2, rows).astype(np.float32)
+    return (torch.from_numpy(lat).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(bw).to(dev))
+
+
 # ---------------------------------------------------------------------------
 # Phases.
 # ---------------------------------------------------------------------------
@@ -264,6 +326,43 @@ def phase_kernels(dev) -> dict:
         emit(phase="kernels", kernel="decode_attention", B=B, Hq=Hq,
              Hkv=Hkv, S=S, D=D, dtype=dtype, lengths=list(lengths),
              max_abs_err=err, tol=ATTN_TOL[dtype])
+
+    from repro_torch.kernels import ssd
+    for seed, case in enumerate(SSD_CASES, 40):
+        B, S, H, P, N, chunk, dtype, model = case
+        args = ssd_inputs(B, S, H, P, N, dtype, model, seed, dev)
+        out = ssd.ssd(*args, chunk=chunk)
+        plain = ref.ssd(*args)
+        torch.cuda.synchronize()
+        diff = (out.float() - plain.float()).abs()
+        err = diff.max().item()
+        scale = plain.float().abs().max().item()
+        tol = SSD_TOL[dtype]
+        # the worst element's share of its own allowance (NaN fails)
+        used = (diff / (tol["atol"] + tol["rtol"] * plain.float().abs())
+                ).max().item()
+        if not (out.shape == plain.shape and out.dtype == plain.dtype
+                and used <= 1.0):
+            raise AssertionError(f"ssd {case}: max abs error {err} at output "
+                                 f"scale {scale}, {used} of the allowance "
+                                 f"{tol}")
+        errs.setdefault("ssd", err)
+        emit(phase="kernels", kernel="ssd", B=B, S=S, H=H, P=P, N=N,
+             chunk=chunk, dtype=dtype, model_inputs=model, max_abs_err=err,
+             out_max_abs=scale, out_rms=plain.float().square().mean().sqrt()
+             .item(), allowance_used=used, **tol)
+    for seed, (rows, R) in enumerate(KDE_SIZES, 50):
+        lat, mask, bw = kde_inputs(rows, R, seed, dev)
+        out = kde.kde_success_prob(lat, mask, 0.08, bw)
+        plain = ref.kde_success_prob(lat, mask, 0.08, bw)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        if not torch.allclose(out, plain, **KDE_TOL):
+            raise AssertionError(f"kde_success_prob ({rows}, {R}): max abs "
+                                 f"error {err}, tol {KDE_TOL}")
+        errs.setdefault("kde_success_prob", err)
+        emit(phase="kernels", kernel="kde_success_prob", rows=rows, R=R,
+             max_abs_err=err, **KDE_TOL)
     return errs
 
 
@@ -326,59 +425,84 @@ def fleet_inputs(dev, horizon: float):
     return cfg, torch.tensor(rtt, dtype=torch.float32, device=dev)
 
 
+def memory_baseline(dev) -> dict:
+    """Free the cuBLAS workspaces that earlier phases' matrix products
+    leave allocated, then start a new peak. Returns the bytes those
+    workspaces held and the bytes still held, which a path's peak is
+    measured above."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return dict(cublas_workspace_bytes=before - held, held_bytes=held)
+
+
+def peak_above(dev, base: dict) -> int:
+    """Peak bytes allocated since ``memory_baseline``, above what it held."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev) - base["held_bytes"]
+
+
 def phase_fleet(dev) -> dict:
     """The K=1000 x M=50 anchor cell; the launches prove the path."""
     import torch
     from repro_torch.continuum import client_qos_satisfaction_stream, run_sim_stream
     from repro_torch.kernels import kde, round_fused
     cfg, rtt = fleet_inputs(dev, FLEET["horizon"])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kde.fused_maintenance.launches = 0
-    round_fused.round_step_swrr.launches = 0
+    base = memory_baseline(dev)
+    for fn in all_kernels():
+        fn.launches = 0
     t0 = time.perf_counter()
     out = run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"round_step_swrr": round_fused.round_step_swrr.launches,
-                "fused_maintenance": kde.fused_maintenance.launches}
+                "fused_maintenance": kde.fused_maintenance.launches,
+                "kde_success_prob": kde.kde_success_prob.launches}
     steps = cfg.num_steps
     issued = out.series.issued
     emit(phase="fleet", K=FLEET["K"], M=FLEET["M"], C=8, R=64, Rq=512,
          steps=steps, seconds=secs, steps_per_s=steps / secs,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-         launches=launches,
+         peak_mem_bytes=peak_above(dev, base), **base, launches=launches,
          clients_ge_rho_pct=client_qos_satisfaction_stream(out.acc, cfg.rho),
          requests=float(issued.sum()))
     check_conservation(out.acc)
-    for name, n in launches.items():
-        if n != steps:
-            raise AssertionError(f"{name} launched {n} times in {steps} steps")
+    needs = dict(round_step_swrr=steps, fused_maintenance=steps,
+                 kde_success_prob=0)
+    for name, n in needs.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} steps, the path needs {n}")
     return launches
 
 
-def phase_serve(dev) -> dict:
-    """The serving cell through the launcher a user runs; the launches
-    prove the path. Returns the launch counts and the per-call medians."""
+def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
+                per_decode: tuple) -> dict:
+    """The serving cell through the launcher a user runs, with ``arch``
+    at its published width; the launches prove the path: each kernel of
+    ``per_prefill`` (``per_decode``) once per layer per prefill (decode
+    call), maintenance once per router maintenance. Returns the launch
+    counts and the per-call medians."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention, flash_attention, kde
+    from repro_torch.kernels import kde
     from repro_torch.launch import serve
-    argv = ["--device", "cuda"]
+    argv = ["--arch", arch, "--device", "cuda"]
     for key, val in SERVE.items():
         argv += [f"--{key.replace('_', '-')}", str(val)]
-    cfg = get_config("qwen3-4b")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels = (flash_attention.flash_attention,
-               decode_attention.decode_attention, kde.fused_maintenance)
-    for fn in kernels:
+    cfg = get_config(arch)
+    base = memory_baseline(dev)
+    for fn in all_kernels():
         fn.launches = 0
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         router = serve.main(argv)
     secs = time.perf_counter() - t0
+    kernels = (*per_prefill, *per_decode, kde.fused_maintenance,
+               kde.kde_success_prob)
     launches = {fn.__name__: fn.launches for fn in kernels}
     *text, last = out.getvalue().strip().splitlines()
     print("\n".join(text), file=sys.stderr)
@@ -388,7 +512,7 @@ def phase_serve(dev) -> dict:
     w = router.weights
     slow = SERVE["slow_replica"]
     fast = [m for m in range(SERVE["replicas"]) if m != slow]
-    emit(phase="serve", arch=rep["arch"], layers=cfg.num_layers,
+    emit(phase=phase, arch=rep["arch"], layers=cfg.num_layers,
          d_model=cfg.d_model, params=cfg.param_count(), argv=argv,
          seconds=secs, microbatches=rep["microbatches"],
          prefills=rep["prefills"], decodes=rep["decodes"],
@@ -397,7 +521,7 @@ def phase_serve(dev) -> dict:
          decode_tokens_per_s=SERVE["batch"] / decode_ms * 1e3,
          decode_tokens_per_s_all=SERVE["batch"] * rep["decodes"]
          / sum(rep["decode_s"]),
-         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         peak_mem_bytes=peak_above(dev, base), **base,
          qos_success_pct=100.0 * rep["qos_ok"] / rep["microbatches"],
          weights=w.tolist(), qos_estimates=router.qos_estimates.tolist())
     if rep["arch"] != cfg.name:
@@ -407,9 +531,13 @@ def phase_serve(dev) -> dict:
     want = SERVE["requests"] * SERVE["frontends"]
     if rep["microbatches"] != want or rep["prefills"] != want:
         raise AssertionError(f"{rep['prefills']} prefills, {want} requests")
-    for name, n in (("flash_attention", cfg.num_layers * rep["prefills"]),
-                    ("decode_attention", cfg.num_layers * rep["decodes"]),
-                    ("fused_maintenance", rep["maintenance_calls"])):
+    needs = [(fn.__name__, cfg.num_layers * rep["prefills"])
+             for fn in per_prefill]
+    needs += [(fn.__name__, cfg.num_layers * rep["decodes"])
+              for fn in per_decode]
+    needs += [("fused_maintenance", rep["maintenance_calls"]),
+              ("kde_success_prob", 0)]
+    for name, n in needs:
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"the path needs {n}")
@@ -417,6 +545,51 @@ def phase_serve(dev) -> dict:
         raise AssertionError(f"slow replica {slow} not avoided: {w}")
     return dict(launches=launches, layers=cfg.num_layers,
                 prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+
+def phase_decode_graph(dev, arch: str, steps: int = 4) -> None:
+    """The SSM decode step replayed as a CUDA graph against the same
+    step run eagerly, at the serve cell's batch and prompt: both run the
+    same kernels on the same inputs, so logits and caches must agree
+    exactly."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev)
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    _, cache = model.prefill({"tokens": tokens})
+    caches = {}
+    for mode in (False, True):
+        model.decode_graphs = mode
+        c = {"layers": tuple(t.clone() for t in cache["layers"])}
+        out = []
+        for i in range(steps):
+            tok = tokens[:, i:i + 1].to(torch.int32)
+            logits, c = model.decode(c, {"token": tok, "pos": S + i})
+            out.append(logits)
+        caches[mode] = (torch.stack(out), *c["layers"])
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(caches[False], caches[True])]
+    emit(phase="decode_graph", arch=arch, batch=B, prompt=S, steps=steps,
+         graphs=len(model._graphs),
+         max_abs_err=dict(zip(("logits", "conv_state", "ssm_state"), errs)))
+    if not all(e == 0.0 for e in errs):
+        raise AssertionError(f"graph decode differs from eager: {errs}")
+    del model, cache, caches
+
+
+def all_kernels() -> tuple:
+    """Every kernel wrapper of the port (each carries ``launches``)."""
+    from repro_torch.kernels import (decode_attention, flash_attention, kde,
+                                     round_fused, ssd)
+    return (round_fused.round_step_swrr, kde.fused_maintenance,
+            kde.kde_success_prob, flash_attention.flash_attention,
+            decode_attention.decode_attention, ssd.ssd)
 
 
 def phase_times(dev, launches: dict, errs: dict) -> list:
@@ -427,7 +600,7 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, flash_attention, kde,
-                                     ref, round_fused)
+                                     ref, round_fused, ssd)
     (rows, K, M), C, R, Rq = KERNEL_SIZES[0], 8, 64, 512
     lat, mask, rtt = maintenance_inputs(rows, R, 5, dev)
     m_args = (lat, mask, rtt, 0.08, 0.9)
@@ -450,6 +623,22 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
     d_flops = 4 * Hq * D * Sc * B
     live = (torch.arange(Sc, device=dev)[None, :] < dlen[:, None])
     d_mask = live[:, None, None, :]
+
+    B, S, H, P, N, chunk, dtype, model = SSD_CASES[0]
+    s_args = ssd_inputs(B, S, H, P, N, dtype, model, 32, dev)
+    s_bytes = nbytes(*s_args) + nbytes(s_args[0])        # y is x's size
+    tile = ssd.TILE
+    # the kernel's chunked algorithm at its tile: per tile and head the
+    # scores (2T^2 N), the intra term (2T^2 P), C.h and the state update
+    # (2TNP each); the TPU kernel's chunk of 256 needs ~3x as many
+    s_flops = B * H * -(-S // tile) * (2 * tile * tile * (N + P)
+                                      + 4 * tile * N * P)
+    s_flops_256 = B * H * -(-S // chunk) * (2 * chunk * chunk * (N + P)
+                                           + 4 * chunk * N * P)
+    k_rows, k_R = KDE_SIZES[0]
+    k_lat, k_mask, k_bw = kde_inputs(k_rows, k_R, 33, dev)
+    k_args = (k_lat, k_mask, 0.08, k_bw)
+    k_bytes = nbytes(k_lat, k_mask, k_bw) + k_rows * 4
     rows_out = []
     for (name, src, replaces, kern, plain, library, args, kwargs, by, ops,
          iters) in (
@@ -473,7 +662,14 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
              decode_attention.decode_attention, ref.decode_attention,
              lambda: F.scaled_dot_product_attention(
                  dq[:, :, None], dk, dv, attn_mask=d_mask, enable_gqa=True),
-             (dq, dk, dv, dlen), {}, d_bytes, d_flops, 200)):
+             (dq, dk, dv, dlen), {}, d_bytes, d_flops, 200),
+            ("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+             "src/repro/kernels/ssd.py:66",
+             functools.partial(ssd.ssd, chunk=chunk), ref.ssd, None, s_args,
+             {}, s_bytes, s_flops, 20),
+            ("kde_success_prob", "src/repro_torch/kernels/csrc/maintenance.cu",
+             "src/repro/kernels/kde.py:50", kde.kde_success_prob,
+             ref.kde_success_prob, None, k_args, {}, k_bytes, 0, 200)):
         ms = cuda_ms(lambda: kern(*args, **kwargs), iters)
         plain_ms = cuda_ms(lambda: plain(*args, **kwargs), max(iters // 10, 3))
         library_ms = None if library is None else cuda_ms(library, iters)
@@ -485,7 +681,8 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=library_ms))
-        emit(phase="times", bytes=by, flops=ops, **rows_out[-1])
+        extra = {"flops_chunk256": s_flops_256} if name == "ssd" else {}
+        emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
     return rows_out
 
 
@@ -523,7 +720,8 @@ def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
 
 def phase_profile(dev, trace_dir: Path) -> None:
     """Profiler breakdowns: 20 fleet steps; one prefill and one decode
-    call of the serving cell's model (qwen3-4b, batch 4, prompt 1000)."""
+    call of each serving cell's model (qwen3-4b, then mamba2-1.3b; batch
+    4, prompt 1000)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.continuum import run_sim_stream
@@ -533,27 +731,31 @@ def phase_profile(dev, trace_dir: Path) -> None:
     profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
              "fleet", trace_dir, steps=cfg.num_steps)
 
-    mcfg = get_config("qwen3-4b")
-    model = build_model(mcfg, device=dev)
     B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen,
-                           device=dev)
-    token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    _, cache = model.prefill({"tokens": tokens}, max_len=S + steps)   # warm
-    model.decode(cache, {"token": token, "pos": S})
-    profiled(lambda: model.prefill({"tokens": tokens}, max_len=S + steps),
-             "prefill", trace_dir, batch=B, prompt=S)
-    profiled(lambda: model.decode(cache, {"token": token, "pos": S + 1}),
-             "decode", trace_dir, batch=B, cache_slots=S + steps)
+    for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_")):
+        mcfg = get_config(arch)
+        model = build_model(mcfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tokens = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen,
+                               device=dev)
+        token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        _, cache = model.prefill({"tokens": tokens}, max_len=S + steps)  # warm
+        model.decode(cache, {"token": token, "pos": S})
+        profiled(lambda: model.prefill({"tokens": tokens}, max_len=S + steps),
+                 f"{tag}prefill", trace_dir, arch=arch, batch=B, prompt=S)
+        profiled(lambda: model.decode(cache, {"token": token, "pos": S + 1}),
+                 f"{tag}decode", trace_dir, arch=arch, batch=B,
+                 cache_slots=S + steps)
+        del model, cache
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
                     help="add torch.profiler breakdowns of fleet steps and of "
-                         "a serving prefill and decode call, and write their "
-                         "Chrome traces to DIR/{fleet,prefill,decode}_trace.json")
+                         "a prefill and decode call of each served model, and "
+                         "write their Chrome traces to DIR/{fleet,prefill,"
+                         "decode,ssm_prefill,ssm_decode}_trace.json")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -573,12 +775,22 @@ def main() -> int:
          ptxas=[ln.strip() for ln in
                 (_build.BUILD_DIR / "build.log").read_text().splitlines()
                 if "registers" in ln or "spill" in ln])
+    from repro_torch.kernels import decode_attention, flash_attention, ssd
     errs = phase_kernels(dev)
     phase_testbed(dev)
     launches = phase_fleet(dev)
-    served = phase_serve(dev)
-    launches.update({k: n for k, n in served["launches"].items()
-                     if k not in launches})
+    served = phase_serve(dev, "serve", "qwen3-4b",
+                         (flash_attention.flash_attention,),
+                         (decode_attention.decode_attention,))
+    phase_decode_graph(dev, "mamba2-1.3b")
+    served_ssm = phase_serve(dev, "serve_ssm", "mamba2-1.3b", (ssd.ssd,), ())
+    # each kernel's launches on its main path: the simulator kernels in the
+    # fleet run, the serving kernels in their serve runs; the KDE kernel,
+    # which no path calls, summed over all three runs
+    for run in (served, served_ssm):
+        launches.update({k: n for k, n in run["launches"].items()
+                         if k not in launches})
+        launches["kde_success_prob"] += run["launches"]["kde_success_prob"]
     kernels = phase_times(dev, launches, errs)
     times = {row["name"]: row["ms"] for row in kernels}
     # kernel time x launches per call over the serve run's median call
@@ -587,7 +799,11 @@ def main() -> int:
          / served["prefill_ms"],
          decode_share_of_decode=served["layers"] * times["decode_attention"]
          / served["decode_ms"],
-         maintenance_launches_in_serve=served["launches"]["fused_maintenance"])
+         ssd_share_of_prefill=served_ssm["layers"] * times["ssd"]
+         / served_ssm["prefill_ms"],
+         maintenance_launches_in_serve=served["launches"]["fused_maintenance"],
+         maintenance_launches_in_serve_ssm=served_ssm["launches"][
+             "fused_maintenance"])
     if args.profile is not None:
         phase_profile(dev, args.profile)
     print(smi)

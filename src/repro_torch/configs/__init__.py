@@ -8,11 +8,11 @@ are ported (ROADMAP A11).
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_4b
+from repro_torch.configs import mamba2_1_3b, qwen3_4b
 from repro_torch.configs.base import (AUDIO, DENSE, FAMILIES, HYBRID, MOE,
                                       SSM, VLM, ModelConfig)
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b,)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b, mamba2_1_3b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

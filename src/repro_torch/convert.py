@@ -119,10 +119,14 @@ def _flatten(tree, prefix: str = ""):
 def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
     """The reference's ``init_params(key, cfg)`` pytree (numpy leaves:
     ``embed.tok``/``embed.unembed``, ``final_norm``, ``layers.*`` with
-    a leading L axis) as the port's ``Model`` on ``device``. Matrices
-    are cast once to ``cfg.dtype`` (the reference casts at every use,
-    with the same rounding); norm weights stay float32. A missing,
-    extra or misshapen leaf raises (``load_state_dict``, strict)."""
+    a leading L axis: ``ln1``, ``attn.*``, ``ln2``, ``mlp.*`` for a
+    dense stack, ``ln1`` and ``ssm.{in_proj, conv_w, conv_b, A_log,
+    dt_bias, norm, out_proj}`` for an SSM stack) as the port's ``Model``
+    on ``device``. Matrices and the conv weights are cast once to
+    ``cfg.dtype`` (the reference casts at every use, with the same
+    rounding); norm weights, ``A_log`` and ``dt_bias`` stay float32. A
+    missing, extra or misshapen leaf raises (``load_state_dict``,
+    strict)."""
     model = build_model(cfg, device=device)
     state = {}
     for key, arr in _flatten(params):

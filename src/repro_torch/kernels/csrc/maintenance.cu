@@ -105,7 +105,52 @@ __global__ void maintenance_kernel(const float* __restrict__ lat,
   }
 }
 
+// The KDE success probability alone, with the bandwidths given.
+//
+// Replaces the TPU kernel repro/kernels/kde.py::kde_success_prob (body
+// _kde_kernel): per row, sum_r mask * Phi((tau - lat) / bw) / max(n, 1), or
+// 0 where n = 0, with Phi(z) = (1 + erf(z / sqrt 2)) / 2. It is the middle
+// stage of maintenance_kernel above, on the same one-warp-per-row layout
+// and warp sums. What bounds it on the H100: bytes. At the main shape of
+// its only callers (benchmarks/footprint.py, 65,536 rows of R = 64) it
+// reads 16.8 MB of latency, 4.2 MB of mask and 0.26 MB of bandwidths and
+// writes 0.26 MB: 21.5 MB, 6.4 us at 3.35 TB/s; the erff per sample is
+// ~10 operations per 5 bytes. Lanes stride the row, so a warp reads 128
+// contiguous bytes of latency per step.
+__global__ void kde_kernel(const float* __restrict__ lat,
+                           const uint8_t* __restrict__ mask,
+                           const float* __restrict__ bw,
+                           float* __restrict__ out, int rows, int R,
+                           float tau) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= rows) return;  // uniform across the warp
+  const float* lrow = lat + static_cast<size_t>(row) * R;
+  const uint8_t* mrow = mask + static_cast<size_t>(row) * R;
+  const float h = bw[row];
+  float n = 0.f, s = 0.f;
+  for (int j = lane; j < R; j += 32) {
+    const float m = mrow[j] ? 1.f : 0.f;
+    const float z = (tau - lrow[j]) / h;
+    n += m;
+    s += 0.5f * (1.f + erff(z * kInvSqrt2)) * m;
+  }
+  n = warp_sum(n);
+  s = warp_sum(s);
+  if (lane == 0) out[row] = n > 0.f ? s / fmaxf(n, 1.f) : 0.f;
+}
+
 }  // namespace
+
+// Launch on `stream`; returns the cudaError_t of the launch.
+extern "C" int kde_launch(const float* lat, const uint8_t* mask, const float* bw,
+                          float* out, int rows, int R, float tau, void* stream) {
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  kde_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      lat, mask, bw, out, rows, R, tau);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launch on `stream`; returns the cudaError_t of the launch.
 extern "C" int maintenance_launch(const float* lat, const uint8_t* mask,

@@ -1,4 +1,5 @@
-"""Fused Alg-1 maintenance statistics as a CUDA kernel for Hopper.
+"""Fused Alg-1 maintenance statistics, and the KDE success probability
+alone, as CUDA kernels for Hopper.
 
 Port of the TPU kernel ``repro/kernels/kde.py::fused_maintenance``:
 per (player, arm) row of R windowed latencies, the Silverman bandwidth,
@@ -6,7 +7,9 @@ the Gaussian-CDF success probability at tau and the masked
 rho-quantile of ``max(lat - rtt, 0)``, in one pass. The kernel is
 ``csrc/maintenance.cu`` (one warp per row; its header says what bounds
 it and why it is built so); ``ref.bandit_maintenance_stats`` is its
-plain PyTorch version.
+plain PyTorch version. ``kde_success_prob`` ports the TPU kernel of that
+name, the middle stage with the bandwidths given: the second kernel in
+``csrc/maintenance.cu``, plain version ``ref.kde_success_prob``.
 """
 from __future__ import annotations
 
@@ -27,9 +30,9 @@ def _launcher():
         ctypes.c_float, ctypes.c_float, _P])
 
 
-def _require(ok: bool, what: str) -> None:
+def _require(ok: bool, what: str, name: str = "fused_maintenance") -> None:
     if not ok:
-        raise ValueError(f"fused_maintenance: {what}")
+        raise ValueError(f"{name}: {what}")
 
 
 def fused_maintenance(lat: torch.Tensor, mask: torch.Tensor,
@@ -66,3 +69,47 @@ def fused_maintenance(lat: torch.Tensor, mask: torch.Tensor,
 
 
 fused_maintenance.launches = 0
+
+
+_KDE = "kde_success_prob"
+
+
+@functools.cache
+def _kde_launcher():
+    return _build.function("kde_launch", [
+        _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P])
+
+
+def kde_success_prob(lat: torch.Tensor, mask: torch.Tensor, tau: float,
+                     bandwidth: torch.Tensor) -> torch.Tensor:
+    """Masked mean Gaussian CDF at tau per row, one warp per row.
+
+    ``lat`` (rows, R) float32, ``mask`` (rows, R) bool, ``bandwidth``
+    (rows,) float32, all contiguous on one CUDA device. Returns (rows,)
+    float32, within a few float32 ULP of ``ref.kde_success_prob`` (warp
+    tree sums, CUDA's erff). Launches on the current stream.
+    """
+    launch = _kde_launcher()
+    rows, R = lat.shape
+    _require(lat.is_cuda and mask.device == lat.device
+             and bandwidth.device == lat.device,
+             "tensors must share a CUDA device", _KDE)
+    _require(lat.dtype == torch.float32 and bandwidth.dtype == torch.float32
+             and mask.dtype == torch.bool, "dtypes must be f32, bool, f32", _KDE)
+    _require(mask.shape == lat.shape and bandwidth.shape == (rows,), "shapes",
+             _KDE)
+    _require(lat.is_contiguous() and mask.is_contiguous()
+             and bandwidth.is_contiguous(), "tensors must be contiguous", _KDE)
+    _require(R > 0, f"R={R} < 1", _KDE)
+    out = torch.empty(rows, dtype=torch.float32, device=lat.device)
+    if rows == 0:
+        return out
+    err = launch(lat.data_ptr(), mask.data_ptr(), bandwidth.data_ptr(),
+                 out.data_ptr(), rows, R, float(tau),
+                 torch.cuda.current_stream(lat.device).cuda_stream)
+    _build.check(err, "kde_launch")
+    kde_success_prob.launches += 1
+    return out
+
+
+kde_success_prob.launches = 0

@@ -14,6 +14,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kde as _kde
 from repro_torch.kernels import ref
 from repro_torch.kernels import round_fused as _round
+from repro_torch.kernels import ssd as _ssd
 
 
 def _on_host(x: torch.Tensor) -> bool:
@@ -57,3 +58,23 @@ def decode_attention(q, k, v, length, scale: float | None = None):
     to its first ``length[b]`` slots. (B,Hq,D) -> (B,Hq,D)."""
     fn = ref.decode_attention if _on_host(q) else _dec.decode_attention
     return fn(q, k, v, length, scale=scale)
+
+
+def ssd(x, dt, A, Bm, Cm, chunk: int = 128):
+    """Mamba-2 SSD over a sequence. (B,S,H,P) -> (B,S,H,P) in x's dtype."""
+    if _on_host(x):
+        return ref.ssd(x, dt, A, Bm, Cm)
+    return _ssd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def ssd_decode_step(h, x, dt, A, Bm, Cm):
+    """O(1)-state single-token SSD update, on every device (no kernel:
+    a rank-1 update). Returns (h', y)."""
+    return ref.ssd_decode_step(h, x, dt, A, Bm, Cm)
+
+
+def kde_success_prob(lat, mask, tau, bandwidth):
+    """Batched windowed KDE P(l <= tau) with given bandwidths.
+    (rows,R) -> (rows,)."""
+    fn = ref.kde_success_prob if _on_host(lat) else _kde.kde_success_prob
+    return fn(lat, mask, tau, bandwidth)

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Port of the oracles in ``repro/kernels/ref.py`` for the kernels the
-port has: the simulator's maintenance statistics and fused round, and
-prefill and decode attention. They are what the CPU runs for the
+port has: the simulator's maintenance statistics and fused round, the
+KDE success probability, prefill and decode attention, and the Mamba-2
+SSD scan (with its single-token update, which has no kernel). They are
+what the CPU runs for the
 kernels (``kernels/ops.py`` sends a CPU tensor here), and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. On the
 card nothing on the main path calls them.
@@ -77,6 +79,76 @@ def decode_attention(
                       dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (kernels/ssd.py::ssd): the exact sequential recurrence, the
+# semantic definition the chunked kernel is held to. ngroups=1: B and C
+# are shared across heads.
+# ---------------------------------------------------------------------------
+
+def ssd(
+    x: torch.Tensor,            # (B, S, H, P) inputs per head
+    dt: torch.Tensor,           # (B, S, H) softplus'd step sizes (> 0)
+    A: torch.Tensor,            # (H,) negative state decay rates
+    Bm: torch.Tensor,           # (B, S, N) input projections
+    Cm: torch.Tensor,           # (B, S, N) output projections
+) -> torch.Tensor:
+    """``h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T``, ``y_t = C_t^T h_t``
+    in float32, the state (H, N, P) per batch row starting at zero.
+    Returns (B, S, H, P) in x's dtype. A loop over S: slow on the card,
+    it is only the plain version."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    h = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(Af * dtf[:, t])                     # (B, H)
+        h = h * decay[..., None, None] + (
+            dtf[:, t, :, None, None] * Bf[:, t, None, :, None]
+            * xf[:, t, :, None, :])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_decode_step(
+    h: torch.Tensor,            # (B, H, N, P) carried state
+    x: torch.Tensor,            # (B, H, P) current token input
+    dt: torch.Tensor,           # (B, H)
+    A: torch.Tensor,            # (H,)
+    Bm: torch.Tensor,           # (B, N)
+    Cm: torch.Tensor,           # (B, N)
+):
+    """Single-token SSD update (serving decode): a rank-1 update of the
+    state, no kernel. Returns (h' (B, H, N, P), y (B, H, P) in x's
+    dtype)."""
+    decay = torch.exp(A[None, :] * dt)                        # (B, H)
+    h = h * decay[..., None, None] + (
+        dt[..., None, None] * Bm[:, None, :, None] * x[:, :, None, :])
+    y = torch.einsum("bn,bhnp->bhp", Cm, h)
+    return h, y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KDE success probability (kernels/kde.py::kde_success_prob): the middle
+# stage of the fused maintenance, with the bandwidths given.
+# ---------------------------------------------------------------------------
+
+def kde_success_prob(
+    lat: torch.Tensor,          # (rows, R) latency windows
+    mask: torch.Tensor,         # (rows, R) validity
+    tau: float,
+    bandwidth: torch.Tensor,    # (rows,)
+) -> torch.Tensor:
+    """Masked mean Gaussian CDF at tau per row, 0 for an empty row."""
+    m = mask.to(torch.float32)
+    n = m.sum(-1)
+    z = (tau - lat.to(torch.float32)) / bandwidth[:, None]
+    cdf = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2))
+    s = (cdf * m).sum(-1)
+    return torch.where(n > 0, s / torch.clamp_min(n, 1.0), 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -117,6 +117,54 @@ def test_maintenance_plain_vs_pallas_body(rows, R):
 
 
 # ---------------------------------------------------------------------------
+# KDE success probability (the maintenance's middle stage, bandwidths given).
+# tests/test_kernels.py's sweep and tolerance.
+# ---------------------------------------------------------------------------
+
+def kde_inputs(rows: int, R: int, seed: int):
+    rng = np.random.default_rng(seed)
+    lat = rng.exponential(0.03, (rows, R)).astype(np.float32)
+    mask = rng.random((rows, R)) < 0.7
+    mask[0] = False                                               # empty row
+    bw = rng.uniform(1e-3, 1e-2, rows).astype(np.float32)
+    return lat, mask, bw
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("rows,R", [(8, 16), (300, 64), (1024, 128)])
+def test_kde_success_prob_plain_vs_reference(rows, R, oracle):
+    lat, mask, bw = kde_inputs(rows, R, rows + R)
+    if oracle == "ref":
+        want = jax.jit(lambda a, b, c: jref.kde_success_prob(a, b, 0.08, c))(
+            lat, mask, bw)
+    else:
+        want = jkde_kernel.kde_success_prob(
+            jnp.asarray(lat), jnp.asarray(mask), 0.08, jnp.asarray(bw),
+            interpret=True)
+    got = ops.kde_success_prob(T(lat), T(mask), 0.08, T(bw))
+    assert got.shape == (rows,) and got[0].item() == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-6)
+
+
+def test_kde_dispatch_raises_without_a_kernel_library(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path)
+    tkde_kernel._kde_launcher.cache_clear()
+    monkeypatch.setattr(ops, "_on_host", lambda x: False)
+    lat, mask, bw = kde_inputs(10, 16, 0)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.kde_success_prob(T(lat), T(mask), 0.08, T(bw))
+    assert tkde_kernel.kde_success_prob.launches == 0
+
+
+def test_kde_wrapper_refuses_host_tensors(monkeypatch):
+    monkeypatch.setattr(tkde_kernel, "_kde_launcher", lambda: None)
+    lat, mask, bw = kde_inputs(10, 16, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkde_kernel.kde_success_prob(T(lat), T(mask), 0.08, T(bw))
+
+
+# ---------------------------------------------------------------------------
 # Round step.
 # ---------------------------------------------------------------------------
 
@@ -175,7 +223,7 @@ def test_build_flags_target_hopper_and_forbid_fma():
     assert "--fmad=false" in _build.COMPILE_FLAGS
     assert [s.name for s in _build.sources()] == [
         "decode_attention.cu", "flash_attention.cu", "maintenance.cu",
-        "round_fused.cu"]
+        "round_fused.cu", "ssd.cu"]
 
 
 def _no_nvcc(monkeypatch, tmp_path):

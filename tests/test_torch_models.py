@@ -81,16 +81,24 @@ def f32(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_published_qwen3_4b():
-    assert ARCH_NAMES == ("qwen3-4b",)
-    for reduced in (False, True):
-        want = jax_config("qwen3-4b", reduced=reduced)
-        got = get_config("qwen3-4b", reduced=reduced)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        assert got.param_count() == want.param_count()
+    # and mamba2-1.3b: the two published configs the port builds
+    assert ARCH_NAMES == ("qwen3-4b", "mamba2-1.3b")
+    for arch in ARCH_NAMES:
+        for reduced in (False, True):
+            want = jax_config(arch, reduced=reduced)
+            got = get_config(arch, reduced=reduced)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            assert got.param_count() == want.param_count()
     full = get_config("qwen3-4b")
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.head_dim, full.d_ff, full.vocab_size) == (
                 36, 2560, 32, 8, 128, 9728, 151936)
+    ssm = get_config("mamba2-1.3b")
+    assert (ssm.family, ssm.num_layers, ssm.d_model, ssm.ssm_inner,
+            ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state, ssm.ssm_conv,
+            ssm.ssm_chunk, ssm.vocab_size, ssm.tie_embeddings, ssm.dtype) == (
+                "ssm", 48, 2048, 4096, 64, 64, 128, 4, 256, 50280, True,
+                "bfloat16")
 
 
 @pytest.mark.parametrize("arch", JAX_ARCHS)
@@ -106,10 +114,10 @@ def test_config_copy_derives_the_same_reduced_config(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="ROADMAP A11"):
-        get_config("mamba2-1.3b")
+        get_config("hymba-1.5b")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-1.3b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
                                   "hymba-1.5b", "gemma3-1b", "whisper-tiny",
                                   "internvl2-1b"])
 def test_other_families_raise(arch):
