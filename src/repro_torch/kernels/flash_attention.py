@@ -1,12 +1,16 @@
-"""Causal GQA prefill attention as a CUDA kernel for Hopper.
+"""Causal GQA prefill attention as CUDA kernels for Hopper.
 
 Port of the TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention``: query head h attends over kv head ``h // (Hq /
 Hkv)`` with a causal mask, an optional sliding window and an online
-softmax over kv tiles, in float32 inside. The kernel is
-``csrc/flash_attention.cu`` (one CTA per (batch row, head, 64-row q
-block); its header says what bounds it and why it is built so);
-``ref.attention`` is its plain PyTorch version.
+softmax over kv tiles, in float32 inside. The kernels are in
+``csrc/flash_attention.cu``, chosen by dtype alone: bfloat16 runs on the
+tensor cores (one CTA per (batch row, head, 128-row q block), K and V
+tiles loaded by TMA into a 2-stage ring by a producer warp, both
+products as ``wgmma``), float32 on the CUDA cores (exact to float32
+rounding). The work is bound by operations, ~400 FLOP a byte at the
+serving shape; the header says how each design meets that.
+``ref.attention`` is their plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -21,6 +25,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def _smem_bytes(D: int) -> int:
+    """The bfloat16 kernel's shared memory (``tc::Cfg<D>::kSmem``): 1024
+    bytes of alignment slack, the q block (128 rows, 64 at D = 256), two
+    stages of a 64-row K and V tile, five mbarriers."""
+    rows = 64 if D == 256 else 128
+    return 1024 + rows * D * 2 + 4 * 64 * D * 2 + 64
 
 
 @functools.cache
@@ -42,8 +54,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q`` (B, Hq, S, D), ``k`` and ``v`` (B, Hkv, S, D), one dtype
     (float32 or bfloat16), contiguous on one CUDA device, Hq a multiple
     of Hkv, D in ``HEAD_DIMS``; ``window`` None or >= 1. Returns (B, Hq,
-    S, D) in q's dtype: within float32 rounding of the plain version
-    (sums in another order, CUDA's expf). Launches on the current stream.
+    S, D) in q's dtype. float32: within float32 rounding of the plain
+    version (sums in another order, CUDA's expf). bfloat16: the logits
+    are scaled after the product and the probabilities enter the second
+    as two bfloat16 terms, so each output is within 2e-3 plus two
+    bfloat16 steps of its own magnitude. Launches on the current stream
+    and counts one launch a call.
     """
     launch = _launcher()
     B, Hq, S, D = q.shape
