@@ -119,24 +119,34 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
 # magnitude ~10 differ by ~1e-4
 SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
            "bfloat16": dict(rtol=2.0 ** -7, atol=1e-2)}
+SSD_WORK_TILE = 32   # rows per tile of the SSD work the bound counts
 SSM = dict(H=64, P=64, N=128, chunk=256)           # mamba2-1.3b SSD
 # (B, S, H, P, N, chunk, dtype, model-made inputs): the serve prefill
 # first; then tests/test_kernels.py's mamba2-like case, a ragged S at the
-# reduced config's widths and a ragged S with three heads
+# reduced config's widths and a ragged S with three heads; then the
+# bfloat16 passes at hymba's widths (N=16, P=64) over two chunks, the last
+# ragged, at the reduced widths (N=8, P=16), and at N=128, P=32 over three
+# chunks with 3 heads (a head group of 8 only partly filled)
 SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
               SSM["N"], SSM["chunk"], "bfloat16", True),
              (1, 256, 2, 64, 128, 128, "float32", False),
              (2, 130, 4, 16, 8, 16, "float32", False),
-             (1, 77, 3, 32, 16, 64, "float32", True))
+             (1, 77, 3, 32, 16, 64, "float32", True),
+             (2, 300, 4, 64, 16, 64, "bfloat16", True),
+             (2, 130, 4, 16, 8, 16, "bfloat16", False),
+             (1, 520, 3, 32, 128, 256, "bfloat16", False))
 # (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
 KDE_SIZES = ((65536, 64), (300, 64))
-# kernels that must build without spilling registers: the attention kernels
-# redesigned for Hopper
-NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel")
+# kernels that must build without spilling registers: the attention and SSD
+# kernels redesigned for Hopper
+SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+              "ssd_scan_kernel")
+NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel",
+            *SSD_PASSES)
 # the port's CUDA kernels by name, as the profiler and ptxas report them
 PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
                 "flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "ssd_kernel")
+                "decode_combine_kernel", "ssd_kernel", *SSD_PASSES)
 
 
 def ptxas_report(log: str) -> list:
@@ -699,14 +709,17 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
     B, S, H, P, N, chunk, dtype, model = SSD_CASES[0]
     s_args = ssd_inputs(B, S, H, P, N, dtype, model, 32, dev)
     s_bytes = nbytes(*s_args) + nbytes(s_args[0])        # y is x's size
-    tile = ssd.TILE
-    # the kernel's chunked algorithm at its tile: per tile and head the
-    # scores (2T^2 N), the intra term (2T^2 P), C.h and the state update
-    # (2TNP each); the TPU kernel's chunk of 256 needs ~3x as many
-    s_flops = B * H * -(-S // tile) * (2 * tile * tile * (N + P)
-                                      + 4 * tile * N * P)
+    # the work, whatever implements it: the chunked algorithm at 32-row
+    # tiles, per tile and head the scores (2T^2 N), the intra term
+    # (2T^2 P), C.h and the state update (2TNP each); bytes bound it. The
+    # TPU kernel's chunk of 256 needs ~3x as many, and the tensor-core
+    # passes issue their own count (padding and split terms included)
+    s_flops = B * H * -(-S // SSD_WORK_TILE) * (
+        2 * SSD_WORK_TILE * SSD_WORK_TILE * (N + P)
+        + 4 * SSD_WORK_TILE * N * P)
     s_flops_256 = B * H * -(-S // chunk) * (2 * chunk * chunk * (N + P)
                                            + 4 * chunk * N * P)
+    s_mma_flops = ssd._mma_flops(B, S, H, N, P)
     k_rows, k_R = KDE_SIZES[0]
     k_lat, k_mask, k_bw = kde_inputs(k_rows, k_R, 33, dev)
     k_args = (k_lat, k_mask, 0.08, k_bw)
@@ -754,7 +767,10 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=library_ms))
-        extra = {"flops_chunk256": s_flops_256} if name == "ssd" else {}
+        extra = ({"flops_chunk256": s_flops_256,
+                  "flops_tensor_core_passes": s_mma_flops,
+                  "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
+                      s_args[0].dtype]} if name == "ssd" else {})
         emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
     return rows_out
 

@@ -6,8 +6,11 @@ mamba2 model with the JAX package's weights carried across by
 ``repro_torch.convert.model_params_to_torch``; the serving launcher; and
 the device dispatch of the SSD kernel.
 
-The CUDA kernel runs only on the card (``chip_smoke.py`` holds it
-against its plain version there).
+The CUDA kernels run only on the card (``chip_smoke.py`` holds them
+against their plain version there); here the bf16 kernel's arithmetic
+(its operands as bf16 terms) is modelled in torch and scored against the
+plain version with ``chip_smoke.py``'s allowance, and the launch
+geometry its wrapper mirrors in Python is checked.
 
 Tolerances:
 - SSD scan, float32: ``rtol=atol=1e-5`` against the JAX sequential
@@ -30,6 +33,7 @@ Tolerances:
   0.078.
 """
 import contextlib
+import functools
 import dataclasses
 import io
 import json
@@ -366,3 +370,159 @@ def test_ssd_kernel_is_built_for_the_ssm_configs(arch):
         cfg = jax_config(arch, reduced=reduced)
         assert cfg.ssm_state in tssd.STATE_DIMS, cfg.name
         assert cfg.ssm_head_dim in tssd.HEAD_DIMS, cfg.name
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 kernel's arithmetic and launch geometry, mirrored on the CPU.
+# ---------------------------------------------------------------------------
+
+def in_bf16_terms(t, terms):
+    """``t`` as the sum of ``terms`` bf16 values (0: exact float32): hi =
+    t rounded, lo = the remainder rounded."""
+    if terms == 0:
+        return t
+    hi = t.bfloat16().float()
+    return hi if terms == 1 else hi + (t - hi).bfloat16().float()
+
+
+def product_in_bf16_terms(a, b, terms):
+    """a @ b with both float32 operands as bf16 terms; with two, the three
+    products hi.hi + hi.lo + lo.hi that the kernel issues."""
+    if terms != 2:
+        return in_bf16_terms(a, terms) @ in_bf16_terms(b, terms)
+    ah, bh = a.bfloat16().float(), b.bfloat16().float()
+    al, bl = (a - ah).bfloat16().float(), (b - bh).bfloat16().float()
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def chunked_in_bf16_terms(x, dt, A, Bm, Cm, terms, T=tssd.CHUNK):
+    """The bfloat16 passes of csrc/ssd.cu in float32 with their operand
+    rounding: chunks of T rows in parallel, C.B^T and (exp(cum_i) C).h_in as
+    products of ``terms`` bf16 terms each, the decayed scores M and B w as
+    ``terms`` terms against the bf16 x, the states passed across chunks in
+    float32."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % T
+
+    def chunks(t):
+        pads = t.new_zeros(Bsz, pad, *t.shape[2:])
+        t = torch.cat([t.float(), pads.float()], 1)
+        return t.reshape(Bsz, -1, T, *t.shape[2:])
+
+    xs, ds, Bs, Cs = (chunks(t) for t in (x, dt, Bm, Cm))
+    nc = xs.shape[1]
+    cum = torch.cumsum(A * ds, dim=2)                             # (B,nc,T,H)
+    cb = product_in_bf16_terms(Cs, Bs.transpose(-1, -2), terms)   # (B,nc,T,T)
+    live = torch.ones(T, T, dtype=torch.bool).tril()[None, None, :, :, None]
+    gap = torch.where(live, cum[:, :, :, None] - cum[:, :, None], 0.0)
+    M = torch.where(live, cb[..., None] * torch.exp(gap) * ds[:, :, None], 0.0)
+    intra = torch.einsum("bcijh,bcjhp->bcihp", in_bf16_terms(M, terms), xs)
+    last = cum[:, :, -1]                                          # (B,nc,H)
+    w = torch.exp(last[:, :, None] - cum) * ds
+    Bw = Bs[:, :, :, None, :] * w[..., None]                # (B,nc,T,H,N)
+    states = torch.einsum("bcjhn,bcjhp->bchnp", in_bf16_terms(Bw, terms), xs)
+    h = torch.zeros(Bsz, H, N, P)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(last[:, c])[..., None, None] * h + states[:, c]
+    # exp(cum_i) C_i in bf16 terms against h_in's terms
+    eC = torch.exp(cum).permute(0, 1, 3, 2)[..., None] * Cs[:, :, None]
+    inter = product_in_bf16_terms(eC, torch.stack(h_in, 1), terms)
+    y = inter.permute(0, 1, 3, 2, 4) + intra
+    return y.reshape(Bsz, nc * T, H, P)[:, :S].to(x.dtype)
+
+
+@functools.cache
+def serve_shape_scan():
+    """SSD inputs drawn as chip_smoke.py's model-made ones (numpy seed 41)
+    at mamba2-1.3b's widths and the serving prompt, one batch row, and the
+    plain scan of them."""
+    rng = np.random.default_rng(41)
+    B, S, H, P, N = 1, 1000, 64, 64, 128
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        (-2.0 + 0.5 * rng.standard_normal((B, S, H))).astype(np.float32)))
+    A = -torch.linspace(1.0, 16.0, H)
+    Bm, Cm = (torch.from_numpy(rng.standard_normal((B, S, N))
+                               .astype(np.float32)) for _ in range(2))
+    args = (x.bfloat16(), dt, A, Bm, Cm)
+    return args, ref.ssd(*args).float()
+
+
+@pytest.mark.parametrize("terms", [0, 2, 1])
+def test_ssd_operands_in_two_bf16_terms_meet_the_allowance(terms):
+    # chip_smoke.py's bf16 check, |out - plain| <= 1e-2 + 2**-7 |plain|, is
+    # about one bf16 step of each output: the chunked form in exact float32
+    # (terms 0) and with every float32 operand as two bf16 terms, as the
+    # tensor-core passes multiply them (terms 2), stay inside it; one bf16
+    # term per operand (terms 1) lands several times outside
+    args, plain = serve_shape_scan()
+    out = chunked_in_bf16_terms(*args, terms).float()
+    allowance = 1e-2 + 2.0 ** -7 * plain.abs()
+    used = ((out - plain).abs() / allowance).max().item()
+    assert (used > 1.0) if terms == 1 else (used <= 0.95), used
+
+
+@pytest.mark.parametrize("S", [1, 255, 256, 257, 1000])
+def test_ssd_pass_grids_cover_every_chunk(S):
+    # (B, H, N, P) of mamba2-1.3b's serve prefill; S ragged or whole chunks
+    B, H, N, P = 4, 64, 128, 64
+    grids = tssd._grids(B, S, H, N, P)
+    nc = tssd._chunks(S)
+    assert (nc - 1) * tssd.CHUNK < S <= nc * tssd.CHUNK
+    blocks = tssd.CHUNK // tssd.ROWS
+    # C.B^T: every lower 64 x 64 tile of every (batch row, chunk)
+    (tiles, bcs, _), _ = grids["cb"]
+    assert tiles == sum(range(1, blocks + 1)) and bcs == B * nc
+    # states: one CTA per (head, chunk, batch row), a warpgroup per 64 rows
+    (gh, gc, gb), threads = grids["state"]
+    assert (gh, gc, gb) == (H, nc, B) and threads == 128 * -(-N // 64)
+    # the pass: every run of 8 (P, N) entries of every (head, batch row)
+    (ge, gh, gb), threads = grids["pass"]
+    assert ge * threads * 8 >= N * P > (ge - 1) * threads * 8
+    assert (gh, gb) == (H, B)
+    # the scan: every 128-row block of every chunk, the ragged one
+    # included, every head in groups of SCAN_HEADS, 64 rows a warpgroup
+    (gblk, ghg, gbc), threads = grids["scan"]
+    assert gbc == B * nc and gblk * tssd.SCAN_ROWS == tssd.CHUNK
+    assert gbc // B * gblk * tssd.SCAN_ROWS >= S
+    assert threads == 128 * tssd.SCAN_ROWS // tssd.ROWS
+    assert ghg * tssd.SCAN_HEADS >= H > (ghg - 1) * tssd.SCAN_HEADS
+
+
+def test_ssd_workspace_at_the_serving_shape():
+    # mamba2-1.3b's prefill (B=4, S=1000: four chunks of 256): C.B^T 4 MB,
+    # the chunk states 33.5 MB, cum and dt 2 MB, the decays 4 KB
+    B, S, H, N, P = 4, 1000, 64, 128, 64
+    floats = tssd._workspace_floats(B, S, H, N, P)
+    assert floats == 16 * 256 * 256 + 16 * H * N * P + 16 * H * 512 + 16 * H
+    assert 16 * H * N * P * 4 == 33_554_432
+    assert floats * 4 == 39_849_984
+    assert tssd._workspace_floats(1, 77, 3, 16, 32) == (
+        256 * 256 + 3 * 16 * 32 + 3 * 512 + 3)
+
+
+@pytest.mark.parametrize("N", tssd.STATE_DIMS)
+@pytest.mark.parametrize("P", tssd.HEAD_DIMS)
+def test_ssd_pass_shared_memory_fits(N, P):
+    # every pass within the 227 KB a block may have; the scan holds its
+    # block's C.B^T (128 rows of a whole chunk, float32), x of a whole
+    # chunk and h_in as two bf16 terms
+    smem = tssd._smem_bytes(N)
+    assert all(0 <= b <= 232_448 for b in smem.values()), smem
+    assert smem["scan"] >= (tssd.SCAN_ROWS * tssd.CHUNK * 4
+                            + tssd.CHUNK * 64 * 2 + 2 * N * 64 * 2)
+    assert P in tssd.HEAD_DIMS
+
+
+def test_ssd_tensor_core_flops_at_the_serving_shape():
+    # the passes' own products, padding and split terms included (at most:
+    # the scan skips tiles whose decays all underflow): 29.5 GFLOP, 30 us
+    # at the bf16 tensor-core peak, against the algorithm's 11.8 GFLOP at
+    # 32-row tiles; four CUDA launches a call
+    flops = tssd._mma_flops(4, 1000, 64, 128, 64)
+    assert flops == 29_494_345_728
+    assert tssd.LAUNCHES_PER_CALL[torch.bfloat16] == len(tssd._grids(
+        4, 1000, 64, 128, 64))
