@@ -9,7 +9,11 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device    -- the card (``nvidia-smi`` name and power limit).
 2. build     -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
 3. kernels   -- each CUDA kernel against its plain PyTorch version on the
-                card, at the main paths' shapes and at small ones.
+                card, at the main paths' shapes and at small ones; the
+                round kernel also at K past a wave of resident warps, M
+                above 64 and one arm taking every request, each case with
+                its inputs unchanged and a second call bit-identical, and
+                a fleet-shape call replayed from a CUDA graph.
 4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
@@ -67,6 +71,14 @@ FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
 # the testbed's
 KERNEL_SIZES = ((-(-FLEET["K"] // 10) * FLEET["M"], FLEET["K"], FLEET["M"]),
                 (30, 30, 10))
+# (K, M, one_arm) round-step cases beyond those two: K = 5,003 (odd, a
+# multiple of no block), M = 130 (above 64: five arms a lane), M = 2,000
+# (rows past 48 KB of shared memory: three player warps a CTA), every
+# player's weight on one arm at the fleet's shape (a round's arrivals on it
+# reach K); then K past two waves of resident warps (None: computed from the
+# card's occupancy), so that every warp loops over players
+ROUND_CASES = ((5003, 50, False), (64, 130, False), (40, 2000, False),
+               (FLEET["K"], FLEET["M"], True), (None, 50, False))
 
 # The serving cell: qwen3-4b at its published width; a prompt of 1000 is
 # not a multiple of the prefill kernel's 64-row blocks and the 1016-slot
@@ -137,12 +149,12 @@ SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
              (1, 520, 3, 32, 128, 256, "bfloat16", False))
 # (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
 KDE_SIZES = ((65536, 64), (300, 64))
-# kernels that must build without spilling registers: the attention and SSD
-# kernels redesigned for Hopper
+# kernels that must build without spilling registers: the attention, SSD and
+# round kernels redesigned for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
               "ssd_scan_kernel")
 NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel",
-            *SSD_PASSES)
+            *SSD_PASSES, "round_kernel")
 # the port's CUDA kernels by name, as the profiler and ptxas report them
 PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
                 "flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
@@ -232,10 +244,16 @@ def maintenance_inputs(rows: int, R: int, seed: int, dev):
             torch.from_numpy(rtt).to(dev))
 
 
-def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev):
+def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev,
+                 one_arm: bool = False):
     """A mid-run round-step state: some arms cooling down and out of the
     pool, some instances inactive, error counters near the threshold,
-    queues deep enough that latencies straddle tau."""
+    queues deep enough that latencies straddle tau. ``one_arm``: every
+    player's weight on arm 1, in its pool, and every player issues C
+    requests, so each round's arrivals on that arm reach K (the queue then
+    outgrows tau and the players trip to their fallback weights); every
+    other row starts with zero credits, so after a trip its credits tie
+    across the pool and the pick goes to the lowest arm."""
     import torch
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -260,6 +278,12 @@ def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev):
     q = rng.uniform(0.0, 15.0, M).astype(f32)
     nc = rng.integers(0, C + 1, K).astype(np.int32)
     nc[:3] = 0                                     # rows that issue nothing
+    if one_arm:
+        active[1] = in_pool[:, 1] = True
+        w = np.zeros((K, M), f32)
+        w[:, 1] = 1.0
+        nc[:] = C
+        cw[::2] = 0.0
     z = np.exp(0.25 * rng.standard_normal((C, K))).astype(f32)
     rtt = rng.uniform(0.002, 0.045, (K, M)).astype(f32)
     s_m = np.full(M, 0.0055, f32)
@@ -334,7 +358,7 @@ def kde_inputs(rows: int, R: int, seed: int, dev):
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the same inputs."""
     import torch
-    from repro_torch.kernels import kde, ref, round_fused
+    from repro_torch.kernels import kde, ref
     errs = {}
     for seed, (rows, _, _) in enumerate(KERNEL_SIZES, 1):
         lat, mask, rtt = maintenance_inputs(rows, 64, seed, dev)
@@ -351,29 +375,7 @@ def phase_kernels(dev) -> dict:
         emit(phase="kernels", kernel="fused_maintenance", rows=rows, R=64,
              q_exact=True, mu_max_abs_err=err, tol=MAINT_TOL)
 
-    names = ref.RoundStepOut._fields
-    for seed, (_, K, M) in enumerate(KERNEL_SIZES, 3):
-        args = round_inputs(K, M, 8, 64, 512, seed, dev)
-        kw = dict(tau=0.08, err_thresh=5, cooldown=10.0)
-        out = round_fused.round_step_swrr(*args, **kw)
-        plain = ref.round_step_swrr(*args, **kw)
-        torch.cuda.synchronize()
-        worst = 0.0
-        for name, a, b in zip(names, out, plain):
-            if a.dtype.is_floating_point:
-                e = (a - b).abs().max().item()
-                worst = max(worst, e)
-                ok = torch.allclose(a, b, rtol=ROUND_RTOL, atol=0.0)
-            else:
-                ok = torch.equal(a, b.to(a.dtype))
-            if not ok:
-                raise AssertionError(f"round_step_swrr {name} differs "
-                                     f"(K={K}, M={M})")
-        errs.setdefault("round_step_swrr", worst)
-        trips = int((args[3] != out.cooldown_until).sum())
-        emit(phase="kernels", kernel="round_step_swrr", K=K, M=M, C=8,
-             R=64, Rq=512, exact=True, max_abs_err=worst, trips=trips)
-
+    errs["round_step_swrr"] = check_round(dev)
     from repro_torch.kernels import decode_attention, flash_attention
     for seed, case in enumerate(FLASH_CASES, 10):
         B, Hq, Hkv, S, D, dtype, causal, window, q_mul = case
@@ -440,6 +442,113 @@ def phase_kernels(dev) -> dict:
         emit(phase="kernels", kernel="kde_success_prob", rows=rows, R=R,
              max_abs_err=err, **KDE_TOL)
     return errs
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit: same dtype, shape and bytes (so -0.0 != 0.0 and a NaN
+    equals itself)."""
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def round_registers() -> int | None:
+    """``round_kernel``'s registers as ptxas reported them at the build."""
+    from repro_torch.kernels import _build
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    return next((k["registers"] for k in ptxas_report(log)
+                 if k["kernel"].startswith("round_kernel")), None)
+
+
+def round_launch_fields(K: int, M: int, C: int, dev) -> dict:
+    """The round kernel's launch for K x M x C, as the kernels and times
+    lines report it."""
+    from repro_torch.kernels import round_fused
+    return dict(**round_fused.geometry(K, M, C, dev),
+                registers=round_registers(),
+                cuda_launches_per_call=round_fused.LAUNCHES_PER_CALL)
+
+
+def check_round(dev) -> float:
+    """``round_step_swrr`` against its plain version, every output exact
+    (``ROUND_RTOL``), at the fleet's and the testbed's shapes and
+    ``ROUND_CASES``; for each, the inputs unchanged after the call and a
+    second call bit-identical to the first (a missing barrier or fence
+    between CTAs shows as outputs that move between calls); then a
+    fleet-shape call captured in a CUDA graph, whose replay must equal the
+    eager call bit for bit. Returns the largest float error."""
+    import torch
+    from repro_torch.kernels import ref, round_fused
+    names = ref.RoundStepOut._fields
+    kw = dict(tau=0.08, err_thresh=5, cooldown=10.0)
+    geo = round_fused.geometry(1, 50, 8, dev)
+    wave = (geo["resident_ctas_per_sm"] * geo["sms"]
+            * geo["player_warps_per_cta"])
+    cases = [(K, M, False) for _, K, M in KERNEL_SIZES]
+    cases += [(2 * wave + 3 if K is None else K, M, one)
+              for K, M, one in ROUND_CASES]
+    worst, looped = 0.0, False
+    for seed, (K, M, one_arm) in enumerate(cases, 3):
+        args = round_inputs(K, M, 8, 64, 512, seed, dev, one_arm)
+        before = [x.clone() for x in args[:-1]]
+        out = round_fused.round_step_swrr(*args, **kw)
+        plain = ref.round_step_swrr(*args, **kw)
+        again = round_fused.round_step_swrr(*args, **kw)
+        torch.cuda.synchronize()
+        case = f"K={K}, M={M}, one_arm={one_arm}"
+        err = 0.0
+        for name, a, b in zip(names, out, plain):
+            if a.dtype.is_floating_point:
+                err = max(err, (a - b).abs().max().item())
+                ok = torch.allclose(a, b, rtol=ROUND_RTOL, atol=0.0)
+            else:
+                ok = torch.equal(a, b.to(a.dtype))
+            if not ok:
+                raise AssertionError(f"round_step_swrr {name} differs ({case})")
+        moved = [i for i, (a, b) in enumerate(zip(args, before))
+                 if not same_bits(a, b)]
+        if moved:
+            raise AssertionError(f"round_step_swrr changed its inputs {moved} "
+                                 f"({case})")
+        unstable = [n for n, a, b in zip(names, out, again)
+                    if not same_bits(a, b)]
+        if unstable:
+            raise AssertionError(f"round_step_swrr: a second call differs in "
+                                 f"{unstable} ({case})")
+        worst = max(worst, err)
+        fields = round_launch_fields(K, M, 8, dev)
+        looped |= fields["players_per_warp"] > 1
+        emit(phase="kernels", kernel="round_step_swrr", K=K, M=M, C=8, R=64,
+             Rq=512, one_arm=one_arm, exact=True, max_abs_err=err,
+             inputs_unchanged=True, repeat_identical=True,
+             trips=int((args[3] != out.cooldown_until).sum()),
+             max_round_arrivals=out.arrivals.max().item(), **fields)
+        del args, before, out, plain, again
+    if not looped:
+        raise AssertionError("no round case had a warp loop over players")
+
+    K, M = FLEET["K"], FLEET["M"]
+    args = round_inputs(K, M, 8, 64, 512, 9, dev)
+    eager = round_fused.round_step_swrr(*args, **kw)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        round_fused.round_step_swrr(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = round_fused.round_step_swrr(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    differs = [n for n, a, b in zip(names, eager, captured)
+               if not same_bits(a, b)]
+    emit(phase="kernels", kernel="round_step_swrr", K=K, M=M,
+         graph_replay_identical=not differs)
+    if differs:
+        raise AssertionError(f"round_step_swrr graph replay differs from the "
+                             f"eager call in {differs}")
+    return worst
 
 
 def check_close(name: str, out, plain, dtype: str) -> dict:
@@ -770,7 +879,9 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
         extra = ({"flops_chunk256": s_flops_256,
                   "flops_tensor_core_passes": s_mma_flops,
                   "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
-                      s_args[0].dtype]} if name == "ssd" else {})
+                      s_args[0].dtype]} if name == "ssd" else
+                 round_launch_fields(K, M, C, dev)
+                 if name == "round_step_swrr" else {})
         emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
     return rows_out
 

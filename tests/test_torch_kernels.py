@@ -215,6 +215,181 @@ def test_round_step_idle_rows_issue_nothing():
 
 
 # ---------------------------------------------------------------------------
+# Round kernel's launch geometry and blocked schedule (csrc/round_fused.cu),
+# through the wrapper's Python mirrors; the kernel itself runs on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,ctas_per_sm,sms", [
+    (1, 3, 132), (30, 3, 132), (1000, 3, 132), (5003, 3, 132),
+    (1000, 1, 4), (5003, 2, 16)])
+def test_round_every_player_owned_by_one_warp(K, ctas_per_sm, sms):
+    warps = tround.WARPS
+    grid, ppw = tround._grid(K, warps, ctas_per_sm, sms)
+    assert 1 <= grid <= ctas_per_sm * sms          # every CTA resident
+    W = grid * warps
+    owned = [tround._players(w, K, W) for w in range(W)]
+    flat = [k for ks in owned for k in ks]
+    assert sorted(flat) == list(range(K))          # each player once
+    assert max(len(ks) for ks in owned) == ppw
+    if ppw == 1:                                   # no idle CTA
+        assert grid == -(-K // warps)
+
+
+def test_round_workspace_and_shared_memory_sizes():
+    # the barrier counter on its own 128-byte line, then (C, M) arrivals
+    assert tround._workspace_words(8, 50) == 32 + 8 * 50
+    assert tround.WORKSPACE_HEAD * 4 == 128
+    # the fleet's shape, as the card reported it; 16-byte aligned rows
+    assert tround._smem_bytes(50, 8, 8) == 11776
+    for M in (1, 10, 50, 130, 1000):
+        assert tround._smem_bytes(M, 8, 1) % 16 == 0
+    assert tround._warps(50, 8) == tround.WARPS
+    assert tround._warps(2000, 8) < tround.WARPS   # fewer warps fit
+    assert tround._smem_bytes(2000, 8, tround._warps(2000, 8)) \
+        <= tround.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tround._warps(20000, 8)
+    with pytest.raises(ValueError, match="no CTA"):
+        tround._grid(10, 8, 0, 132)
+
+
+def _ordered(f: np.float32) -> int:
+    """The kernel's argmax key: an unsigned int in the float's order."""
+    u = int(np.float32(0.0 if f == 0 else f).view(np.uint32))
+    return (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+
+
+def _row_sum(x, skip=-1) -> np.float32:
+    s = np.float32(0.0) if skip == 0 else x[0]
+    for m in range(1, len(x)):
+        s = s + (np.float32(0.0) if m == skip else x[m])
+    return np.float32(s)
+
+
+def _select(w, cw) -> tuple[int, np.float32]:
+    """SWRR pick as the kernel's warp makes it: lane-local first maximum
+    over arms lane, lane + 32, ..., then the largest key and the lowest
+    arm holding it."""
+    total = _row_sum(w)
+    cw += w
+    keys = {}
+    for lane in range(32):
+        arms = range(lane, len(w), 32)
+        best = None
+        for m in arms:
+            if best is None or cw[m] > cw[best]:
+                best = m
+        if best is not None:
+            keys[best] = _ordered(cw[best])
+    top = max(keys.values())
+    choice = min(m for m, key in keys.items() if key == top)
+    cw[choice] = cw[choice] - total
+    return choice, total
+
+
+def _blocked_round_step(a: dict, tau, err_thresh, cooldown, warps,
+                        ctas_per_sm, sms):
+    """numpy emulation of csrc/round_fused.cu's schedule: players in CTA
+    blocks, each block's round arrivals summed in its shared memory and
+    then onto the round's workspace row (blocks in reverse order), every
+    block recomputing the queue itself; one-pass fallback counts, one
+    division per weight, the ring slots written after the last round."""
+    f32 = np.float32
+    K, M, R = a["lat_buf"].shape
+    C, Rq = a["z"].shape[0], a["r_buf"].shape[1]
+    grid, _ = tround._grid(K, warps, ctas_per_sm, sms)
+    W = grid * warps
+    w, cw = a["weights"].copy(), a["cw"].copy()
+    err, cd = a["err"].copy(), a["cooldown_until"].copy()
+    pool, act = a["in_pool"].copy(), a["active"]
+    t, t_cd = f32(a["t"]), f32(f32(a["t"]) + f32(cooldown))
+    q_blocks = [a["q"].copy() for _ in range(grid)]
+    choices = np.zeros((K, C), np.int32)
+    lats, procs = np.zeros((K, C), f32), np.zeros((K, C), f32)
+    ws = np.zeros((C, M), f32)
+    for r in range(C):
+        partial = np.zeros((grid, M), f32)
+        for b in range(grid):
+            q = q_blocks[b]
+            for gw in range(b * warps, (b + 1) * warps):
+                for k in tround._players(gw, K, W):
+                    choice, total = _select(w[k], cw[k])
+                    q1s = f32((q[choice] + f32(1.0)) * a["s_m"][choice])
+                    z = a["z"][r, k]
+                    lat = f32(np.float64(q1s) * np.float64(z)
+                              + np.float64(a["rtt_t"][k, choice]))
+                    mask = r < a["nc"][k]
+                    new_err = 0 if lat <= f32(tau) else err[k, choice] + 1
+                    trip = bool(mask and new_err >= err_thresh)
+                    if mask:
+                        err[k, choice] = 0 if trip else new_err
+                    if trip:
+                        cd[k, choice], pool[k, choice] = t_cd, False
+                    wsum = _row_sum(w[k], choice) if trip else total
+                    tripped = (np.arange(M) == choice) & trip
+                    n_rem = int((act & pool[k]).sum())
+                    n_act = int((act & ~tripped).sum())
+                    if wsum > 0:
+                        num = np.where(tripped, f32(0.0), w[k])
+                        den = max(wsum, f32(1e-30))
+                    else:
+                        fb = act & pool[k] if n_rem else act & ~tripped
+                        num = fb.astype(f32)
+                        den = f32(max(n_rem if n_rem else n_act, 1))
+                    w[k] = np.where(num == 0, num, num / den).astype(f32)
+                    cw[k][tripped] = f32(0.0)
+                    choices[k, r], lats[k, r] = choice, lat
+                    procs[k, r] = f32(q1s * z)
+                    if mask:
+                        partial[b, choice] += f32(1.0)
+        for b in reversed(range(grid)):
+            ws[r] += partial[b]
+        for b in range(grid):
+            q_blocks[b] = np.maximum((q_blocks[b] + ws[r]) - a["served_per_round"],
+                                     f32(0.0)).astype(f32)
+        for q in q_blocks[1:]:
+            np.testing.assert_array_equal(q, q_blocks[0])
+    lat_buf, ts_buf = a["lat_buf"].copy(), a["ts_buf"].copy()
+    r_buf, rts_buf = a["r_buf"].copy(), a["rts_buf"].copy()
+    ptr, rptr = a["ptr"].copy(), a["rptr"].copy()
+    for k in range(K):
+        for r in range(min(C, int(a["nc"][k]))):
+            ch = choices[k, r]
+            lat_buf[k, ch, ptr[k, ch]], ts_buf[k, ch, ptr[k, ch]] = lats[k, r], t
+            ptr[k, ch] = (ptr[k, ch] + 1) % R
+            r_buf[k, rptr[k]] = f32(1.0) if lats[k, r] <= f32(tau) else f32(0.0)
+            rts_buf[k, rptr[k]] = t
+            rptr[k] = (rptr[k] + 1) % Rq
+    arrivals = np.zeros(M, f32)
+    for r in range(C):
+        arrivals = arrivals + ws[r]
+    return ref.RoundStepOut(w, cw, err, cd, pool, lat_buf, ts_buf, ptr, r_buf,
+                            rts_buf, rptr, q_blocks[0], arrivals, choices,
+                            lats, procs)
+
+
+@pytest.mark.parametrize("K,ctas_per_sm,sms", [(70, 3, 132), (1000, 2, 8)])
+def test_round_blocked_schedule_is_bit_exact(K, ctas_per_sm, sms):
+    # K = 70: a warp for each player in 9 CTAs; K = 1000 on 16 CTAs:
+    # every warp loops over 8 players. M = 40 gives lanes two arms.
+    args = round_inputs(K=K, M=40, seed=K)
+    assert (args["nc"] == 0).sum() >= 2                 # rows that issue nothing
+    # rows of equal credits and weights: the pick is a tie, to the lowest arm
+    args["cw"][1::9] = 0.0
+    args["weights"][1::9] = np.float32(1.0 / 40)
+    want = ref.round_step_swrr(*(T(v) for v in args.values()), **STATICS)
+    got = _blocked_round_step(args, warps=tround.WARPS,
+                              ctas_per_sm=ctas_per_sm, sms=sms, **STATICS)
+    for name in ref.RoundStepOut._fields:
+        a = getattr(want, name).numpy()
+        b = np.asarray(getattr(got, name))
+        assert a.shape == b.shape, name
+        np.testing.assert_array_equal(b.view(np.uint8), a.view(np.uint8),
+                                      err_msg=name)
+    assert (got.cooldown_until != args["cooldown_until"]).any()   # trips
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: a tensor off the CPU goes to the kernel or raises.
 # ---------------------------------------------------------------------------
 
