@@ -7,13 +7,18 @@
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device    -- the card (``nvidia-smi`` name and power limit).
-2. build     -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
+2. build     -- every ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a;
+                each kernel's registers, spills and stack frame; a kernel
+                of ``NO_SPILL`` that spills fails.
 3. kernels   -- each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes and at small ones; the
                 round kernel also at K past a wave of resident warps, M
                 above 64 and one arm taking every request, each case with
                 its inputs unchanged and a second call bit-identical, and
-                a fleet-shape call replayed from a CUDA graph.
+                a fleet-shape call replayed from a CUDA graph; the two
+                maintenance kernels also on rows that select at ties and
+                signed zeros, with none or one sample, R from 1 to past
+                1024.
 4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
@@ -24,8 +29,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 attention kernels launch once per layer per prefill /
                 decode call, maintenance once per router maintenance, and
                 every front-end weighs the slow replica below each fast one.
-7. decode_graph -- mamba2-1.3b's decode step replayed as a CUDA graph
-                against the same step run eagerly: exactly equal.
+7. decode_graph -- each served model's decode step replayed as a CUDA
+                graph (qwen3-4b before ``serve``, mamba2-1.3b before
+                ``serve_ssm``) against the same step run eagerly, two
+                microbatches in turn: logits and caches exactly equal, the
+                kernel launches counted through the replays; and the device
+                time of a replayed decode call.
    serve_ssm -- the same cell with mamba2-1.3b at its published width: the
                 SSD kernel launches once per layer per prefill, maintenance
                 once per router maintenance, the same gates.
@@ -33,9 +42,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 computes the same function (where there is one) and its
                 bound, at the main paths' shapes, by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
-                enqueue rate does not enter); then
+                enqueue rate does not enter), the maintenance kernels also
+                at one row (the launch and one row's chain); then
                 serve_shares: each serving kernel's time x launches over
-                its serve run's median prefill / decode call.
+                its serve run's median prefill / decode call, and the
+                device time of a replayed dense decode call over it.
 9. profile   -- with ``--profile``: torch.profiler over 20 fleet steps and
                 over one prefill and one decode call of each served model.
 
@@ -149,12 +160,17 @@ SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
              (1, 520, 3, 32, 128, 256, "bfloat16", False))
 # (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
 KDE_SIZES = ((65536, 64), (300, 64))
-# kernels that must build without spilling registers: the attention, SSD and
-# round kernels redesigned for Hopper
+# R of the adversarial maintenance and KDE rows: one sample (a lane a row),
+# a ragged R (scalar loads), the main paths' 64 and the wrapper's largest
+# (32 lanes of 8 quads); the KDE kernel also past it (segments of 128)
+ADVERSARIAL_R = (1, 33, 64, 1024)
+KDE_LONG_R = 1027
+# kernels that must build without spilling registers: the kernels redesigned
+# for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
               "ssd_scan_kernel")
 NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel",
-            *SSD_PASSES, "round_kernel")
+            *SSD_PASSES, "round_kernel", "maintenance_kernel", "kde_kernel")
 # the port's CUDA kernels by name, as the profiler and ptxas report them
 PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
                 "flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
@@ -162,9 +178,11 @@ PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
 
 
 def ptxas_report(log: str) -> list:
-    """Each entry function of the build log with its registers and spill
-    stores, named from its mangled name (from the port's kernel name on)."""
-    out, name, spill = [], None, 0
+    """Each entry function of the build log with its registers, spill
+    stores and stack frame (local memory: spills, or an array indexed by
+    a value the compiler cannot fold), named from its mangled name (from
+    the port's kernel name on)."""
+    out, name, spill, stack = [], None, 0, 0
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
@@ -172,10 +190,12 @@ def ptxas_report(log: str) -> list:
                          if k in mangled), mangled[:60])
         elif name and "spill stores" in ln:
             spill = int(ln.split(" bytes spill stores")[0].rsplit(" ", 1)[1])
+            stack = int(ln.split(" bytes stack frame")[0].split()[-1])
         elif name and "registers" in ln:
             regs = int(ln.split("Used ")[1].split(" registers")[0])
-            out.append(dict(kernel=name, registers=regs, spill_stores=spill))
-            name, spill = None, 0
+            out.append(dict(kernel=name, registers=regs, spill_stores=spill,
+                            stack_frame=stack))
+            name, spill, stack = None, 0, 0
     return out
 
 
@@ -242,6 +262,37 @@ def maintenance_inputs(rows: int, R: int, seed: int, dev):
     rtt[3::7] = np.float32(0.05)                   # proc = max(lat - rtt, 0) ties at 0
     return (torch.from_numpy(lat).to(dev), torch.from_numpy(mask).to(dev),
             torch.from_numpy(rtt).to(dev))
+
+
+def adversarial_maintenance_inputs(R: int, seed: int, dev):
+    """Rows that select at ties (tests/test_torch_kernels.py's
+    ``adversarial_maint_rows``): repeated values; -0.0 against +0.0 (lat
+    -0.0 or +0.0 with rtt 0); negative latencies clamped to 0; every
+    sample masked; one sample; every processing value 0; then random rows;
+    and bandwidths for the KDE kernel."""
+    import torch
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    rows = 12
+    lat = rng.uniform(0.005, 0.15, (rows, R)).astype(f32)
+    mask = rng.uniform(size=(rows, R)) < rng.uniform(0.2, 1.0, (rows, 1))
+    rtt = rng.uniform(0.002, 0.04, rows).astype(f32)
+    lat[0] = rng.choice(np.array([0.01, 0.05, 0.05, 0.07], f32), R)
+    mask[0] = True
+    for r in (1, 2):
+        lat[r] = np.where(rng.uniform(size=R) < 0.5, f32(-0.0), f32(0.0))
+        lat[r, rng.uniform(size=R) < 0.05] = f32(0.03)
+        rtt[r] = f32(0.0)
+    mask[1], mask[2] = True, rng.uniform(size=R) < 0.8
+    lat[3, ::2] = -lat[3, ::2]
+    lat[4] = f32(0.05)
+    mask[5] = False
+    mask[6] = False
+    mask[6, rng.integers(R)] = True
+    mask[7] = True
+    rtt[7] = f32(0.2)
+    bw = rng.uniform(1e-3, 1e-2, rows).astype(f32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (lat, mask, rtt, bw))
 
 
 def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev,
@@ -374,6 +425,7 @@ def phase_kernels(dev) -> dict:
         errs.setdefault("fused_maintenance", err)
         emit(phase="kernels", kernel="fused_maintenance", rows=rows, R=64,
              q_exact=True, mu_max_abs_err=err, tol=MAINT_TOL)
+    check_adversarial_rows(dev)
 
     errs["round_step_swrr"] = check_round(dev)
     from repro_torch.kernels import decode_attention, flash_attention
@@ -442,6 +494,42 @@ def phase_kernels(dev) -> dict:
         emit(phase="kernels", kernel="kde_success_prob", rows=rows, R=R,
              max_abs_err=err, **KDE_TOL)
     return errs
+
+
+def check_adversarial_rows(dev) -> None:
+    """Both maintenance kernels on rows that select at ties and at signed
+    zeros, with one sample, none, and R from 1 to past 1024: q equal to the
+    plain version's (-0.0 == 0.0: the plain version's sort leaves the order
+    of equal zeros undefined), mu within ``MAINT_TOL``, the KDE kernel
+    within ``KDE_TOL``."""
+    import torch
+    from repro_torch.kernels import kde, ref
+    for R in (*ADVERSARIAL_R, KDE_LONG_R):
+        lat, mask, rtt, bw = adversarial_maintenance_inputs(R, 60 + R, dev)
+        fields = dict(lanes_chunks=list(kde.row_geometry(min(R, 1024))))
+        if R <= 1024:
+            mu, q = kde.fused_maintenance(lat, mask, rtt, 0.08, 0.9)
+            mu_p, q_p = ref.bandit_maintenance_stats(lat, mask, rtt, 0.08, 0.9)
+            torch.cuda.synchronize()
+            if not torch.equal(q, q_p):
+                bad = (q != q_p).nonzero()[:5].flatten().tolist()
+                raise AssertionError(f"maintenance q differs at R={R}, rows "
+                                     f"{bad}")
+            err = (mu - mu_p).abs().max().item()
+            if not err <= MAINT_TOL:
+                raise AssertionError(f"maintenance mu error {err} > "
+                                     f"{MAINT_TOL} at R={R}")
+            fields.update(q_exact=True, mu_max_abs_err=err,
+                          zero_q_rows=int((q == 0).sum()))
+        out = kde.kde_success_prob(lat, mask, 0.08, bw)
+        plain = ref.kde_success_prob(lat, mask, 0.08, bw)
+        torch.cuda.synchronize()
+        kde_err = (out - plain).abs().max().item()
+        if not torch.allclose(out, plain, **KDE_TOL):
+            raise AssertionError(f"kde_success_prob at R={R}: max abs error "
+                                 f"{kde_err}, tol {KDE_TOL}")
+        emit(phase="kernels", kernel="maintenance_adversarial", R=R,
+             rows=lat.shape[0], kde_max_abs_err=kde_err, **fields)
 
 
 def same_bits(a, b) -> bool:
@@ -738,49 +826,88 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
                 prefill_ms=prefill_ms, decode_ms=decode_ms)
 
 
-def phase_decode_graph(dev, arch: str, steps: int = 4) -> None:
-    """The SSM decode step replayed as a CUDA graph against the same
-    step run eagerly, at the serve cell's batch and prompt: both run the
-    same kernels on the same inputs, so logits and caches must agree
-    exactly."""
+def phase_decode_graph(dev, arch: str, steps: int = 4) -> float:
+    """The decode step replayed as a CUDA graph against the same step run
+    eagerly, at the serve cell's batch, prompt and cache slots: two
+    microbatches decode in turn (A0 A1 B0 B1 A2 B2 ...), so the graph
+    copies a cache in when the other one was its last and replays on the
+    one it holds otherwise. Both modes run the same kernels on the same
+    inputs, so logits and caches must agree exactly, and the kernel
+    wrappers' counts must read one launch per layer per decode call in
+    both. Times a replayed call on the card (queued, ``cuda_ms``) and on
+    the host's clock (each call synchronised, as the serving engine times
+    it). Returns the device time of one replayed decode call (ms)."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import SSM as SSM_FAMILY
+    from repro_torch.kernels import decode_attention
     from repro_torch.models import build_model
     cfg = get_config(arch)
     model = build_model(cfg, device=dev)
     B, S = SERVE["batch"], SERVE["prompt_len"]
+    slots = S + SERVE["decode_steps"]
     gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                           device=dev)
-    _, cache = model.prefill({"tokens": tokens})
-    caches = {}
+    tokens = [torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
+                            device=dev) for _ in range(2)]
+    caches = [model.prefill({"tokens": t[:, :S]}, max_len=slots)[1]
+              for t in tokens]
+    order = [(m, j) for i in range(0, steps, 2) for m in (0, 1)
+             for j in (i, i + 1) if j < steps]
+    per_call = cfg.num_layers if cfg.family != SSM_FAMILY else 0
+    results = {}
     for mode in (False, True):
         model.decode_graphs = mode
-        c = {"layers": tuple(t.clone() for t in cache["layers"])}
-        out = []
-        for i in range(steps):
-            tok = tokens[:, i:i + 1].to(torch.int32)
-            logits, c = model.decode(c, {"token": tok, "pos": S + i})
-            out.append(logits)
-        caches[mode] = (torch.stack(out), *c["layers"])
-    torch.cuda.synchronize()
+        for fn in all_kernels():
+            fn.launches = 0
+        cs = [{"layers": tuple(t.clone() for t in c["layers"])}
+              for c in caches]
+        out = [[], []]
+        for m, i in order:
+            tok = tokens[m][:, S + i:S + i + 1].to(torch.int32)
+            logits, cs[m] = model.decode(cs[m], {"token": tok, "pos": S + i})
+            out[m].append(logits)
+        torch.cuda.synchronize()
+        launched = decode_attention.decode_attention.launches
+        if launched != per_call * len(order):
+            raise AssertionError(f"decode_attention counted {launched} "
+                                 f"launches in {len(order)} decode calls "
+                                 f"(graphs {mode}), the path needs "
+                                 f"{per_call * len(order)}")
+        results[mode] = [torch.stack(o) for o in out] + [
+            t for c in cs for t in c["layers"]]
     errs = [(a.float() - b.float()).abs().max().item()
-            for a, b in zip(caches[False], caches[True])]
-    emit(phase="decode_graph", arch=arch, batch=B, prompt=S, steps=steps,
-         graphs=len(model._graphs),
-         max_abs_err=dict(zip(("logits", "conv_state", "ssm_state"), errs)))
+            for a, b in zip(results[False], results[True])]
+    names = ("logits_a", "logits_b",
+             *(f"{t}_{m}" for m in "ab" for t in (
+                 ("k_cache", "v_cache") if per_call else
+                 ("conv_state", "ssm_state"))))
+    token = tokens[0][:, :1].to(torch.int32)
+    c = cs[0]
+    call = lambda: model.decode(c, {"token": token, "pos": S + steps})
+    graph_ms = cuda_ms(call, 10)
+    host_ms = []
+    for _ in range(10):                  # as the serving engine times a call
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    emit(phase="decode_graph", arch=arch, batch=B, prompt=S, cache_slots=slots,
+         steps=steps, calls=order, graphs=len(model._graphs),
+         decode_attention_launches=launched,
+         max_abs_err=dict(zip(names, errs)), graph_call_device_ms=graph_ms,
+         graph_call_host_ms_median=float(np.median(host_ms)),
+         graph_call_device_share=graph_ms / float(np.median(host_ms)))
     if not all(e == 0.0 for e in errs):
-        raise AssertionError(f"graph decode differs from eager: {errs}")
-    del model, cache, caches
+        raise AssertionError(f"graph decode differs from eager: "
+                             f"{dict(zip(names, errs))}")
+    del model, caches, results, cs, c
+    return graph_ms
 
 
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port (each carries ``launches``)."""
-    from repro_torch.kernels import (decode_attention, flash_attention, kde,
-                                     round_fused, ssd)
-    return (round_fused.round_step_swrr, kde.fused_maintenance,
-            kde.kde_success_prob, flash_attention.flash_attention,
-            decode_attention.decode_attention, ssd.ssd)
+    from repro_torch.kernels import ops
+    return ops.WRAPPERS
 
 
 def phase_times(dev, launches: dict, errs: dict) -> list:
@@ -876,12 +1003,17 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=library_ms))
-        extra = ({"flops_chunk256": s_flops_256,
-                  "flops_tensor_core_passes": s_mma_flops,
-                  "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
-                      s_args[0].dtype]} if name == "ssd" else
-                 round_launch_fields(K, M, C, dev)
-                 if name == "round_step_swrr" else {})
+        if name in ("fused_maintenance", "kde_success_prob"):
+            # one row: the launch and one row's chain
+            one = [a[:1] if isinstance(a, torch.Tensor) else a for a in args]
+            extra = dict(ms_1row=cuda_ms(lambda: kern(*one), iters))
+        else:
+            extra = ({"flops_chunk256": s_flops_256,
+                      "flops_tensor_core_passes": s_mma_flops,
+                      "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
+                          s_args[0].dtype]} if name == "ssd" else
+                     round_launch_fields(K, M, C, dev)
+                     if name == "round_step_swrr" else {})
         emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
     return rows_out
 
@@ -985,6 +1117,7 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_testbed(dev)
     launches = phase_fleet(dev)
+    dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),
                          (decode_attention.decode_attention,))
@@ -1005,6 +1138,7 @@ def main() -> int:
          / served["prefill_ms"],
          decode_share_of_decode=served["layers"] * times["decode_attention"]
          / served["decode_ms"],
+         decode_device_share=dense_graph_ms / served["decode_ms"],
          ssd_share_of_prefill=served_ssm["layers"] * times["ssd"]
          / served_ssm["prefill_ms"],
          maintenance_launches_in_serve=served["launches"]["fused_maintenance"],

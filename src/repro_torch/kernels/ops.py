@@ -17,6 +17,12 @@ from repro_torch.kernels import round_fused as _round
 from repro_torch.kernels import ssd as _ssd
 
 
+# every kernel wrapper of the port; each counts its launches in ``launches``
+WRAPPERS = (_round.round_step_swrr, _kde.fused_maintenance,
+            _kde.kde_success_prob, _fa.flash_attention,
+            _dec.decode_attention, _ssd.ssd)
+
+
 def _on_host(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
 

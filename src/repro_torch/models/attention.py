@@ -71,21 +71,26 @@ def attn_full(p, cfg: ModelConfig, x: torch.Tensor, rope_cs,
 
 def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, rope_cs,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
-                lengths: torch.Tensor, write_idx: int):
+                lengths: torch.Tensor, write_idx: int | torch.Tensor):
     """One-token attention against a (possibly ring) KV cache.
 
     x: (B, 1, d); rope_cs: ``layers.rope_tables`` of the token's absolute
     position (the reference takes the position), or None; write_idx:
-    slot to write (== pos for full caches, pos % W for rings); lengths:
-    (B,) int32 valid cache entries *after* this token is appended (the
-    reference takes a scalar and fills it). The token's k and v are
-    written into the caches in place; returns (out (B, 1, d), k_cache,
-    v_cache) as the reference does.
+    slot to write (== pos for full caches, pos % W for rings), an int or
+    a one-element int64 tensor on the caches' device (then the step reads
+    no host value, as a CUDA graph needs); lengths: (B,) int32 valid
+    cache entries *after* this token is appended (the reference takes a
+    scalar and fills it). The token's k and v are written into the
+    caches in place; returns (out (B, 1, d), k_cache, v_cache) as the
+    reference does.
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x, rope_cs)               # (B, H, 1, D)
-    k_cache[:, :, write_idx] = k[:, :, 0]
-    v_cache[:, :, write_idx] = v[:, :, 0]
+    if not isinstance(write_idx, torch.Tensor):
+        write_idx = torch.full((1,), write_idx, dtype=torch.int64,
+                               device=k_cache.device)
+    k_cache.index_copy_(2, write_idx.reshape(1), k)
+    v_cache.index_copy_(2, write_idx.reshape(1), v)
     o = ops.decode_attention(q[:, :, 0], k_cache, v_cache, lengths)
     out = o.reshape(B, cfg.q_dim) @ p["wo"]
     return out[:, None, :], k_cache, v_cache

@@ -106,9 +106,11 @@ def layer_full(lp: Layer, cfg: ModelConfig, x: torch.Tensor, rope_cs,
     return x, (cache if collect_cache else ())
 
 
-def layer_decode(lp: Layer, cfg: ModelConfig, x: torch.Tensor, pos: int,
-                 cache: tuple, rope_cs, lengths: torch.Tensor):
-    """One layer, one token at ``pos``. ``cache`` is this layer's slice
+def layer_decode(lp: Layer, cfg: ModelConfig, x: torch.Tensor,
+                 pos: torch.Tensor | int, cache: tuple, rope_cs,
+                 lengths: torch.Tensor):
+    """One layer, one token at ``pos`` (a one-element int64 tensor on
+    x's device; unread by an SSM layer). ``cache`` is this layer's slice
     of the stacked caches ((k, v), or (conv_state, h_state) for an SSM
     layer), updated in place and returned; ``rope_cs`` and ``lengths``
     (min(pos + 1, cache slots) per row) are built once per step by
@@ -166,18 +168,26 @@ def logits_from_hidden(params: Params, cfg: ModelConfig,
 
 
 def decode_step(params: Params, cfg: ModelConfig, caches: dict,
-                token: torch.Tensor, pos: int):
+                token: torch.Tensor, pos: int | torch.Tensor):
     """token (B, 1) at absolute position pos -> (logits (B, 1, V),
-    caches), the caches updated in place."""
+    caches), the caches updated in place.
+
+    ``pos`` is an int or a one-element int64 tensor on the token's
+    device. The step reads no host value: the rotary tables, the lengths
+    (min(pos + 1, cache slots)) and the cache slot written all come from
+    that tensor on the device, so a CUDA graph captures the step once
+    for every position (``model_zoo.Model.decode``). A dense cache must
+    have a slot at pos (0 <= pos < slots)."""
     x = L.embed_tokens(params.embed, token)
     first, second = caches["layers"]
     rope_cs = lengths = None
     if cfg.family != SSM:
-        dev = x.device
-        rope_cs = L.rope_tables(torch.arange(pos, pos + 1, device=dev),
-                                cfg.head_dim, cfg.rope_theta)
-        lengths = torch.full((x.shape[0],), min(pos + 1, first.shape[3]),
-                             dtype=torch.int32, device=dev)
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+        pos = pos.reshape(1)
+        rope_cs = L.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        lengths = torch.clamp(pos + 1, max=first.shape[3]).to(
+            torch.int32).repeat(x.shape[0])
     for l, lp in enumerate(params.layers):
         x, _ = layer_decode(lp, cfg, x, pos, (first[l], second[l]), rope_cs,
                             lengths)

@@ -117,6 +117,157 @@ def test_maintenance_plain_vs_pallas_body(rows, R):
 
 
 # ---------------------------------------------------------------------------
+# The maintenance kernel's quantile (csrc/maintenance.cu), replayed in numpy:
+# a row on row_geometry's lanes, order-preserving keys sorted by the
+# kernel's bitonic network across the lanes, the float32 target rank, and
+# the zero a sort of (key, index) takes where that rank falls on the zeros.
+# ---------------------------------------------------------------------------
+
+def adversarial_maint_rows(R: int, seed: int):
+    """Rows that select at ties: repeated values; -0.0 against +0.0 (lat
+    -0.0 or +0.0 with rtt 0, so max(lat - rtt, 0) keeps each sign);
+    negative latencies clamped to 0; every sample masked; one sample;
+    then random rows with random masks."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    rows = 12
+    lat = rng.uniform(0.005, 0.15, (rows, R)).astype(f32)
+    mask = rng.uniform(size=(rows, R)) < rng.uniform(0.2, 1.0, (rows, 1))
+    rtt = rng.uniform(0.002, 0.04, rows).astype(f32)
+    lat[0] = rng.choice(np.array([0.01, 0.05, 0.05, 0.07], f32), R)  # ties
+    mask[0] = True
+    for r in (1, 2):                                   # signed zeros
+        lat[r] = np.where(rng.uniform(size=R) < 0.5, f32(-0.0), f32(0.0))
+        lat[r, rng.uniform(size=R) < 0.05] = f32(0.03)
+        rtt[r] = f32(0.0)
+    mask[1], mask[2] = True, rng.uniform(size=R) < 0.8
+    lat[3, ::2] = -lat[3, ::2]                         # clamped to +0.0
+    lat[4] = f32(0.05)                                 # one value, masked
+    mask[5] = False                                    # every sample masked
+    mask[6] = False
+    mask[6, rng.integers(R)] = True                    # one sample
+    mask[7] = True
+    rtt[7] = f32(0.2)                                  # every proc 0.0
+    return lat, mask, rtt
+
+
+def _order_key(x: np.ndarray) -> np.ndarray:
+    u = np.where(x == 0, np.float32(0.0), x).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def _bitonic(a: np.ndarray, V: int) -> np.ndarray:
+    """The kernel's network on slots p = l * V + v: pairs j >= V apart by
+    shuffle, closer ones inside a lane."""
+    a = a.copy()
+    N = a.size
+    p = np.arange(N)
+    for lk in range(1, N.bit_length()):
+        for lj in range(lk - 1, -1, -1):
+            k, j = 1 << lk, 1 << lj
+            if j >= V:
+                o = a[p ^ j]
+                take_min = ((p & j) == 0) == ((p & k) == 0)
+                a = np.where(take_min, np.minimum(a, o), np.maximum(a, o))
+            else:
+                lo_p = p[(p & j) == 0]
+                lo, hi = a[lo_p], a[lo_p ^ j]
+                up = (lo_p & k) == 0
+                swap = np.where(up, lo > hi, lo < hi)
+                a[lo_p], a[lo_p ^ j] = (np.where(swap, hi, lo),
+                                        np.where(swap, lo, hi))
+    return a
+
+
+def kernel_quantile(lat, mask, rtt, rho: float) -> np.ndarray:
+    """q as csrc/maintenance.cu's maintenance_kernel selects it."""
+    f32 = np.float32
+    rows, R = lat.shape
+    L, CH = tkde_kernel.row_geometry(R)
+    V = 4 * CH
+    l, v = np.divmod(np.arange(L * V), V)              # slot p = l * V + v
+    idx = (v // 4) * 4 * L + 4 * l + v % 4
+    # the zeros' slots in index order: chunk, then lane, then slot
+    index_order = np.lexsort((v % 4, l, v // 4))
+    q = np.empty(rows, f32)
+    for r in range(rows):
+        d = lat[r] - rtt[r]
+        proc = np.where(d < 0, f32(0.0), d)            # keeps -0.0
+        key = _order_key(np.where(mask[r], proc, np.finfo(f32).max))
+        slots = np.full(L * V, 0xFFFFFFFF, np.uint32)
+        slots[idx < R] = key[idx[idx < R]]
+        s = _bitonic(slots, V)
+        assert np.all(s[:-1] <= s[1:]) and np.array_equal(s, np.sort(slots))
+        n = f32(mask[r].sum())
+        tgt = min(max(int(f32(rho) * (n - f32(1.0))), 0), R - 1)
+        if s[tgt] != 0x80000000:
+            q[r] = (s[tgt] ^ np.uint32(0x80000000)).view(f32)
+            continue
+        rank = tgt - int((s < 0x80000000).sum())
+        zeros = [i for i in idx[index_order]
+                 if i < R and mask[r, i] and proc[i] == 0]
+        q[r] = proc[zeros[rank]]                       # its own sign
+    return q
+
+
+def stable_quantile(lat, mask, rtt, rho: float) -> np.ndarray:
+    """The sample a stable sort of (key, index) puts at the target rank."""
+    f32 = np.float32
+    rows, R = lat.shape
+    q = np.empty(rows, f32)
+    for r in range(rows):
+        d = lat[r] - rtt[r]
+        proc = np.where(mask[r], np.where(d < 0, f32(0.0), d),
+                        np.finfo(f32).max)
+        order = np.lexsort((np.arange(R), _order_key(proc)))
+        n = f32(mask[r].sum())
+        q[r] = proc[order[min(max(int(f32(rho) * (n - f32(1.0))), 0), R - 1)]]
+    return q
+
+
+@pytest.mark.parametrize("R", [1, 33, 64, 1024])
+def test_maintenance_kernel_selection_is_bit_exact(R):
+    # the kernel takes the sample a stable sort of (key, index) takes, bit
+    # for bit; the plain version sorts with torch.sort, which orders -0.0
+    # and +0.0 as equal but in no defined order among themselves: where the
+    # selected sample is a zero both give a zero (its sign may differ);
+    # every other q matches bit for bit
+    lat, mask, rtt = adversarial_maint_rows(R, R)
+    want = ref.bandit_maintenance_stats(T(lat), T(mask), T(rtt), 0.08,
+                                        0.9)[1].numpy()
+    got = kernel_quantile(lat, mask, rtt, 0.9)
+    np.testing.assert_array_equal(
+        got.view(np.uint32), stable_quantile(lat, mask, rtt, 0.9).view(np.uint32))
+    zero = want == 0
+    np.testing.assert_array_equal(got.view(np.uint32)[~zero],
+                                  want.view(np.uint32)[~zero])
+    np.testing.assert_array_equal(got[zero], want[zero])
+    assert got[5] == np.finfo(np.float32).max           # every sample masked
+    if R > 1:
+        assert zero[1] and np.signbit(lat[1][mask[1]]).any()
+    lanes, chunks = tkde_kernel.row_geometry(R)
+    assert 4 * lanes * chunks >= R and (lanes == 32 or chunks == 1)
+
+
+def test_row_geometry():
+    assert tkde_kernel.row_geometry(64) == (16, 1)       # two rows a warp
+    assert tkde_kernel.row_geometry(1) == (1, 1)
+    assert tkde_kernel.row_geometry(33) == (16, 1)
+    assert tkde_kernel.row_geometry(129) == (32, 2)
+    assert tkde_kernel.row_geometry(1024) == (32, 8)
+    # the KDE kernel: 4 quads a lane, 8 rows a warp at R = 64; past 512
+    # samples a row runs in segments
+    assert tkde_kernel.kde_geometry(64) == (4, 4)
+    assert tkde_kernel.kde_geometry(1) == (1, 1)
+    assert tkde_kernel.kde_geometry(33) == (4, 4)
+    assert tkde_kernel.kde_geometry(1027) == (32, 4)
+    for R in range(1, 600):
+        lanes, chunks = tkde_kernel.kde_geometry(R)
+        assert (lanes == 1 or chunks == 4) and lanes in (1, 2, 4, 8, 16, 32)
+        assert 4 * lanes * chunks >= min(R, 512)
+
+
+# ---------------------------------------------------------------------------
 # KDE success probability (the maintenance's middle stage, bandwidths given).
 # tests/test_kernels.py's sweep and tolerance.
 # ---------------------------------------------------------------------------
