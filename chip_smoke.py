@@ -23,13 +23,28 @@ Phases, one JSON line each; any failure exits non-zero:
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
                 simulator kernels must launch once per step.
-6. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
+6. baselines -- the 30x10 testbed for 50 steps from key 7, fused round
+                against the round scan: ``qedgeproxy`` (the round kernel
+                against the torch scan; maintenance once per step in
+                both, the round kernel 50 times and 0 times) and
+                ``proxy_mity`` at alpha 0.9 (``ops.round_step_gumbel``
+                against the scan); every accumulator field and series
+                value exactly equal.
+7. suite     -- ``repro_torch.bench.figures.get_suite``: the paper's four
+                strategies on the 30x10 testbed, seeds 1-2, 60 s with a
+                20 s warm-up; each lane's seconds, steps/s and launches,
+                the Fig 3, 4, 5 and 8 headline numbers; every lane
+                conserves requests, qedgeproxy reaches 90% clients >= rho
+                in each seed and beats every baseline's mean (strictly
+                both proxy-mity means), the simulator kernels launch once
+                per step in its lanes and never in the baselines'.
+8. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
                 published width behind the QEdgeProxy router (3 replicas,
                 one slow); every request answers with finite logits, the
                 attention kernels launch once per layer per prefill /
                 decode call, maintenance once per router maintenance, and
                 every front-end weighs the slow replica below each fast one.
-7. decode_graph -- each served model's decode step replayed as a CUDA
+9. decode_graph -- each served model's decode step replayed as a CUDA
                 graph (qwen3-4b before ``serve``, mamba2-1.3b before
                 ``serve_ssm``) against the same step run eagerly, two
                 microbatches in turn: logits and caches exactly equal, the
@@ -38,7 +53,7 @@ Phases, one JSON line each; any failure exits non-zero:
    serve_ssm -- the same cell with mamba2-1.3b at its published width: the
                 SSD kernel launches once per layer per prefill, maintenance
                 once per router maintenance, the same gates.
-8. times     -- each kernel, its plain version, the one PyTorch call that
+10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
                 bound, at the main paths' shapes, by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
@@ -47,8 +62,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 serve_shares: each serving kernel's time x launches over
                 its serve run's median prefill / decode call, and the
                 device time of a replayed dense decode call over it.
-9. profile   -- with ``--profile``: torch.profiler over 20 fleet steps and
-                over one prefill and one decode call of each served model.
+11. profile  -- with ``--profile``: torch.profiler over 20 fleet steps, 20
+                steps of each suite strategy and one prefill and one
+                decode call of each served model.
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -78,6 +94,8 @@ KDE_TOL = dict(rtol=2e-5, atol=2e-6)
 
 TESTBED_HORIZON = 180.0                     # s: the paper's run
 FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
+BASELINES = dict(horizon=5.0, key=7, warm=10)   # fused vs scan, 50 steps
+SUITE = dict(seeds=(1, 2), horizon=60.0)    # the paper suite, 600 steps
 # (maintenance rows, K, M) of the kernel checks: the fleet's shapes, then
 # the testbed's
 KERNEL_SIZES = ((-(-FLEET["K"] // 10) * FLEET["M"], FLEET["K"], FLEET["M"]),
@@ -757,6 +775,107 @@ def phase_fleet(dev) -> dict:
     return launches
 
 
+def sim_launches() -> dict:
+    from repro_torch.kernels import kde, round_fused
+    return {"round_step_swrr": round_fused.round_step_swrr.launches,
+            "fused_maintenance": kde.fused_maintenance.launches}
+
+
+def check_identical(a, b, what: str) -> None:
+    """Every accumulator field and series value of two streaming runs
+    exactly equal."""
+    import torch
+    for part in ("acc", "series"):
+        x, y = getattr(a, part), getattr(b, part)
+        for f in x._fields:
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                raise AssertionError(f"{what}: {part}.{f} differs")
+
+
+def phase_baselines(dev) -> None:
+    """Fused round against the round scan on the card, both strategies
+    that have a fused round."""
+    import torch
+    from repro_torch.continuum import SimConfig, make_topology, run_sim_stream
+    rtt = make_topology(1, 30, 10, device=dev).lb_instance_rtt()
+    steps = SimConfig(horizon=BASELINES["horizon"]).num_steps
+    for name, kw, fused_needs, scan_needs in (
+            ("qedgeproxy", {}, dict(round_step_swrr=steps,
+                                    fused_maintenance=steps),
+             dict(round_step_swrr=0, fused_maintenance=steps)),
+            ("proxy_mity", dict(alpha=0.9), dict(round_step_swrr=0,
+                                                 fused_maintenance=0),
+             dict(round_step_swrr=0, fused_maintenance=0))):
+        outs = {}
+        for fused, needs in ((True, fused_needs), (False, scan_needs)):
+            cfg = SimConfig(horizon=BASELINES["horizon"], fused_round=fused)
+            for fn in all_kernels():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs[fused] = run_sim_stream(name, rtt, cfg, BASELINES["key"],
+                                         warmup_steps=BASELINES["warm"],
+                                         device=dev, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = sim_launches()
+            emit(phase="baselines", strategy=name, fused_round=fused,
+                 steps=steps, seconds=secs, steps_per_s=steps / secs,
+                 launches=launches, **kw)
+            check_conservation(outs[fused].acc)
+            if launches != needs:
+                raise AssertionError(f"{name} fused_round={fused}: launches "
+                                     f"{launches}, the path needs {needs}")
+        check_identical(outs[True], outs[False], f"{name} fused vs scan")
+
+
+def phase_suite(dev) -> None:
+    """The paper's evaluation suite through the port's own harness."""
+    import torch
+    from repro_torch.bench import figures as bf
+    for fn in all_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    suite = bf.get_suite(dev, seeds=SUITE["seeds"], horizon=SUITE["horizon"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    totals = sim_launches()
+    T = suite.config.cfg.num_steps
+    for (seed, label), lane in suite.lanes.items():
+        check_conservation(suite.runs[(seed, label)].acc)
+        sim = {k: lane["launches"][k] for k in totals}
+        emit(phase="suite_lane", seed=seed, strategy=label, steps=T,
+             seconds=lane["seconds"], steps_per_s=lane["steps_per_s"],
+             launches=sim)
+        n = T if label == "qedgeproxy" else 0
+        if sim != dict(round_step_swrr=n, fused_maintenance=n):
+            raise AssertionError(f"suite lane {seed}/{label}: launches {sim}, "
+                                 f"the path needs {n} of each")
+    if totals != dict(round_step_swrr=len(SUITE["seeds"]) * T,
+                      fused_maintenance=len(SUITE["seeds"]) * T):
+        raise AssertionError(f"suite launches {totals}")
+    fig3, fig4 = bf.fig3_qos_success(suite), bf.fig4_fairness(suite)
+    fig5, fig8 = bf.fig5_per_client(suite), bf.fig8_p90_latency(suite)
+    headline = {label: dict(
+        clients_ge_rho_pct=fig3[label]["per_scenario"],
+        clients_ge_rho_mean=fig3[label]["mean"],
+        jain=fig4[label]["per_scenario"],
+        clients_below_target=fig5[label]["clients_below_target"],
+        n_clients=fig5[label]["n_clients"],
+        max_p90_ms=fig8[label]["max_ms"]) for label, _ in bf.STRATEGIES}
+    emit(phase="suite", seeds=list(suite.config.seeds), steps=T,
+         warmup_steps=suite.config.warm, seconds=secs, launches=totals,
+         device=suite.device, figures=headline)
+    qep = fig3["qedgeproxy"]
+    if not min(qep["per_scenario"]) >= 90.0:
+        raise AssertionError(f"qedgeproxy clients >= rho {qep}")
+    for label in ("proxy_mity_1.0", "proxy_mity_0.9", "dec_sarsa"):
+        strict = label.startswith("proxy_mity")
+        if not (qep["mean"] > fig3[label]["mean"] if strict
+                else qep["mean"] >= fig3[label]["mean"]):
+            raise AssertionError(f"qedgeproxy {qep['mean']}% against "
+                                 f"{label} {fig3[label]['mean']}%")
+
+
 def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
                 per_decode: tuple) -> dict:
     """The serving cell through the launcher a user runs, with ``arch``
@@ -1054,17 +1173,26 @@ def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
 
 
 def phase_profile(dev, trace_dir: Path) -> None:
-    """Profiler breakdowns: 20 fleet steps; one prefill and one decode
+    """Profiler breakdowns: 20 fleet steps; 20 steps of each suite
+    strategy on the 30x10 testbed (seed 1); one prefill and one decode
     call of each serving cell's model (qwen3-4b, then mamba2-1.3b; batch
     4, prompt 1000)."""
     import torch
+    from repro_torch.bench import figures as bf
     from repro_torch.configs import get_config
-    from repro_torch.continuum import run_sim_stream
+    from repro_torch.continuum import make_topology, run_sim_stream
     from repro_torch.models import build_model
     cfg, rtt = fleet_inputs(dev, 2.0)
     run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
     profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
              "fleet", trace_dir, steps=cfg.num_steps)
+    rtt = make_topology(1, bf.N_LBS, bf.N_INSTANCES, device=dev).lb_instance_rtt()
+    for label, kw in bf.STRATEGIES:
+        def lane():
+            run_sim_stream(bf.strategy_name(label), rtt, cfg, 101, device=dev,
+                           **kw)
+        lane()                                                   # warm
+        profiled(lane, f"suite_{label}", trace_dir, steps=cfg.num_steps)
 
     B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
     for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_")):
@@ -1087,10 +1215,11 @@ def phase_profile(dev, trace_dir: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", type=Path,
-                    help="add torch.profiler breakdowns of fleet steps and of "
-                         "a prefill and decode call of each served model, and "
-                         "write their Chrome traces to DIR/{fleet,prefill,"
-                         "decode,ssm_prefill,ssm_decode}_trace.json")
+                    help="add torch.profiler breakdowns of fleet steps, suite "
+                         "steps and a prefill and decode call of each served "
+                         "model, and write their Chrome traces to "
+                         "DIR/{fleet,suite_<strategy>,prefill,decode,"
+                         "ssm_prefill,ssm_decode}_trace.json")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1117,6 +1246,8 @@ def main() -> int:
     errs = phase_kernels(dev)
     phase_testbed(dev)
     launches = phase_fleet(dev)
+    phase_baselines(dev)
+    phase_suite(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),

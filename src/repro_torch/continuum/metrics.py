@@ -1,11 +1,13 @@
-"""Streaming metrics for the paper's §VII figures (main-path subset).
+"""Metrics for the paper's §VII figures (single-service subset).
 
-Port of the streaming half of ``repro/continuum/metrics.py``: the
-simulator's step loop carries an O(K·M) ``MetricAccumulator`` on the
-device and fills O(T) scalar ``StepSeries``; the ``*_stream`` readouts
-turn them into the Figs 3-8 statistics on the host. The per-instance
-latency quantile (Fig. 8) comes from a fixed geometric histogram
-sketch, as in the reference.
+Port of ``repro/continuum/metrics.py`` without the resilience and
+tenant readouts: the simulator's step loop carries an O(K·M)
+``MetricAccumulator`` on the device and fills O(T) scalar
+``StepSeries``; the ``*_stream`` readouts turn them into the Figs 3-9
+and regret statistics on the host. The per-instance latency quantile
+(Fig. 8) comes from a fixed geometric histogram sketch, as in the
+reference. The trace-mode readouts compute the same statistics from
+full ``SimOutputs`` trajectories.
 
 Every count here is an integer-valued float32 sum (``index_add_`` in
 place of ``segment_sum``), so the order in which CUDA's atomic adds
@@ -191,6 +193,92 @@ def _np(x, dtype=None) -> np.ndarray:
     return np.asarray(x, dtype)
 
 
+# ---------------------------------------------------------------------------
+# Trace-mode readouts (full SimOutputs trajectories).
+# ---------------------------------------------------------------------------
+
+def per_client_success(outs, warmup_steps: int = 0):
+    """(K, C) fraction of each client's requests meeting QoS + presence
+    mask (Fig. 5)."""
+    r = _np(outs.rewards)[warmup_steps:]
+    m = _np(outs.issued)[warmup_steps:]
+    n = np.maximum(m.sum(0), 1)
+    return (r * m).sum(0) / n, m.sum(0) > 0
+
+
+def client_qos_satisfaction(outs, rho: float,
+                            warmup_steps: int = 0) -> float:
+    """% of clients whose success ratio >= rho (Fig. 3)."""
+    ratio, present = per_client_success(outs, warmup_steps)
+    return _qos_satisfaction(ratio, present, rho)
+
+
+def jain_fairness(outs, reachable: np.ndarray | None = None,
+                  warmup_steps: int = 0) -> float:
+    """Jain's index over per-instance request totals (Fig. 4)."""
+    return _jain(_np(outs.arrivals)[warmup_steps:].sum(0), reachable)
+
+
+def rolling_qos(outs, window_steps: int) -> np.ndarray:
+    """(T,) rolling overall QoS success rate (Fig. 6)."""
+    issued = _np(outs.issued)
+    r = (_np(outs.rewards) * issued).sum((1, 2))
+    return _rolling_ratio(r, issued.sum((1, 2)).astype(np.float64),
+                          window_steps)
+
+
+def per_lb_rolling_qos(outs, window_steps: int) -> np.ndarray:
+    """(T, K) rolling per-LB QoS success rate."""
+    issued = _np(outs.issued)
+    r = (_np(outs.rewards) * issued).sum(2)
+    n = issued.sum(2).astype(np.float64)
+    return np.stack([_rolling_ratio(r[:, k], n[:, k], window_steps)
+                     for k in range(r.shape[1])], axis=1)
+
+
+def request_rate_per_instance(outs, dt: float,
+                              warmup_steps: int = 0) -> np.ndarray:
+    """(M,) average req/s per instance (Fig. 7)."""
+    a = _np(outs.arrivals)[warmup_steps:]
+    return a.sum(0) / (a.shape[0] * dt)
+
+
+def p90_proc_latency(outs, warmup_steps: int = 0) -> np.ndarray:
+    """(M,) p90 of processing latency per instance (Fig. 8)."""
+    proc = _np(outs.proc_lat)[warmup_steps:]
+    m = _np(outs.issued)[warmup_steps:]
+    ch = _np(outs.choices)[warmup_steps:]
+    out = np.zeros(outs.arrivals.shape[1])
+    for i in range(len(out)):
+        vals = proc[m & (ch == i)]
+        out[i] = np.percentile(vals, 90) if vals.size else 0.0
+    return out
+
+
+def per_lb_request_distribution(outs, lb: int,
+                                warmup_steps: int = 0) -> np.ndarray:
+    """(M,) share of LB ``lb``'s requests per instance (Fig. 9)."""
+    m = _np(outs.issued)[warmup_steps:, lb]
+    ch = _np(outs.choices)[warmup_steps:, lb]
+    counts = np.bincount(ch[m], minlength=outs.arrivals.shape[1])
+    counts = counts.astype(np.float64)
+    return counts / max(counts.sum(), 1.0)
+
+
+def cumulative_regret(outs) -> np.ndarray:
+    """(T,) system regret sum_k R_k(t) (Eq. 9)."""
+    return np.cumsum(_np(outs.regret).sum(1))
+
+
+def variation_budget_emp(outs) -> np.ndarray:
+    """(K,) empirical V_k(T) from the true-mu trajectory (Def. 1)."""
+    return np.abs(np.diff(_np(outs.true_mu), axis=0)).max(-1).sum(0)
+
+
+# ---------------------------------------------------------------------------
+# Streaming readouts (MetricAccumulator / StepSeries).
+# ---------------------------------------------------------------------------
+
 def per_client_success_stream(acc: MetricAccumulator):
     """(K, C) per-client success ratio + presence mask (Fig. 5)."""
     s, n = _np(acc.succ_kc), _np(acc.n_kc)
@@ -265,3 +353,21 @@ def rolling_qos_series(series: StepSeries, window_steps: int) -> np.ndarray:
     return _rolling_ratio(_np(series.succ),
                           _np(series.issued).astype(np.float64),
                           window_steps)
+
+
+def per_lb_request_distribution_stream(acc: MetricAccumulator,
+                                       lb: int) -> np.ndarray:
+    """(M,) share of LB ``lb``'s post-warmup requests per instance
+    (Fig. 9)."""
+    counts = _np(acc.choice_counts, np.float64)[lb]
+    return counts / max(counts.sum(), 1.0)
+
+
+def cumulative_regret_series(series: StepSeries) -> np.ndarray:
+    """(T,) cumulative system regret from the per-step stream."""
+    return np.cumsum(_np(series.regret, np.float64))
+
+
+def variation_budget_stream(acc: MetricAccumulator) -> np.ndarray:
+    """(K,) empirical V_k(T) partial sum (Def. 1)."""
+    return _np(acc.vb_k)

@@ -1,23 +1,29 @@
-"""Discrete-time CC simulator (paper §VII testbed), the streaming main path.
+"""Discrete-time CC simulator (paper §VII testbed) on the card.
 
 Port of the single-service path of ``repro/continuum/simulator.py``:
-strategy ``qedgeproxy``, drivers as compiled, unsharded, the fused
-round, resilience / control / recorder / tenancy off, streaming
-metrics. The instance model and the step are the reference's: every
-step of ``dt`` issues up to ``max_clients`` rounds of requests per load
-balancer; a request that finds q requests queued at instance m sees
-``rtt + (q + 1) * s_m * Z`` with ``Z ~ LogNormal(0, proc_sigma^2)``;
-queues drain ``dt / (C * s_m)`` per round. Staggered Alg-1 maintenance
-runs for ~K / maint_every players per step.
+strategies ``qedgeproxy``, ``proxy_mity`` (any alpha) and
+``dec_sarsa``, drivers as compiled, unsharded, resilience / control /
+recorder / tenancy off, the fused round or the round scan, streaming
+metrics (``run_sim_stream``) or full trajectories (``run_sim``). The
+instance model and the step are the reference's: every step of ``dt``
+issues up to ``max_clients`` rounds of requests per load balancer; a
+request that finds q requests queued at instance m sees ``rtt + (q +
+1) * s_m * Z`` with ``Z ~ LogNormal(0, proc_sigma^2)``; queues drain
+``dt / (C * s_m)`` per round. Staggered Alg-1 maintenance runs for ~K
+/ maint_every players per step.
 
 ``lax.scan`` becomes a host loop over steps that never waits on the
 card: the per-step placement-event flags come from the drivers on the
 host before the loop (in place of ``lax.cond``), the step's time is a
-host number, and the ``StepSeries`` scalars go into preallocated
-device buffers read once at the end. Per step the card runs the two
-CUDA kernels (``kernels.ops.round_step`` for the C rounds,
-``kernels.ops.bandit_maintenance_stats`` inside maintenance) and plain
-PyTorch ops for the rest.
+host number, and the per-step outputs go into preallocated device
+buffers read once at the end. With the fused round a ``qedgeproxy``
+step runs the two CUDA kernels (``kernels.ops.round_step`` for the C
+rounds, ``kernels.ops.bandit_maintenance_stats`` inside maintenance)
+and plain PyTorch ops for the rest; ``proxy_mity``'s fused round is
+batched PyTorch (``kernels.ops.round_step_gumbel``). The round scan
+(``fused_round=False``, and always for ``dec_sarsa``, which reads its
+own state between rounds) is a host loop over the C rounds whose keys
+and noise are drawn for all rounds at once, before the loop.
 
 Features the reference has beyond this path raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -25,6 +31,7 @@ Features the reference has beyond this path raise
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +41,7 @@ from repro_torch.continuum import scenarios as qs
 from repro_torch.continuum.metrics import StepSeries, StreamOutputs
 from repro_torch.continuum.scenarios import Drivers
 from repro_torch.core import bandit as qb
+from repro_torch.core import baselines as bl
 from repro_torch.core import fmath, prand
 from repro_torch.core.kde import normal_cdf
 from repro_torch.core.oracle import step_regret
@@ -44,8 +52,8 @@ from repro_torch.kernels import ops as kernel_ops
 @dataclass(frozen=True)
 class SimConfig:
     """Every field of the reference ``SimConfig``; on this path the
-    resilience, control, recorder and tenancy fields must stay neutral
-    and ``fused_round`` on."""
+    resilience, control, recorder and tenancy fields must stay
+    neutral."""
     dt: float = 0.1                  # step length [s] = client period
     horizon: float = 300.0           # simulated seconds
     maint_every: int = 10            # QEdgeProxy decision interval H_d [steps]
@@ -97,8 +105,8 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
-def _check_main_path(cfg: SimConfig, fused: bool, trace: bool, pshard) -> None:
-    """Raise for every setting that leaves the ported main path."""
+def _check_main_path(cfg: SimConfig, pshard) -> None:
+    """Raise for every setting that leaves the ported path."""
     tn = cfg.tenancy
     if tn is not None and not tn.enabled:
         if abs(tn.taus[0] - cfg.tau) > 1e-12:
@@ -117,12 +125,25 @@ def _check_main_path(cfg: SimConfig, fused: bool, trace: bool, pshard) -> None:
         raise _not_ported("the closed-loop control plane", "A9")
     if cfg.recorder_on:
         raise _not_ported("the flight recorder", "A9")
-    if not (cfg.fused_round and fused):
-        raise _not_ported("the unfused round scan", "A5")
-    if trace:
-        raise _not_ported("trace mode (SimOutputs trajectories)", "A5")
     if pshard is not None:
         raise _not_ported("player sharding", "A10")
+
+
+class SimOutputs(NamedTuple):
+    """Per-step trajectories (leading axis T), ``trace=True`` only."""
+    rewards: torch.Tensor      # (T, K, C) 1/0 QoS success per client slot
+    issued: torch.Tensor       # (T, K, C) request-issued mask
+    choices: torch.Tensor      # (T, K, C) selected instance
+    latency: torch.Tensor      # (T, K, C) end-to-end latency
+    proc_lat: torch.Tensor     # (T, K, C) processing component
+    arrivals: torch.Tensor     # (T, M) requests per instance
+    queue: torch.Tensor        # (T, M) queue length at step start
+    weights: torch.Tensor      # (T, K, M) routing distribution
+    true_mu: torch.Tensor      # (T, K, M) oracle success probabilities
+    regret: torch.Tensor       # (T, K) per-step oracle regret
+    eps: torch.Tensor          # (T, K) exploration rate (qedgeproxy) or 0
+    attempts: torch.Tensor     # (T, K, C) attempts per request (1 here)
+    dropped: torch.Tensor      # (T, K, C) always False here
 
 
 def _true_mu_tau(rtt, q, tau, sigma, service_time):
@@ -138,20 +159,55 @@ def _true_mu(rtt, q, cfg: SimConfig, service_time):
 
 
 # ---------------------------------------------------------------------------
-# Strategy adapter: a dict of closures, as in the reference.
+# Strategy adapters: dicts of closures, as in the reference.
+#
+# One change of interface: the round scan draws every round's selection
+# noise before its loop, through ``draw(keys, pids)`` (``keys`` is the
+# (C, 2) per-round selection keys; the result has a leading C axis, or
+# is None), and ``select(state, drawn, t, active, pids)`` gets its
+# round's row. Each draw is the one the reference's ``select`` makes
+# from that round's key.
 # ---------------------------------------------------------------------------
+
+def _round_keys(k_step, C: int):
+    """(C, 2, 2): per round r, ``split(fold_in(k_step, r))``, the
+    round's selection and noise keys."""
+    rounds = torch.arange(C, device=k_step.device)
+    return prand.split(prand.fold_in(k_step, rounds))
+
+
+def _noise(cfg: SimConfig, keys, pids):
+    """(C, K) processing noise ``exp(sigma * N)`` from (C, 2) keys."""
+    return fmath.exp(cfg.proc_sigma * prand.player_normal(keys, pids))
+
 
 def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
                         M: int):
-    """The reference's strategy adapter, cut to the closures the ported
-    engine calls (the unfused round scan and the resilience path use
-    the others; ROADMAP A5, A9)."""
     def init(rtt, active, key, pids):
         return qb.init_state(K, M, params, cfg.ring, cfg.reward_ring, active,
                              key=key, pids=pids)
 
+    def draw(keys, pids):
+        return None                       # SWRR draws nothing
+
+    def select(state, drawn, t, active, pids):
+        choice, state, valid = qb.select(state)
+        return choice, state
+
+    def record(state, choice, lat, t, mask):
+        return qb.record(state, params, choice, lat, t, mask)
+
+    def maintain(state, rtt, t, lb_mask=None):
+        return qb.maintenance(state, params, rtt, t, lb_mask)
+
     def maintain_subset(state, rtt, t, player_idx):
         return qb.maintenance_subset(state, params, rtt, t, player_idx)
+
+    def record_feedback(state, choice, lat, t, mask):
+        return qb.record_feedback(state, params, choice, lat, t, mask)
+
+    def record_rings(state, choices, lats, t, mask):
+        return qb.record_rings_batch(state, params, choices, lats, t, mask)
 
     def on_activity(state, new_active, rtt, t):
         return qb.sync_active(state, params, new_active)
@@ -159,21 +215,21 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
     def weights(state):
         return state.weights
 
+    def eps(state):
+        return state.eps
+
     def fused_round(state, q, nc, act, t, rtt_t, s_m, served, k_step, pids):
         # all C rounds in one kernel call; the per-round noise is drawn
         # up front, each element the draw the reference's round scan
         # makes: a pure function of (step key, round, player id). `t` is
         # the step time as a host number.
-        C = cfg.max_clients
-        rkeys = prand.fold_in(k_step, torch.arange(C, device=k_step.device))
-        ks = prand.split(rkeys)                          # (C, 2, 2)
-        z = fmath.exp(cfg.proc_sigma * prand.player_normal(ks[:, 1], pids))
+        ks = _round_keys(k_step, cfg.max_clients)
         out = kernel_ops.round_step(
             state.weights, state.cw, state.err, state.cooldown_until,
             state.in_pool, state.active,
             state.lat_buf, state.ts_buf, state.ptr,
             state.r_buf, state.rts_buf, state.rptr,
-            q, nc, z, rtt_t, s_m, served, t,
+            q, nc, _noise(cfg, ks[:, 1], pids), rtt_t, s_m, served, t,
             tau=params.tau, err_thresh=params.err_thresh,
             cooldown=params.cooldown)
         state = state._replace(
@@ -183,9 +239,115 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
             r_buf=out.r_buf, rts_buf=out.rts_buf, rptr=out.rptr)
         return state, out.q, out.arrivals, out.choices, out.lats, out.procs
 
-    return dict(init=init, maintain_subset=maintain_subset,
-                on_activity=on_activity, weights=weights,
+    return dict(init=init, draw=draw, select=select, record=record,
+                maintain=maintain, maintain_subset=maintain_subset,
+                record_feedback=record_feedback, record_rings=record_rings,
+                on_activity=on_activity, weights=weights, eps=eps,
                 fused_round=fused_round)
+
+
+class PMState(NamedTuple):
+    """proxy-mity's strategy state: its fixed routing weights."""
+    weights: torch.Tensor
+
+
+def proxy_mity_strategy(alpha: float, cfg: SimConfig, K: int, M: int):
+    """Static proximity weights; requests sampled i.i.d. from them
+    (proxy-mity randomizes per request; there is no SWRR state)."""
+
+    def init(rtt, active, key, pids):
+        return PMState(bl.proxy_mity_weights(rtt, alpha, active))
+
+    def draw(keys, pids):
+        return prand.player_gumbel(keys, pids, M)          # (C, K, M)
+
+    def select(state, gumbel, t, active, pids):
+        # per-player categorical: argmax(logits + Gumbel)
+        choice = torch.argmax(fmath.log(state.weights + 1e-30) + gumbel,
+                              dim=-1)
+        return choice, state
+
+    def keep(state, *args):
+        return state                    # stateless per request, fixed weights
+
+    def on_activity(state, new_active, rtt, t):
+        return state._replace(
+            weights=bl.proxy_mity_weights(rtt, alpha, new_active))
+
+    def weights(state):
+        return state.weights
+
+    def eps(state):
+        return torch.zeros(K, dtype=torch.float32, device=state.weights.device)
+
+    def fused_round(state, q, nc, act, t, rtt_t, s_m, served, k_step, pids):
+        # selection is queue-independent: every round's Gumbel rows are
+        # drawn and argmaxed at once; only the (M,) queue runs in order
+        ks = _round_keys(k_step, cfg.max_clients)
+        q, arrivals, choices, lats, procs = kernel_ops.round_step_gumbel(
+            state.weights, q, nc, _noise(cfg, ks[:, 1], pids),
+            prand.player_gumbel(ks[:, 0], pids, M), rtt_t, s_m, served)
+        return state, q, arrivals, choices, lats, procs
+
+    return dict(init=init, draw=draw, select=select, record=keep,
+                maintain=keep, record_feedback=keep, record_rings=keep,
+                on_activity=on_activity, weights=weights, eps=eps,
+                fused_round=fused_round)
+
+
+class DSState(NamedTuple):
+    """Dec-SARSA's strategy state."""
+    inner: bl.DecSarsaState
+    active: torch.Tensor
+    pend_s: torch.Tensor      # state bucket used for the pending action
+
+
+def dec_sarsa_strategy(params: bl.DecSarsaParams, cfg: SimConfig, K: int,
+                       M: int, pshard=None):
+    if pshard is not None:
+        raise _not_ported("Dec-SARSA under player sharding", "A10")
+
+    def init(rtt, active, key, pids):
+        return DSState(bl.decsarsa_init(K, M, rtt, params, rtt.max()), active,
+                       torch.zeros(K, dtype=torch.int32, device=rtt.device))
+
+    def draw(keys, pids):
+        return bl.decsarsa_draws(keys, M, pids)      # (C, K), (C, K, M)
+
+    def select(state, drawn, t, active, pids):
+        choice, s = bl.decsarsa_choose(state.inner, params, active, *drawn)
+        return choice, state._replace(pend_s=s, active=active)
+
+    def record(state, choice, lat, t, mask):
+        reward = (lat <= params.tau).to(torch.float32)
+        inner = bl.decsarsa_update(
+            state.inner, params, state.pend_s, choice, reward, lat, mask)
+        return state._replace(inner=inner)
+
+    def maintain(state, rtt, t, lb_mask=None):
+        return state
+
+    def on_activity(state, new_active, rtt, t):
+        return state._replace(active=new_active)
+
+    def weights(state):
+        # effective eps-greedy distribution for regret accounting
+        q = state.inner.q
+        qs = q[torch.arange(K, device=q.device), state.pend_s.to(torch.int64)]
+        qs = torch.where(state.active[None, :], qs, torch.finfo(qs.dtype).min)
+        greedy = torch.nn.functional.one_hot(torch.argmax(qs, -1), M).to(
+            torch.float32)
+        actf = state.active.to(torch.float32)[None, :]
+        uni = actf / torch.clamp_min(actf.sum(-1, keepdim=True), 1.0)
+        e = state.inner.eps[:, None]
+        return (1 - e) * greedy + e * uni
+
+    def eps(state):
+        return state.inner.eps
+
+    return dict(init=init, draw=draw, select=select, record=record,
+                maintain=maintain, on_activity=on_activity, weights=weights,
+                eps=eps)
 
 
 def make_strategy(name: str, cfg: SimConfig, K: int, M: int,
@@ -195,8 +357,11 @@ def make_strategy(name: str, cfg: SimConfig, K: int, M: int,
             tau=cfg.tau, rho=cfg.rho, window=cfg.window,
             **{k: v for k, v in kw.items() if k in qb.BanditParams._fields})
         return qedgeproxy_strategy(params, cfg, K, M)
-    if name.startswith("proxy_mity") or name == "dec_sarsa":
-        raise _not_ported(f"strategy {name!r}", "A6")
+    if name.startswith("proxy_mity"):
+        return proxy_mity_strategy(kw.get("alpha", 1.0), cfg, K, M)
+    if name == "dec_sarsa":
+        params = kw.get("params") or bl.DecSarsaParams(tau=cfg.tau)
+        return dec_sarsa_strategy(params, cfg, K, M, pshard)
     raise ValueError(f"unknown strategy {name!r}")
 
 
@@ -223,29 +388,49 @@ def _stagger_groups(k_phase, K_global: int, n_phases: int, width: int,
     return torch.where(ok, local, K_local).T.to(torch.int32)
 
 
+def _row(drawn, r: int):
+    """Round ``r``'s row of a ``draw`` result (a tensor, a tuple, None)."""
+    if drawn is None:
+        return None
+    if isinstance(drawn, tuple):
+        return tuple(x[r] for x in drawn)
+    return drawn[r]
+
+
 def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
                     fused: bool = True, trace: bool = True,
                     warmup_steps: int = 0, pshard=None, **strategy_kw):
     """The engine's two halves, ``(init_fn, step_fn)``.
 
     * ``init_fn(rtt, active0, key, pids=None) -> (carry0, keys)``: the
-      strategy state, an empty queue and accumulator, the stagger table
-      and the (T, 2) per-step keys.
+      strategy state, an empty queue and (streaming) accumulator, the
+      stagger table and the (T, 2) per-step keys.
     * ``step_fn(rtt, marks, carry, xs, changed) -> (carry, ys)``: one
       step. ``xs = (t_idx, n_clients_t, active_t, rtt_scale_t,
       rtt_cut_k_t, rtt_cut_m_t, s_m_t, key_t, group_t)`` with ``t_idx``
       a host integer and ``group_t`` the players due for maintenance
       (padded with the sentinel ``K``); ``changed`` is the host flag
       "liveness differs from the previous step" that fires the Alg 3/4
-      placement event. ``ys`` is a ``StepSeries`` row of 0-dim tensors.
+      placement event. ``ys`` is a ``SimOutputs`` row in trace mode,
+      a ``StepSeries`` row of 0-dim tensors otherwise.
 
-    The carry is the reference's 9 slots ``(state, queue, prev_active,
-    acc, groups, pids, breaker, control, recorder)``; the last three
-    are ``None`` on this path.
+    ``fused=False`` forces the reference's pre-fusion step structure
+    (per-round ``record`` calls and full-width maintenance masked by
+    ``lb_mask``); ``cfg.fused_round=False`` keeps the batched ring
+    writes and subset maintenance but runs the C rounds as a scan
+    instead of one fused call. The carry is the reference's 9 slots
+    ``(state, queue, prev_active, acc, groups, pids, breaker, control,
+    recorder)``; ``acc`` is None in trace mode and the last three are
+    None on this path.
     """
-    _check_main_path(cfg, fused, trace, pshard)
+    _check_main_path(cfg, pshard)
     T, C = cfg.num_steps, cfg.max_clients
     strat = make_strategy(strategy_name, cfg, K, M, **strategy_kw)
+    batched_record = fused and "record_rings" in strat
+    subset_maint = fused and "maintain_subset" in strat
+    fused_round_on = (cfg.fused_round and batched_record
+                      and "fused_round" in strat)
+    feed = strat["record_feedback"] if batched_record else strat["record"]
     n_phases = max(cfg.maint_every, 1)
     n_blocks = -(-K // n_phases)
     ev_pre_steps = max(1, int(round(cfg.ev_pre / cfg.dt)))
@@ -260,10 +445,45 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
         s0 = strat["init"](rtt, active0, k_init, pids)
         q0 = torch.zeros(M, dtype=torch.float32, device=dev)
         groups = _stagger_groups(k_phase, K, n_phases, n_blocks, 0, K)
-        acc = qm.init_accumulator(K, M, C, n_marks=qs.MAX_MARKS,
-                                  ev_buckets=cfg.ev_buckets, device=dev)
+        acc = None if trace else qm.init_accumulator(
+            K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
+            device=dev)
         keys = prand.split(k_scan, T)
         return (s0, q0, active0, acc, groups, pids, None, None, None), keys
+
+    def round_scan(state, q, act, t, rtt_t, s_m, served, k_step, pids,
+                   mask_all):
+        """The C rounds in order: select, feedback, the shared queue.
+        Every round's keys and noise are drawn before the loop."""
+        dev = q.device
+        ks = _round_keys(k_step, C)
+        z = _noise(cfg, ks[:, 1], pids)                  # (C, K)
+        drawn = strat["draw"](ks[:, 0], pids)
+        kidx = torch.arange(K, device=dev)
+        arrivals = torch.zeros(M, dtype=torch.float32, device=dev)
+        ch_r, lat_r, proc_r = [], [], []
+        for r in range(C):
+            mask = mask_all[:, r]
+            choice, state = strat["select"](state, _row(drawn, r), t, act,
+                                            pids)
+            q1s = (q[choice] + 1.0) * s_m[choice]
+            proc = q1s * z[r]
+            # the reference's compiler fuses rtt + (q+1)s * z into one
+            # FMA, so the sum rounds once (as in the fused round)
+            lat = fmath.fma(q1s, z[r], rtt_t[kidx, choice])
+            state = feed(state, choice, lat, t, mask)
+            arr_r = torch.zeros(M, dtype=torch.float32, device=dev).index_add_(
+                0, choice, mask.to(torch.float32))
+            q = torch.clamp_min(q + arr_r - served, 0.0)
+            arrivals = arrivals + arr_r          # integer-valued: order-free
+            ch_r.append(choice)
+            lat_r.append(lat)
+            proc_r.append(proc)
+        choices = torch.stack(ch_r, dim=1).to(torch.int32)
+        lats, procs = torch.stack(lat_r, dim=1), torch.stack(proc_r, dim=1)
+        if batched_record:
+            state = strat["record_rings"](state, choices, lats, t, mask_all)
+        return state, q, arrivals, choices, lats, procs
 
     def step_fn(rtt, marks, carry, xs, changed: bool):
         state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
@@ -281,28 +501,48 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
             state = strat["on_activity"](state, act, rtt_t, t)
 
         # maintenance: only the player group whose clock fires
-        state = strat["maintain_subset"](state, rtt_t, t, group)
+        if subset_maint:
+            state = strat["maintain_subset"](state, rtt_t, t, group)
+        else:
+            lb_mask = torch.zeros(K + 1, dtype=torch.bool, device=dev)
+            lb_mask[group.to(torch.int64)] = True       # sentinel K: dropped
+            state = strat["maintain"](state, rtt_t, t, lb_mask[:K])
 
         mu_true = _true_mu(rtt_t, q, cfg, s_m)       # (K, M) at step start
-        reg = step_regret(strat["weights"](state), mu_true, act)
+        w_now = strat["weights"](state)
+        reg = step_regret(w_now, mu_true, act)
+        q_start = q
         mask_all = torch.arange(C, device=dev)[None, :] < nc[:, None]
         served_per_round = torch.full_like(s_m, cfg.dt) / (C * s_m)
 
-        state, q, arrivals, choices, lats, procs = strat["fused_round"](
-            state, q, nc, act, t_host, rtt_t, s_m, served_per_round,
-            k_step, pids)
+        if fused_round_on:
+            state, q, arrivals, choices, lats, procs = strat["fused_round"](
+                state, q, nc, act, t_host, rtt_t, s_m, served_per_round,
+                k_step, pids)
+        else:
+            state, q, arrivals, choices, lats, procs = round_scan(
+                state, q, act, t, rtt_t, s_m, served_per_round, k_step,
+                pids, mask_all)
         att_kc = mask_all.to(torch.int32)
         rewards = (lats <= cfg.tau).to(torch.float32)
-        acc = qm.update_accumulator(
-            acc, rewards=rewards, issued=mask_all, choices=choices,
-            procs=procs, arrivals=arrivals, regret=reg, mu=mu_true,
-            t_idx=t_idx, warmup_steps=warmup_steps, marks=marks,
-            ev_pre_steps=ev_pre_steps, ev_bucket_steps=ev_bucket_steps,
-            attempts=att_kc, dropped=torch.zeros_like(mask_all))
-        issf = mask_all.to(torch.float32)
-        ys = StepSeries(succ=(rewards * issf).sum(), issued=issf.sum(),
-                        regret=reg.sum(),
-                        attempts=att_kc.to(torch.float32).sum())
+        if trace:
+            ys = SimOutputs(
+                rewards=rewards, issued=mask_all, choices=choices,
+                latency=lats, proc_lat=procs, arrivals=arrivals,
+                queue=q_start, weights=w_now, true_mu=mu_true, regret=reg,
+                eps=strat["eps"](state), attempts=att_kc,
+                dropped=torch.zeros_like(mask_all))
+        else:
+            acc = qm.update_accumulator(
+                acc, rewards=rewards, issued=mask_all, choices=choices,
+                procs=procs, arrivals=arrivals, regret=reg, mu=mu_true,
+                t_idx=t_idx, warmup_steps=warmup_steps, marks=marks,
+                ev_pre_steps=ev_pre_steps, ev_bucket_steps=ev_bucket_steps,
+                attempts=att_kc, dropped=torch.zeros_like(mask_all))
+            issf = mask_all.to(torch.float32)
+            ys = StepSeries(succ=(rewards * issf).sum(), issued=issf.sum(),
+                            regret=reg.sum(),
+                            attempts=att_kc.to(torch.float32).sum())
         return (state, q, act, acc, groups, pids, brk, ctl, rec), ys
 
     return init_fn, step_fn
@@ -319,9 +559,13 @@ def _changed_flags(active: torch.Tensor) -> list[bool]:
 def build_sim_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
                  fused: bool = True, trace: bool = True,
                  warmup_steps: int = 0, pshard=None, **strategy_kw):
-    """``run(rtt, drivers, key, service_time=None, pids=None) ->
-    StreamOutputs`` on the device of ``rtt``; only the streaming mode
-    (``trace=False``) is ported."""
+    """``run(rtt, drivers, key, service_time=None, pids=None)`` on the
+    device of ``rtt``. ``trace=True`` returns ``SimOutputs``
+    trajectories (O(T·K·M) memory: each step's row is written into
+    preallocated device buffers, read to the host once at the end);
+    ``trace=False`` returns ``StreamOutputs`` (the accumulator on the
+    device, the O(T) series on the host). ``warmup_steps`` gates the
+    accumulator and is ignored in trace mode."""
     T = cfg.num_steps
     init_fn, step_fn = build_sim_parts(
         strategy_name, cfg, K, M, fused=fused, trace=trace,
@@ -335,15 +579,20 @@ def build_sim_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
         carry, keys = init_fn(rtt, drivers.active[0], key, pids)
         changed = _changed_flags(drivers.active)
         n_phases = max(cfg.maint_every, 1)
-        series = torch.empty(len(StepSeries._fields), T, dtype=torch.float32,
-                             device=dev)
+        rows = None
         for i in range(T):
             xs = (i, *(getattr(drivers, f)[i] for f in qs.STEP_FIELDS),
                   keys[i], carry[4][i % n_phases])
             carry, ys = step_fn(rtt, drivers.marks, carry, xs, changed[i])
-            series[:, i] = torch.stack(ys)
-        host = series.cpu()
-        return StreamOutputs(acc=carry[3], series=StepSeries(*host.unbind(0)))
+            if rows is None:
+                rows = [torch.empty((T, *y.shape), dtype=y.dtype, device=dev)
+                        for y in ys]
+            for buf, y in zip(rows, ys):
+                buf[i] = y
+        host = [buf.cpu() for buf in rows]
+        if trace:
+            return SimOutputs(*host)
+        return StreamOutputs(acc=carry[3], series=StepSeries(*host))
 
     return run
 
@@ -356,6 +605,43 @@ def _resolve_drivers(cfg, K, M, drivers, n_clients, active, device):
         return Drivers(*(x.to(device) for x in drivers))
     return qs.neutral_drivers(cfg, K, M, n_clients=n_clients, active=active,
                               device=device)
+
+
+def _inputs(rtt, key, device):
+    """``rtt`` as float32 and ``key`` as key words (an integer seed is
+    ``prand.prng_key(seed)``), both on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    if not isinstance(rtt, torch.Tensor):
+        rtt = torch.tensor(np.asarray(rtt), dtype=torch.float32)
+    rtt = rtt.to(dev, torch.float32)
+    key = (prand.prng_key(key, dev) if isinstance(key, int)
+           else torch.as_tensor(key, dtype=torch.int64).to(dev))
+    return dev, rtt, key
+
+
+def run_sim(
+    strategy_name: str,
+    rtt,                          # (K, M) base LB->instance RTT [s]
+    cfg: SimConfig,
+    key,                          # (2,) key tensor, or an integer seed
+    n_clients: torch.Tensor | None = None,   # (T, K)
+    active: torch.Tensor | None = None,      # (T, M)
+    drivers: Drivers | None = None,
+    device=None,
+    **strategy_kw,
+) -> SimOutputs:
+    """Run one topology x strategy for the full horizon, trace mode:
+    ``SimOutputs`` trajectories on the host.
+
+    Runs on ``device`` (default ``cuda``), as ``run_sim_stream``;
+    ``drivers`` takes a compiled scenario, the ``n_clients``/``active``
+    schedules wrap into neutral drivers. ``strategy_kw`` takes the
+    strategy's parameters and ``fused=False``."""
+    dev, rtt, key = _inputs(rtt, key, device)
+    K, M = rtt.shape
+    drv = _resolve_drivers(cfg, K, M, drivers, n_clients, active, dev)
+    return build_sim_fn(strategy_name, cfg, K, M, trace=True,
+                        **strategy_kw)(rtt, drv, key)
 
 
 def run_sim_stream(
@@ -381,21 +667,16 @@ def run_sim_stream(
     Runs on ``device`` (default ``cuda``); ``rtt``, ``key`` and the
     drivers move there. ``key`` is a ``(2,)`` tensor of uint32 words
     (``prand.prng_key(seed)``, or ``convert.key_to_torch`` of a JAX
-    key) or an integer seed. Chunked horizons, player meshes and
-    checkpointing are not ported yet and raise.
+    key) or an integer seed. Chunked horizons with checkpointing and
+    player meshes are not ported yet and raise.
     """
     if chunk_steps is not None and chunk_steps < cfg.num_steps:
-        raise _not_ported("chunked horizons (chunk_steps)", "A5")
+        raise _not_ported("chunked horizons (chunk_steps)", "A8")
     if mesh is not None:
         raise _not_ported("player meshes", "A10")
     if checkpoint_dir is not None or resume or stop_at_step is not None:
         raise _not_ported("checkpoint/resume", "A8")
-    dev = resolve_device(device)
-    if not isinstance(rtt, torch.Tensor):
-        rtt = torch.tensor(np.asarray(rtt), dtype=torch.float32)
-    rtt = rtt.to(dev, torch.float32)
-    key = (prand.prng_key(key, dev) if isinstance(key, int)
-           else torch.as_tensor(key, dtype=torch.int64).to(dev))
+    dev, rtt, key = _inputs(rtt, key, device)
     K, M = rtt.shape
     drv = _resolve_drivers(cfg, K, M, drivers, n_clients, active, dev)
     run = build_sim_fn(strategy_name, cfg, K, M, trace=False,

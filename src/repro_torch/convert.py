@@ -10,7 +10,10 @@ dtypes stay as they are (float32, int32, bool), with one exception: a
 JAX PRNG key is ``uint32[2]`` (``jax.random.key_data`` of a typed key,
 or a raw ``PRNGKey``), and the port keeps key words in int64 (see
 ``core.prand``). NamedTuples are matched by field name, so a JAX
-``BanditState`` converts to the port's ``BanditState``.
+``BanditState`` converts to the port's ``BanditState``, and the
+baselines' strategy states (the reference defines them inside its
+strategy adapters) to the port's ``simulator.PMState`` (proxy-mity)
+and ``simulator.DSState`` (Dec-SARSA, with its ``DecSarsaState``).
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
 ``init_params`` pytree (as numpy, layers stacked on a leading L axis)
@@ -24,7 +27,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.continuum.metrics import MetricAccumulator
 from repro_torch.continuum.scenarios import Drivers
+from repro_torch.continuum.simulator import DSState, PMState
 from repro_torch.core.bandit import BanditState
+from repro_torch.core.baselines import DecSarsaState
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import Model, build_model
 
@@ -60,17 +65,38 @@ def key_to_numpy(key: torch.Tensor) -> np.ndarray:
     return key.detach().cpu().numpy().astype(np.uint32)
 
 
+# the NamedTuples a carry can hold, by their field names
+_TUPLES = {cls._fields: cls for cls in (BanditState, PMState, DSState,
+                                        DecSarsaState)}
+
+
 def _tuple_to_torch(cls, x, device):
-    return cls(**{f: array_to_torch(getattr(x, f), device)
+    return cls(**{f: _leaf_to_torch(getattr(x, f), device)
                   for f in cls._fields})
 
 
+def _leaf_to_torch(x, device):
+    if isinstance(x, tuple):
+        return _tuple_to_torch(_TUPLES[x._fields], x, device)
+    return array_to_torch(x, device)
+
+
 def _tuple_to_numpy(x):
-    return type(x)(*(array_to_numpy(v) for v in x))
+    return type(x)(*(_tuple_to_numpy(v) if isinstance(v, tuple)
+                     else array_to_numpy(v) for v in x))
 
 
 def bandit_state_to_torch(s, device=None) -> BanditState:
     return _tuple_to_torch(BanditState, s, device)
+
+
+def strategy_state_to_torch(s, device=None):
+    """A strategy state (``BanditState``, proxy-mity's ``PMState``,
+    Dec-SARSA's ``DSState``), matched by its field names."""
+    fields = getattr(s, "_fields", None)
+    if fields not in _TUPLES:
+        raise TypeError(f"not a strategy state of the port: {type(s)}")
+    return _tuple_to_torch(_TUPLES[fields], s, device)
 
 
 def accumulator_to_torch(acc, device=None) -> MetricAccumulator:
@@ -83,15 +109,17 @@ def drivers_to_torch(drv, device=None) -> Drivers:
 
 def carry_to_torch(carry, device=None) -> tuple:
     """The 9-slot step carry ``(state, queue, prev_active, acc, groups,
-    pids, breaker, control, recorder)``; the last three must be None
-    (resilience, control and the recorder are not ported)."""
+    pids, breaker, control, recorder)`` of any strategy, streaming
+    (``acc`` set) or trace mode (``acc`` None); the last three must be
+    None (resilience, control and the recorder are not ported)."""
     if len(carry) != len(CARRY_SLOTS):
         raise ValueError(f"a step carry has {len(CARRY_SLOTS)} slots")
     state, q, prev_active, acc, groups, pids, *rest = carry
     if any(r is not None for r in rest):
         raise NotImplementedError("breaker/control/recorder carry slots are "
                                   "not ported (ROADMAP A9)")
-    return (bandit_state_to_torch(state, device), array_to_torch(q, device),
+    return (strategy_state_to_torch(state, device),
+            array_to_torch(q, device),
             array_to_torch(prev_active, device),
             None if acc is None else accumulator_to_torch(acc, device),
             array_to_torch(groups, device), array_to_torch(pids, device),

@@ -11,6 +11,7 @@ from repro_torch.core.bandit import (
     maintenance,
     maintenance_subset,
     record,
+    record_batch,
     record_feedback,
     record_rings_batch,
     select,
@@ -28,7 +29,7 @@ from repro_torch.core.swrr import swrr_select
 
 __all__ = [
     "BanditParams", "BanditState", "init_state", "select", "record",
-    "record_feedback", "record_rings_batch", "maintenance",
+    "record_batch", "record_feedback", "record_rings_batch", "maintenance",
     "maintenance_subset", "instance_added", "instance_removed",
     "sync_active", "kde_success_prob", "empirical_success_prob",
     "silverman_bandwidth", "masked_quantile", "normal_cdf",

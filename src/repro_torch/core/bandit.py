@@ -38,7 +38,7 @@ from repro_torch.core import prand
 from repro_torch.core.swrr import swrr_select
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import _ring_scatter
+from repro_torch.kernels.ref import _ring_scatter, _row_sum
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -180,7 +180,7 @@ def _record_control(state: BanditState, params: BanditParams,
     tripped = torch.nn.functional.one_hot(ch, M).to(torch.bool) & trip[:, None]
     in_pool = state.in_pool & ~tripped
     w = torch.where(tripped, 0.0, state.weights)
-    wsum = w.sum(-1, keepdim=True)
+    wsum = _row_sum(w)          # left to right, as the fused round sums
     remaining = in_pool & state.active[None, :]
     rem_any = remaining.any(-1, keepdim=True)
     fallback = torch.where(rem_any, remaining,
@@ -247,6 +247,19 @@ def record_rings_batch(state: BanditState, params: BanditParams,
         params.tau)
     return state._replace(lat_buf=lat_buf, ts_buf=ts_buf, ptr=ptr,
                           r_buf=r_buf, rts_buf=rts_buf, rptr=rptr)
+
+
+def record_batch(state: BanditState, params: BanditParams,
+                 choices: torch.Tensor, latencies: torch.Tensor, t,
+                 mask: torch.Tensor) -> BanditState:
+    """Ingest all C requests of a step: one ring scatter plus an
+    in-order replay of the (K, M) control flow over the C columns.
+    Bit for bit equal to C sequential ``record`` calls."""
+    state = record_rings_batch(state, params, choices, latencies, t, mask)
+    for c in range(choices.shape[1]):
+        state = record_feedback(state, params, choices[:, c],
+                                latencies[:, c], t, mask[:, c])
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import _row_sum
+
 
 def swrr_select(weights: torch.Tensor, cw: torch.Tensor):
     """One SWRR selection per player (row).
@@ -18,7 +20,7 @@ def swrr_select(weights: torch.Tensor, cw: torch.Tensor):
     Exact ties go to the lowest index, as ``jnp.argmax`` breaks them
     (``torch.argmax`` documents the first maximal index as well).
     """
-    total = weights.sum(-1, keepdim=True)
+    total = _row_sum(weights)   # left to right, as the fused round sums
     valid = total[..., 0] > 0
     cw = cw + weights
     choice = torch.argmax(cw, dim=-1)

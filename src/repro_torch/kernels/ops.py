@@ -51,6 +51,15 @@ def round_step(weights, cw, err, cooldown_until, in_pool, active,
               tau=tau, err_thresh=err_thresh, cooldown=cooldown)
 
 
+def round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m, served_per_round):
+    """Fused proxy-mity round: all C Gumbel-categorical rounds of one
+    step. No kernel: selection is queue-independent, so the batched
+    PyTorch form is the fused form on every device. Returns ``(q,
+    arrivals, choices, lats, procs)``."""
+    return ref.round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m,
+                                 served_per_round)
+
+
 def attention(q, k, v, causal: bool = True, window: int | None = None,
               scale: float | None = None):
     """Causal GQA attention (prefill), optional sliding window.

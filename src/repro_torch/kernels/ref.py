@@ -3,13 +3,13 @@
 Port of the oracles in ``repro/kernels/ref.py`` for the kernels the
 port has: the simulator's maintenance statistics and fused round, the
 KDE success probability, prefill and decode attention, and the Mamba-2
-SSD scan (with its single-token update, which has no kernel). They are
-what the CPU runs for the
-kernels (``kernels/ops.py`` sends a CPU tensor here), and what
-``chip_smoke.py`` holds each CUDA kernel against on the card. On the
-card nothing on the main path calls them.
+SSD scan. They are what the CPU runs for the kernels
+(``kernels/ops.py`` sends a CPU tensor here), and what
+``chip_smoke.py`` holds each CUDA kernel against on the card. Two have
+no kernel and run here on every device: the SSD single-token update
+and the proxy-mity round (``round_step_gumbel``).
 
-Kept self-contained (no ``repro_torch.core`` imports) for the reason
+Kept free of module-level ``repro_torch.core`` imports for the reason
 the reference gives: ``core -> kernels -> core`` would cycle.
 """
 from __future__ import annotations
@@ -360,3 +360,34 @@ def round_step_swrr(
     return RoundStepOut(w, cw_c, err_c, cd, pool,
                         lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
                         qc, arrivals, choices, lats, procs)
+
+
+def round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m, served_per_round):
+    """All C Gumbel-categorical rounds of one step (plain PyTorch, on
+    every device; ``repro.kernels.ref.round_step_gumbel``).
+
+    Stateless strategies (proxy-mity) pick arms from fixed weights, so
+    every round's argmax happens at once and only the (M,) queue
+    recursion runs round by round. ``gum`` is (C, K, M), ``z`` (C, K).
+    Returns ``(q, arrivals, choices (K, C) i32, lats, procs)``."""
+    # imported here: ``core`` imports this module (see the top)
+    from repro_torch.core import fmath
+    C, K, M = gum.shape
+    dev = weights.device
+    logits = fmath.log(weights + 1e-30)
+    choices = torch.argmax(logits[None] + gum, dim=-1)           # (C, K)
+    mask = torch.arange(C, device=dev)[:, None] < nc[None, :]
+    rows = torch.arange(C, device=dev)[:, None] * M + choices
+    arr = torch.zeros(C * M, dtype=torch.float32, device=dev).index_add_(
+        0, rows.reshape(-1), mask.to(torch.float32).reshape(-1)).reshape(C, M)
+    q_seen = []
+    for r in range(C):
+        q_seen.append(q[choices[r]])
+        q = torch.clamp_min(q + arr[r] - served_per_round, 0.0)
+    q1s = (torch.stack(q_seen) + 1.0) * s_m[choices]
+    procs = q1s * z
+    # rtt + (q+1)s * z rounds once, as in round_step_swrr
+    lats = _fma(q1s, z, rtt_t[torch.arange(K, device=dev)[None, :], choices])
+    arrivals = arr.sum(0)                    # integer-valued: order-free
+    return (q, arrivals, choices.T.to(torch.int32).contiguous(),
+            lats.T.contiguous(), procs.T.contiguous())

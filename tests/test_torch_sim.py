@@ -29,6 +29,7 @@ import torch
 from repro.continuum import metrics as jm
 from repro.continuum import scenarios as jscn
 from repro.continuum import simulator as js
+from repro.continuum.tenancy import TenancyConfig
 from repro.continuum import topology as jtopo
 from repro_torch import convert
 from repro_torch.continuum import metrics as tm
@@ -287,23 +288,34 @@ def test_stagger_groups_exact(K):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attempt_timeout=0.09), dict(fused_round=False),
+    dict(attempt_timeout=0.09),
+    dict(tenancy=TenancyConfig(taus=(0.08, 0.2))),
     dict(max_retries=1)])
 def test_off_path_settings_raise(change, rtt30):
+    # resilience and tenancy wait for ROADMAP A9, in either strategy
+    # family and in either mode
     cfg = ts.SimConfig(horizon=0.5, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
 
 
-def test_other_entry_options_raise(rtt30):
+def test_other_entry_options_raise(rtt30, tmp_path):
     cfg = ts.SimConfig(horizon=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        ts.run_sim_stream("proxy_mity", rtt30, cfg, 7, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.build_sim_parts("qedgeproxy", cfg, 30, 10, trace=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ts.run_sim_stream("proxy_mity", rtt30, cfg, 7, mesh=object(),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ts.build_sim_parts("dec_sarsa", cfg, 30, 10, pshard=("players", 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, chunk_steps=2,
                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7,
+                          checkpoint_dir=str(tmp_path / "ckpt"),
+                          device="cpu")
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_device_defaults_to_the_card(monkeypatch):
