@@ -15,7 +15,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 round kernel also at K past a wave of resident warps, M
                 above 64 and one arm taking every request, each case with
                 its inputs unchanged and a second call bit-identical, and
-                a fleet-shape call replayed from a CUDA graph; the two
+                a fleet-shape call replayed from a CUDA graph, and with
+                a lane axis (S lanes of players, (S, M) queues: S = 3 and
+                4 at the testbed's shape with a lane short of instances,
+                S = 4 at the fleet's), one launch for every lane; the two
                 maintenance kernels also on rows that select at ties and
                 signed zeros, with none or one sample, R from 1 to past
                 1024.
@@ -31,13 +34,30 @@ Phases, one JSON line each; any failure exits non-zero:
                 against the scan); every accumulator field and series
                 value exactly equal.
 7. suite     -- ``repro_torch.bench.figures.get_suite``: the paper's four
-                strategies on the 30x10 testbed, seeds 1-2, 60 s with a
-                20 s warm-up; each lane's seconds, steps/s and launches,
-                the Fig 3, 4, 5 and 8 headline numbers; every lane
-                conserves requests, qedgeproxy reaches 90% clients >= rho
-                in each seed and beats every baseline's mean (strictly
-                both proxy-mity means), the simulator kernels launch once
-                per step in its lanes and never in the baselines'.
+                strategies on the 30x10 testbed, seeds 1-2 as the lanes
+                of one run per strategy, 60 s with a 20 s warm-up; each
+                strategy's seconds, grid steps/s and launches, the Fig 3,
+                4, 5 and 8 headline numbers; every lane conserves
+                requests, qedgeproxy reaches 90% clients >= rho in each
+                seed and beats every baseline's mean (strictly both
+                proxy-mity means), the simulator kernels launch once per
+                step for its lanes and never for the baselines'.
+   lanes     -- ``run_sim_grid("qedgeproxy")``: four library scenarios
+                (a cascade of failures with a restore, a surge, a
+                partition, an RTT drift), each with its own topology and
+                key, as the four lanes of one 300-step run at 30x10;
+                every lane equals its run alone bit for bit, and the
+                round kernel and maintenance launch once per step for
+                all lanes.
+   scenarios -- ``repro_torch.bench.scenarios``: the whole scenario
+                library as the lanes of one run per strategy
+                (``qedgeproxy``, ``proxy_mity_1.0``), 60 s; each
+                scenario's row (clients >= rho, Jain, events, worst dip,
+                slowest recovery) and each strategy's grid steps/s.
+   events    -- Figs 10-11 (``repro_torch.bench.figures``): the client
+                surge and the instance removal as the two lanes of one
+                run per strategy, all four, 60 s; ``qedgeproxy``'s
+                post-event steady QoS >= 0.95 in both.
 8. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
                 published width behind the QEdgeProxy router (3 replicas,
                 one slow); every request answers with finite logits, the
@@ -63,8 +83,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 its serve run's median prefill / decode call, and the
                 device time of a replayed dense decode call over it.
 11. profile  -- with ``--profile``: torch.profiler over 20 fleet steps, 20
-                steps of each suite strategy and one prefill and one
-                decode call of each served model.
+                steps of each suite strategy, 20 steps of the lanes
+                phase's four lanes and one prefill and one decode call
+                of each served model.
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -96,6 +117,16 @@ TESTBED_HORIZON = 180.0                     # s: the paper's run
 FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
 BASELINES = dict(horizon=5.0, key=7, warm=10)   # fused vs scan, 50 steps
 SUITE = dict(seeds=(1, 2), horizon=60.0)    # the paper suite, 600 steps
+# four library scenarios as the lanes of one run, 300 steps at 30x10;
+# lane i: the scenario compiled at key 500 + i, topology seed i + 1, run
+# key 101 + i
+LANES = dict(scenarios=("cascade_failure", "surge", "partition_heal",
+                        "rtt_drift"), horizon=30.0, warm=100)
+SCENARIO_HORIZON = 60.0                     # the library as lanes, 600 steps
+EVENTS = dict(horizon=60.0, min_post_steady=0.95)   # Figs 10-11, 600 steps
+# (S, K, M, lane-major fleet): the round kernel with a lane axis, the
+# testbed's shape at S = 3 and 4 and the fleet's at S = 4
+ROUND_LANE_CASES = ((3, 30, 10), (4, 30, 10), (4, 1000, 50))
 # (maintenance rows, K, M) of the kernel checks: the fleet's shapes, then
 # the testbed's
 KERNEL_SIZES = ((-(-FLEET["K"] // 10) * FLEET["M"], FLEET["K"], FLEET["M"]),
@@ -363,6 +394,27 @@ def round_inputs(K: int, M: int, C: int, R: int, Rq: int, seed: int, dev,
                  for a in arrays) + (float(t),)
 
 
+def lane_round_inputs(S: int, K: int, M: int, C: int, R: int, Rq: int,
+                      seed: int, dev):
+    """S lanes of ``round_inputs``, each from its own seed: the players of
+    every lane as rows, the queue, liveness, service and drain rows as
+    (S, M). Lane s's service time is 5.5 ms x (1 + s / 4), and lane 1
+    has three instances down."""
+    import torch
+    lanes = [round_inputs(K, M, C, R, Rq, seed + s, dev) for s in range(S)]
+    cat = [torch.cat([lane[i] for lane in lanes]) for i in range(18)]
+    stack = {i: torch.stack([lane[i] for lane in lanes])
+             for i in (5, 12, 16, 17)}
+    cat[14] = torch.cat([lane[14] for lane in lanes], dim=1)      # z: (C, S*K)
+    for i, x in stack.items():
+        cat[i] = x
+    cat[16] = cat[16] * (1.0 + torch.arange(S, device=dev)[:, None] / 4.0)
+    cat[17] = (0.1 / (C * cat[16])).to(torch.float32)
+    if S > 1:
+        cat[5][1, 1:4] = False
+    return tuple(x.contiguous() for x in cat) + (lanes[0][-1],)
+
+
 def attention_inputs(B: int, Hq: int, Hkv: int, S: int, D: int, dtype: str,
                      seed: int, dev, q_mul: float = 1.0):
     """Prefill q (B,Hq,S,D) of scale ``q_mul``, unit-scale k and v
@@ -567,11 +619,11 @@ def round_registers() -> int | None:
                  if k["kernel"].startswith("round_kernel")), None)
 
 
-def round_launch_fields(K: int, M: int, C: int, dev) -> dict:
-    """The round kernel's launch for K x M x C, as the kernels and times
-    lines report it."""
+def round_launch_fields(K: int, M: int, C: int, dev, S: int = 1) -> dict:
+    """The round kernel's launch for K players (of S lanes) x M x C, as
+    the kernels and times lines report it."""
     from repro_torch.kernels import round_fused
-    return dict(**round_fused.geometry(K, M, C, dev),
+    return dict(**round_fused.geometry(K, M, C, dev, S),
                 registers=round_registers(),
                 cuda_launches_per_call=round_fused.LAUNCHES_PER_CALL)
 
@@ -633,6 +685,8 @@ def check_round(dev) -> float:
         del args, before, out, plain, again
     if not looped:
         raise AssertionError("no round case had a warp loop over players")
+    for seed, (S, K, M) in enumerate(ROUND_LANE_CASES, 60):
+        worst = max(worst, check_round_lanes(S, K, M, seed, dev))
 
     K, M = FLEET["K"], FLEET["M"]
     args = round_inputs(K, M, 8, 64, 512, 9, dev)
@@ -655,6 +709,61 @@ def check_round(dev) -> float:
         raise AssertionError(f"round_step_swrr graph replay differs from the "
                              f"eager call in {differs}")
     return worst
+
+
+def check_round_lanes(S: int, K: int, M: int, seed: int, dev) -> float:
+    """``round_step_swrr`` with S lanes in one launch against its plain
+    version, every output exact, the inputs unchanged, a second call
+    bit-identical, and lane 0 equal to the same lane called alone."""
+    import torch
+    from repro_torch.kernels import ref, round_fused
+    names = ref.RoundStepOut._fields
+    kw = dict(tau=0.08, err_thresh=5, cooldown=10.0)
+    args = lane_round_inputs(S, K, M, 8, 64, 512, seed, dev)
+    before = [x.clone() for x in args[:-1]]
+    n0 = round_fused.round_step_swrr.launches
+    out = round_fused.round_step_swrr(*args, **kw)
+    if round_fused.round_step_swrr.launches != n0 + 1:
+        raise AssertionError("a lane batch took more than one launch")
+    plain = ref.round_step_swrr(*args, **kw)
+    again = round_fused.round_step_swrr(*args, **kw)
+    # lane 0 alone, in the one-lane (M,) layout
+    one = list(args)
+    for i in range(18):
+        one[i] = (args[i][0] if i in (5, 12, 16, 17) else
+                  args[i][:, :K] if i == 14 else args[i][:K])
+    alone = round_fused.round_step_swrr(*(x.contiguous() if i < 18 else x
+                                          for i, x in enumerate(one)), **kw)
+    torch.cuda.synchronize()
+    case = f"S={S}, K={K}, M={M}"
+    err = 0.0
+    for name, a, b in zip(names, out, plain):
+        if a.dtype.is_floating_point:
+            err = max(err, (a - b).abs().max().item())
+            ok = torch.allclose(a, b, rtol=ROUND_RTOL, atol=0.0)
+        else:
+            ok = torch.equal(a, b.to(a.dtype))
+        if not ok:
+            raise AssertionError(f"round_step_swrr {name} differs ({case})")
+    if [i for i, (a, b) in enumerate(zip(args, before)) if not same_bits(a, b)]:
+        raise AssertionError(f"round_step_swrr changed its inputs ({case})")
+    unstable = [n for n, a, b in zip(names, out, again) if not same_bits(a, b)]
+    if unstable:
+        raise AssertionError(f"round_step_swrr: a second call differs in "
+                             f"{unstable} ({case})")
+    for name, a, b in zip(names, out, alone):
+        lane0 = a[0] if name in ("q", "arrivals") else a[:K]
+        if not same_bits(lane0, b):
+            raise AssertionError(f"round_step_swrr lane 0 differs from the "
+                                 f"lane alone in {name} ({case})")
+    emit(phase="kernels", kernel="round_step_swrr", lanes=S, K=K, M=M, C=8,
+         R=64, Rq=512, exact=True, max_abs_err=err, inputs_unchanged=True,
+         repeat_identical=True, lane0_equals_alone=True,
+         inactive_per_lane=(~args[5]).sum(-1).tolist(),
+         trips=int((args[3] != out.cooldown_until).sum()),
+         arrivals_per_lane=out.arrivals.sum(-1).tolist(),
+         **round_launch_fields(S * K, M, 8, dev, S))
+    return err
 
 
 def check_close(name: str, out, plain, dtype: str) -> dict:
@@ -840,18 +949,18 @@ def phase_suite(dev) -> None:
     secs = time.perf_counter() - t0
     totals = sim_launches()
     T = suite.config.cfg.num_steps
-    for (seed, label), lane in suite.lanes.items():
-        check_conservation(suite.runs[(seed, label)].acc)
-        sim = {k: lane["launches"][k] for k in totals}
-        emit(phase="suite_lane", seed=seed, strategy=label, steps=T,
-             seconds=lane["seconds"], steps_per_s=lane["steps_per_s"],
-             launches=sim)
+    for (seed, label), run in suite.runs.items():
+        check_conservation(run.acc)
+    for label, timing in suite.timings.items():
+        sim = {k: timing["launches"][k] for k in totals}
+        emit(phase="suite_strategy", strategy=label, lanes=timing["lanes"],
+             steps=T, seconds=timing["seconds"],
+             grid_steps_per_s=timing["grid_steps_per_s"], launches=sim)
         n = T if label == "qedgeproxy" else 0
         if sim != dict(round_step_swrr=n, fused_maintenance=n):
-            raise AssertionError(f"suite lane {seed}/{label}: launches {sim}, "
-                                 f"the path needs {n} of each")
-    if totals != dict(round_step_swrr=len(SUITE["seeds"]) * T,
-                      fused_maintenance=len(SUITE["seeds"]) * T):
+            raise AssertionError(f"suite {label}: launches {sim}, the path "
+                                 f"needs {n} of each for all its lanes")
+    if totals != dict(round_step_swrr=T, fused_maintenance=T):
         raise AssertionError(f"suite launches {totals}")
     fig3, fig4 = bf.fig3_qos_success(suite), bf.fig4_fairness(suite)
     fig5, fig8 = bf.fig5_per_client(suite), bf.fig8_p90_latency(suite)
@@ -874,6 +983,135 @@ def phase_suite(dev) -> None:
                 else qep["mean"] >= fig3[label]["mean"]):
             raise AssertionError(f"qedgeproxy {qep['mean']}% against "
                                  f"{label} {fig3[label]['mean']}%")
+
+
+def lanes_inputs(dev):
+    """The lanes phase's four scenarios: (cfg, rtts, keys, drivers)."""
+    import torch
+    from repro_torch.continuum import (SimConfig, compile_scenario,
+                                       get_library, make_topology)
+    from repro_torch.core import prand
+    cfg = SimConfig(horizon=LANES["horizon"])
+    lib = get_library(cfg.horizon, 30, 10)
+    drivers = [compile_scenario(lib[n], cfg, 500 + i, device=dev)
+               for i, n in enumerate(LANES["scenarios"])]
+    rtts = torch.stack([make_topology(i + 1, 30, 10, device=dev)
+                        .lb_instance_rtt() for i in range(len(drivers))])
+    keys = torch.stack([prand.prng_key(101 + i, dev)
+                        for i in range(len(drivers))])
+    return cfg, rtts, keys, drivers
+
+
+def phase_lanes(dev) -> None:
+    """Four library scenarios as the lanes of one fused ``qedgeproxy``
+    run: each lane equal to its run alone, one launch of each simulator
+    kernel a step for all of them."""
+    import torch
+    from repro_torch.continuum import (client_qos_satisfaction_stream, lane,
+                                       run_sim_grid, run_sim_stream,
+                                       stack_drivers)
+    cfg, rtts, keys, drivers = lanes_inputs(dev)
+    S, T = len(drivers), cfg.num_steps
+    for fn in all_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = run_sim_grid("qedgeproxy", rtts, cfg, keys,
+                       drivers=stack_drivers(drivers),
+                       warmup_steps=LANES["warm"], device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = sim_launches()
+    if launches != dict(round_step_swrr=T, fused_maintenance=T):
+        raise AssertionError(f"lanes: launches {launches} for {T} steps of "
+                             f"{S} lanes, the path needs {T} of each")
+    alone_s = []
+    for s in range(S):
+        t1 = time.perf_counter()
+        one = run_sim_stream("qedgeproxy", rtts[s], cfg, keys[s],
+                             drivers=drivers[s], warmup_steps=LANES["warm"],
+                             device=dev)
+        torch.cuda.synchronize()
+        alone_s.append(time.perf_counter() - t1)
+        ln = lane(out, s)
+        check_conservation(ln.acc)
+        check_identical(ln, one, f"lane {s} ({LANES['scenarios'][s]}) vs "
+                                 f"its run alone")
+        emit(phase="lanes_lane", lane=s, scenario=LANES["scenarios"][s],
+             clients_ge_rho_pct=client_qos_satisfaction_stream(ln.acc,
+                                                               cfg.rho),
+             identical_to_alone=True, alone_seconds=alone_s[-1],
+             alone_steps_per_s=T / alone_s[-1])
+    emit(phase="lanes", lanes=S, K=30, M=10, steps=T, seconds=secs,
+         grid_steps_per_s=S * T / secs, alone_seconds=sum(alone_s),
+         alone_grid_steps_per_s=S * T / sum(alone_s), launches=launches,
+         every_lane_identical=True)
+
+
+def phase_scenarios(dev) -> None:
+    """The scenario library as lanes under the contrast pair."""
+    import torch
+    from repro_torch.bench import scenarios as bs
+    for fn in all_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    suite = bs.get_scenario_suite(dev, horizon=SCENARIO_HORIZON)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rows = bs.scenario_rows(suite)
+    T = suite["config"].cfg.num_steps
+    for name in suite["names"]:
+        for label, _ in bs.SUITE_STRATEGIES:
+            check_conservation(suite["runs"][(name, label)].acc)
+        emit(phase="scenario_row", scenario=name, **rows[name])
+    for label, timing in suite["timings"].items():
+        sim = {k: timing["launches"][k] for k in sim_launches()}
+        n = T if label == "qedgeproxy" else 0
+        emit(phase="scenario_strategy", strategy=label,
+             lanes=timing["lanes"], steps=T, seconds=timing["seconds"],
+             grid_steps_per_s=timing["grid_steps_per_s"], launches=sim)
+        if sim != dict(round_step_swrr=n, fused_maintenance=n):
+            raise AssertionError(f"scenarios {label}: launches {sim}, the "
+                                 f"path needs {n} of each for all its lanes")
+    emit(phase="scenarios", scenarios=len(suite["names"]), steps=T,
+         seconds=secs, device=suite["device"])
+    base = rows["baseline"]["qedgeproxy"]["qos_sat_pct"]
+    if not base >= 90.0:
+        raise AssertionError(f"qedgeproxy baseline clients >= rho {base}%")
+
+
+def phase_events(dev) -> None:
+    """Figs 10-11 on the card, every strategy, both events as lanes."""
+    import torch
+    from repro_torch.bench import figures as bf
+    conf = bf._config(EVENTS["horizon"], SUITE["seeds"], False)
+    T = conf.cfg.num_steps
+    for fn in all_kernels():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    runs, timings = bf.get_events(conf, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for run in runs.values():
+        check_conservation(run.acc)
+    for label, timing in timings.items():
+        sim = {k: timing["launches"][k] for k in sim_launches()}
+        n = T if label == "qedgeproxy" else 0
+        emit(phase="events_strategy", strategy=label, lanes=timing["lanes"],
+             steps=T, seconds=timing["seconds"],
+             grid_steps_per_s=timing["grid_steps_per_s"], launches=sim)
+        if sim != dict(round_step_swrr=n, fused_maintenance=n):
+            raise AssertionError(f"events {label}: launches {sim}, the path "
+                                 f"needs {n} of each for both lanes")
+    figs = {event: bf.event_payload(runs, event, conf)
+            for event in bf.EVENTS}
+    emit(phase="events", steps=T, warmup_steps=conf.warm, seconds=secs,
+         fig10_client_surge=figs["surge"],
+         fig11_instance_removal=figs["removal"])
+    for event, fig in figs.items():
+        post = fig["qedgeproxy"]["post_steady"]
+        if not post >= EVENTS["min_post_steady"]:
+            raise AssertionError(f"qedgeproxy post-event steady QoS {post} "
+                                 f"< {EVENTS['min_post_steady']} ({event})")
 
 
 def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
@@ -1134,6 +1372,20 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
                      round_launch_fields(K, M, C, dev)
                      if name == "round_step_swrr" else {})
         emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
+    # the round kernel with a lane axis: the lanes phase's shape and the
+    # fleet's, four lanes in one launch
+    for S, Kl, Ml in ROUND_LANE_CASES[1:]:
+        l_args = lane_round_inputs(S, Kl, Ml, C, R, Rq, 70 + Kl, dev)
+        l_bytes = (nbytes(*l_args[:18])
+                   + nbytes(*(x for i, x in enumerate(l_args[:12]) if i != 5))
+                   + 2 * S * Ml * 4 + 3 * S * Kl * C * 4)
+        ms = cuda_ms(lambda: round_fused.round_step_swrr(*l_args, **kw), 20)
+        plain_ms = cuda_ms(lambda: ref.round_step_swrr(*l_args, **kw), 3,
+                           queued=False)
+        emit(phase="times_lanes", name="round_step_swrr", lanes=S, K=Kl,
+             M=Ml, ms=ms, plain_ms=plain_ms,
+             bound_ms=l_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             bytes=l_bytes, **round_launch_fields(S * Kl, Ml, C, dev, S))
     return rows_out
 
 
@@ -1193,6 +1445,18 @@ def phase_profile(dev, trace_dir: Path) -> None:
                            **kw)
         lane()                                                   # warm
         profiled(lane, f"suite_{label}", trace_dir, steps=cfg.num_steps)
+    from repro_torch.continuum import run_sim_grid, slice_drivers, stack_drivers
+    lcfg, rtts, keys, drivers = lanes_inputs(dev)
+    lcfg = type(lcfg)(horizon=cfg.horizon)
+    batch = stack_drivers([slice_drivers(d, 0, lcfg.num_steps)
+                           for d in drivers])
+
+    def lanes():
+        run_sim_grid("qedgeproxy", rtts, lcfg, keys, drivers=batch,
+                     device=dev)
+    lanes()                                                      # warm
+    profiled(lanes, "lanes", trace_dir, steps=lcfg.num_steps,
+             lanes=len(drivers))
 
     B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
     for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_")):
@@ -1218,7 +1482,7 @@ def main() -> int:
                     help="add torch.profiler breakdowns of fleet steps, suite "
                          "steps and a prefill and decode call of each served "
                          "model, and write their Chrome traces to "
-                         "DIR/{fleet,suite_<strategy>,prefill,decode,"
+                         "DIR/{fleet,suite_<strategy>,lanes,prefill,decode,"
                          "ssm_prefill,ssm_decode}_trace.json")
     args = ap.parse_args()
     import torch
@@ -1248,6 +1512,9 @@ def main() -> int:
     launches = phase_fleet(dev)
     phase_baselines(dev)
     phase_suite(dev)
+    phase_lanes(dev)
+    phase_scenarios(dev)
+    phase_events(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),

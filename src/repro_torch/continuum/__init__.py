@@ -1,6 +1,8 @@
 """Computing-Continuum emulation substrate (paper §VII testbed) in
-PyTorch: the simulator with its three strategies, streaming and
-trace-mode metrics, drivers and the topology."""
+PyTorch: the simulator with its three strategies, single runs and
+lane-batched ones, streaming and trace-mode metrics with the event
+readouts, the scenario compiler and its library, drivers and the
+topology."""
 from repro_torch.continuum.metrics import (
     MetricAccumulator,
     StepSeries,
@@ -9,8 +11,11 @@ from repro_torch.continuum.metrics import (
     client_qos_satisfaction_stream,
     cumulative_regret,
     cumulative_regret_series,
+    event_recovery,
+    event_windows_from_series,
     jain_fairness,
     jain_fairness_stream,
+    lane,
     p90_proc_latency,
     per_client_success,
     per_client_success_stream,
@@ -25,21 +30,49 @@ from repro_torch.continuum.metrics import (
     variation_budget_emp,
     variation_budget_stream,
 )
-from repro_torch.continuum.scenarios import Drivers, neutral_drivers
-from repro_torch.continuum.simulator import (SimConfig, SimOutputs, run_sim,
+from repro_torch.continuum.library import get_library
+from repro_torch.continuum.scenarios import (
+    Autoscale,
+    ClientChurn,
+    DiurnalWave,
+    Drivers,
+    InstanceKill,
+    InstanceRestore,
+    LinkDegrade,
+    LoadSurge,
+    Partition,
+    RttDrift,
+    Scenario,
+    ServiceSlowdown,
+    compile_scenario,
+    neutral_drivers,
+    slice_drivers,
+    stack_drivers,
+    with_standby,
+)
+from repro_torch.continuum.simulator import (SimConfig, SimOutputs,
+                                             build_sim_grid_fn, run_sim,
+                                             run_sim_batch, run_sim_grid,
                                              run_sim_stream)
 from repro_torch.continuum.topology import Topology, make_topology
 
 __all__ = [
     "MetricAccumulator", "StepSeries", "StreamOutputs",
     "client_qos_satisfaction", "client_qos_satisfaction_stream",
-    "cumulative_regret", "cumulative_regret_series", "jain_fairness",
-    "jain_fairness_stream", "p90_proc_latency", "per_client_success",
+    "cumulative_regret", "cumulative_regret_series", "event_recovery",
+    "event_windows_from_series", "jain_fairness", "jain_fairness_stream",
+    "lane", "p90_proc_latency", "per_client_success",
     "per_client_success_stream", "per_lb_request_distribution",
     "per_lb_request_distribution_stream", "per_lb_rolling_qos",
     "proc_latency_quantile_stream", "request_rate_per_instance",
     "request_rate_per_instance_stream", "rolling_qos",
     "rolling_qos_series", "variation_budget_emp", "variation_budget_stream",
-    "Drivers", "neutral_drivers", "SimConfig", "SimOutputs", "run_sim",
-    "run_sim_stream", "Topology", "make_topology",
+    "get_library", "Autoscale", "ClientChurn", "DiurnalWave", "Drivers",
+    "InstanceKill", "InstanceRestore", "LinkDegrade", "LoadSurge",
+    "Partition", "RttDrift", "Scenario", "ServiceSlowdown",
+    "compile_scenario", "neutral_drivers", "slice_drivers",
+    "stack_drivers", "with_standby",
+    "SimConfig", "SimOutputs", "build_sim_grid_fn", "run_sim",
+    "run_sim_batch", "run_sim_grid", "run_sim_stream", "Topology",
+    "make_topology",
 ]

@@ -12,6 +12,12 @@ full ``SimOutputs`` trajectories.
 Every count here is an integer-valued float32 sum (``index_add_`` in
 place of ``segment_sum``), so the order in which CUDA's atomic adds
 land cannot change it.
+
+Lanes: a lane-batched run carries one accumulator for S independent
+simulations, every field with a leading (S,) axis, and its series are
+(S, T); ``lane`` takes one lane's ``StreamOutputs`` out. The event
+readouts ``event_windows_from_series`` and ``event_recovery`` read the
+recovery windows of one lane.
 """
 from __future__ import annotations
 
@@ -78,12 +84,15 @@ class StreamOutputs(NamedTuple):
 
 
 def init_accumulator(K: int, M: int, C: int, bins: int = PROC_HIST_BINS, *,
-                     n_marks: int, ev_buckets: int,
-                     device: torch.device) -> MetricAccumulator:
+                     n_marks: int, ev_buckets: int, device: torch.device,
+                     lanes: int | None = None) -> MetricAccumulator:
     """Zeroed accumulator; ``n_marks``/``ev_buckets`` must match the
-    drivers (``scenarios.MAX_MARKS``) and ``SimConfig.ev_buckets``."""
+    drivers (``scenarios.MAX_MARKS``) and ``SimConfig.ev_buckets``.
+    ``lanes=S`` gives every field a leading (S,) axis."""
+    lead = () if lanes is None else (lanes,)
+
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
 
     return MetricAccumulator(
         succ_kc=z(K, C), n_kc=z(K, C), arrivals_m=z(M),
@@ -116,29 +125,55 @@ def update_accumulator(
     """One on-device accumulator update; everything here is O(K·M).
 
     ``t_idx`` is a host integer (the step loop runs on the host), so the
-    warmup and first-step gates cost no device work."""
-    K, C = rewards.shape
-    M, B = acc.proc_hist.shape
+    warmup and first-step gates cost no device work. A lane-batched
+    accumulator (``init_accumulator(lanes=S)``) takes every argument
+    with a leading (S,) axis and updates each lane as it would alone."""
+    arrays = dict(rewards=rewards, issued=issued, choices=choices,
+                  procs=procs, arrivals=arrivals, regret=regret, mu=mu,
+                  marks=marks, attempts=attempts, dropped=dropped,
+                  brk_open=brk_open, served=served)
+    if acc.succ_kc.dim() == 3:
+        return _update_lanes(acc, t_idx, warmup_steps, ev_pre_steps,
+                             ev_bucket_steps, **arrays)
+    one = {k: None if v is None else v[None] for k, v in arrays.items()}
+    out = _update_lanes(MetricAccumulator(*(x[None] for x in acc)), t_idx,
+                        warmup_steps, ev_pre_steps, ev_bucket_steps, **one)
+    return MetricAccumulator(*(x[0] for x in out))
+
+
+def _update_lanes(acc: MetricAccumulator, t_idx: int, warmup_steps: int,
+                  ev_pre_steps: int, ev_bucket_steps: int, *, rewards,
+                  issued, choices, procs, arrivals, regret, mu, marks,
+                  attempts, dropped, brk_open, served) -> MetricAccumulator:
+    """``update_accumulator`` over a leading (S,) lane axis."""
+    S, K, C = rewards.shape
+    _, M, B = acc.proc_hist.shape
     dev = rewards.device
     issf = issued.to(torch.float32)
     servf = issf if served is None else served.to(torch.float32)
     meas = 1.0 if t_idx >= warmup_steps else 0.0
     ch = choices.to(torch.int64)
+    lane = torch.arange(S, device=dev)[:, None, None]
 
     # latency sketch + routing histogram: one flat index_add_ each
     pbin = torch.clamp(torch.searchsorted(_edges(dev), procs, right=False),
                        0, B - 1)
-    hist_upd = torch.zeros(M * B, dtype=torch.float32, device=dev).index_add_(
-        0, (ch * B + pbin).reshape(-1), servf.reshape(-1)).reshape(M, B)
-    kidx = torch.arange(K, device=dev)[:, None]
-    choice_upd = torch.zeros(K * M, dtype=torch.float32, device=dev).index_add_(
-        0, (kidx * M + ch).reshape(-1), servf.reshape(-1)).reshape(K, M)
+    hist_upd = torch.zeros(S * M * B, dtype=torch.float32,
+                           device=dev).index_add_(
+        0, ((lane * M + ch) * B + pbin).reshape(-1),
+        servf.reshape(-1)).reshape(S, M, B)
+    kidx = torch.arange(K, device=dev)[None, :, None]
+    choice_upd = torch.zeros(S * K * M, dtype=torch.float32,
+                             device=dev).index_add_(
+        0, ((lane * K + kidx) * M + ch).reshape(-1),
+        servf.reshape(-1)).reshape(S, K, M)
 
-    # event-relative recovery windows: rows outside every window add 0.0
-    # to slot 0 where the reference drops them (x + 0.0 == x)
+    # event-relative recovery windows, each lane against its own marks:
+    # rows outside every window add 0.0 to slot 0 where the reference
+    # drops them (x + 0.0 == x)
     ev_succ, ev_n = acc.ev_succ, acc.ev_n
     if marks is not None:
-        E, B1 = ev_succ.shape
+        _, E, B1 = ev_succ.shape
         rel = t_idx - marks.to(torch.int64)
         pre = (rel >= -ev_pre_steps) & (rel < 0)
         pb = torch.where(rel >= 0,
@@ -147,11 +182,14 @@ def update_accumulator(
         slot = torch.where(pre, 0, 1 + pb)
         valid = (marks >= 0) & (pre | ((rel >= 0) & (pb < B1 - 1)))
         slot = torch.where(valid, slot, 0)
-        eidx = torch.arange(E, device=dev)
+        sidx = torch.arange(S, device=dev)[:, None].expand(S, E)
+        eidx = torch.arange(E, device=dev)[None, :].expand(S, E)
         vf = valid.to(torch.float32)
-        ev_succ = ev_succ.index_put((eidx, slot), vf * (rewards * issf).sum(),
+        succ = (rewards * issf).sum((1, 2))[:, None]
+        ev_succ = ev_succ.index_put((sidx, eidx, slot), vf * succ,
                                     accumulate=True)
-        ev_n = ev_n.index_put((eidx, slot), vf * issf.sum(), accumulate=True)
+        ev_n = ev_n.index_put((sidx, eidx, slot),
+                              vf * issf.sum((1, 2))[:, None], accumulate=True)
 
     att = issf if attempts is None else attempts.to(torch.float32)
     dropf = (torch.zeros_like(issf) if dropped is None
@@ -371,3 +409,100 @@ def cumulative_regret_series(series: StepSeries) -> np.ndarray:
 def variation_budget_stream(acc: MetricAccumulator) -> np.ndarray:
     """(K,) empirical V_k(T) partial sum (Def. 1)."""
     return _np(acc.vb_k)
+
+
+# ---------------------------------------------------------------------------
+# Lanes and event-relative recovery (scenario engine).
+# ---------------------------------------------------------------------------
+
+def lane(outs, s: int):
+    """Lane ``s`` of a lane-batched ``StreamOutputs`` or ``SimOutputs``:
+    every tensor's leading (S,) axis indexed at ``s``."""
+    def pick(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(pick(v) for v in x))
+        return x[s]
+    return pick(outs)
+
+
+def event_windows_from_series(succ: np.ndarray, issued: np.ndarray,
+                              marks: np.ndarray, ev_pre_steps: int,
+                              ev_bucket_steps: int,
+                              ev_buckets: int) -> tuple[np.ndarray, np.ndarray]:
+    """The accumulator's ``ev_succ``/``ev_n`` windows computed after the
+    fact from per-step scalar series: the trace-mode counterpart, for
+    stream against trace checks and for reading recovery off a
+    ``run_sim`` trajectory."""
+    succ, issued, marks = _np(succ), _np(issued), _np(marks)
+    E = marks.shape[0]
+    ev_s = np.zeros((E, 1 + ev_buckets), np.float64)
+    ev_n = np.zeros((E, 1 + ev_buckets), np.float64)
+    T = len(succ)
+    for e, m in enumerate(marks):
+        if m < 0:
+            continue
+        lo = max(0, m - ev_pre_steps)
+        ev_s[e, 0] = succ[lo:m].sum()
+        ev_n[e, 0] = issued[lo:m].sum()
+        for b in range(ev_buckets):
+            blo, bhi = m + b * ev_bucket_steps, m + (b + 1) * ev_bucket_steps
+            if blo >= T:
+                break
+            ev_s[e, 1 + b] = succ[blo:bhi].sum()
+            ev_n[e, 1 + b] = issued[blo:bhi].sum()
+    return ev_s, ev_n
+
+
+def event_recovery(acc_or_windows, bucket_s: float,
+                   threshold: float = 0.95) -> list[dict]:
+    """Per-event adaptation statistics from the recovery windows (an
+    accumulator of one lane, or ``(ev_succ, ev_n)``).
+
+    One dict per real (non-sentinel) event: ``pre`` (QoS ratio in the
+    pre-window), ``dip`` (worst post-bucket ratio) at ``dip_s``,
+    ``steady`` (mean of the last <= 3 data-bearing post buckets),
+    ``recovered`` and ``recovery_s``: the left edge of the first post
+    bucket at or after the dip with ratio >= ``threshold * steady``
+    (``None`` when it never comes). Recovery is measured from the dip,
+    as ramped events dip buckets after their onset.
+
+    Degenerate windows are NaN-explicit, as in the reference: an event
+    with no data-bearing post bucket gives ``pre`` (itself NaN without
+    pre-window requests), NaN ``dip``/``dip_s``/``steady``,
+    ``recovered=False``, ``recovery_s=None``; a non-positive or
+    non-finite ``steady`` gives ``recovered=False``, ``recovery_s=None``.
+    Sentinel rows (no data anywhere) are skipped."""
+    if isinstance(acc_or_windows, MetricAccumulator):
+        ev_s = _np(acc_or_windows.ev_succ, np.float64)
+        ev_n = _np(acc_or_windows.ev_n, np.float64)
+    else:
+        ev_s, ev_n = (_np(x, np.float64) for x in acc_or_windows)
+    out = []
+    for e in range(ev_s.shape[0]):
+        post_n = ev_n[e, 1:]
+        has = post_n > 0
+        pre = (ev_s[e, 0] / ev_n[e, 0]) if ev_n[e, 0] > 0 else float("nan")
+        if not has.any():
+            if ev_n[e, 0] <= 0:
+                continue            # sentinel row: no data anywhere
+            out.append({"pre": float(pre), "dip": float("nan"),
+                        "dip_s": float("nan"), "steady": float("nan"),
+                        "recovered": False, "recovery_s": None})
+            continue
+        ratio = ev_s[e, 1:][has] / post_n[has]
+        steady = float(ratio[-3:].mean())
+        dip_idx = int(np.argmin(ratio))
+        bucket_left = np.flatnonzero(has)
+        recovery_s = None
+        if np.isfinite(steady) and steady > 0.0:
+            rec_mask = ratio[dip_idx:] >= threshold * steady
+            if rec_mask.any():
+                rec_idx = dip_idx + int(np.argmax(rec_mask))
+                recovery_s = float(bucket_left[rec_idx] * bucket_s)
+        out.append({"pre": float(pre), "dip": float(ratio.min()),
+                    "dip_s": float(bucket_left[dip_idx] * bucket_s),
+                    "steady": steady, "recovered": recovery_s is not None,
+                    "recovery_s": recovery_s})
+    return out

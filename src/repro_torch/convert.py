@@ -104,6 +104,9 @@ def accumulator_to_torch(acc, device=None) -> MetricAccumulator:
 
 
 def drivers_to_torch(drv, device=None) -> Drivers:
+    """Compiled drivers, or a ``stack_drivers`` lane batch (every field
+    with a leading (S,) axis); ``key_to_torch`` takes the batch's (S, 2)
+    keys the same way."""
     return _tuple_to_torch(Drivers, drv, device)
 
 

@@ -8,6 +8,7 @@ from repro_torch.core.bandit import (
     init_state,
     instance_added,
     instance_removed,
+    keep_lanes,
     maintenance,
     maintenance_subset,
     record,
@@ -30,7 +31,7 @@ from repro_torch.core.swrr import swrr_select
 __all__ = [
     "BanditParams", "BanditState", "init_state", "select", "record",
     "record_batch", "record_feedback", "record_rings_batch", "maintenance",
-    "maintenance_subset", "instance_added", "instance_removed",
+    "maintenance_subset", "instance_added", "instance_removed", "keep_lanes",
     "sync_active", "kde_success_prob", "empirical_success_prob",
     "silverman_bandwidth", "masked_quantile", "normal_cdf",
     "oracle_weights", "step_regret", "variation_budget", "swrr_select",

@@ -16,12 +16,19 @@ State layout (R = ring-buffer capacity per (player, arm)):
   eps     (K,)    f32   exploration budget epsilon(t)
   err     (K,M)   i32   consecutive-error counters (Alg 2 line 5)
   cooldown_until (K,M) f32
-  active  (M,)    bool  instance liveness (Alg 3/4)
+  active  (M,)    bool  instance liveness (Alg 3/4); (S, M) with lanes
   in_pool (K,M)   bool  QoS pool membership Q_k(t)
   explore (K,M)   bool  exploration-pool membership X_k(t)
   r_buf   (K,Rq)  f32   own-request reward ring (QoS_a degradation test)
   rts_buf (K,Rq)  f32   reward timestamps
   rptr    (K,)    i32
+
+Lanes: the state may hold S independent simulations side by side (the
+reference's vmapped grid axis). Their players are the rows, lane s
+owning rows [s·K/S, (s+1)·K/S), and ``active`` is (S, M), one row a
+lane (``kernels.ref.lane_rows`` spreads it over the players). Every
+function then computes for each lane what it computes for that lane
+alone.
 
 Functions return new tensors and leave their inputs untouched, as the
 reference's pure functions do. ``t`` may be a 0-dim float32 tensor or a
@@ -38,7 +45,7 @@ from repro_torch.core import prand
 from repro_torch.core.swrr import swrr_select
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import _ring_scatter, _row_sum
+from repro_torch.kernels.ref import _ring_scatter, _row_sum, lane_rows
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -109,21 +116,25 @@ def init_state(
     ``key`` randomizes the SWRR phase (``prand`` draws, keyed per global
     player id when ``pids`` is given), as in the reference. The state
     lives on ``active``'s device when it is given, else on ``device``
-    (default ``cuda``).
+    (default ``cuda``). Lanes: an (S, M) ``active`` with an (S, 2)
+    ``key`` and a lane's (num_players / S,) ``pids`` starts S lanes.
     """
     K, M, R = num_players, num_arms, ring
     dev = active.device if active is not None else resolve_device(device)
     if active is None:
         active = torch.ones(M, dtype=torch.bool, device=dev)
-    act = active.to(_F32)[None, :] * torch.ones(K, 1, dtype=_F32, device=dev)
+    act = lane_rows(active, K).to(_F32) * torch.ones(K, 1, dtype=_F32,
+                                                     device=dev)
     n_act = torch.clamp_min(act.sum(-1, keepdim=True), 1.0)
     if key is None:
         cw0 = torch.zeros(K, M, dtype=_F32, device=dev)
     elif pids is not None:
-        cw0 = prand.player_uniform_row(key, pids, M) / torch.clamp_min(n_act, 1.0)
+        cw0 = prand.player_uniform_row(key, pids, M).reshape(K, M) \
+            / torch.clamp_min(n_act, 1.0)
     else:
         cw0 = prand.uniform(key, (K, M)) / torch.clamp_min(n_act, 1.0)
-    pool = active[None, :] & torch.ones(K, M, dtype=torch.bool, device=dev)
+    pool = lane_rows(active, K) & torch.ones(K, M, dtype=torch.bool,
+                                             device=dev)
     return BanditState(
         lat_buf=torch.zeros(K, M, R, dtype=_F32, device=dev),
         ts_buf=torch.full((K, M, R), NEG_INF, dtype=_F32, device=dev),
@@ -181,10 +192,10 @@ def _record_control(state: BanditState, params: BanditParams,
     in_pool = state.in_pool & ~tripped
     w = torch.where(tripped, 0.0, state.weights)
     wsum = _row_sum(w)          # left to right, as the fused round sums
-    remaining = in_pool & state.active[None, :]
+    act = lane_rows(state.active, K)
+    remaining = in_pool & act
     rem_any = remaining.any(-1, keepdim=True)
-    fallback = torch.where(rem_any, remaining,
-                           state.active[None, :] & ~tripped).to(_F32)
+    fallback = torch.where(rem_any, remaining, act & ~tripped).to(_F32)
     fallback = fallback / torch.clamp_min(fallback.sum(-1, keepdim=True), 1.0)
     weights = torch.where(wsum > 0, w / torch.clamp_min(wsum, 1e-30), fallback)
 
@@ -317,8 +328,8 @@ def maintenance(state: BanditState, params: BanditParams,
 
     # --- feasible set F_k(t) (line 9) ---
     not_cd = t >= state.cooldown_until
-    feasible = (rtt + l_p_star[:, None] <= params.tau) & not_cd \
-        & state.active[None, :]
+    act = lane_rows(state.active, K)
+    feasible = (rtt + l_p_star[:, None] <= params.tau) & not_cd & act
     n_samples = win.sum(-1)
     unseen_mu = params.unseen_mu if params.unseen_mu >= 0 else params.rho - 1e-6
     mu = torch.where(n_samples > 0, mu, unseen_mu)
@@ -347,7 +358,7 @@ def maintenance(state: BanditState, params: BanditParams,
         + s_x / torch.clamp_min(sum_x, 1e-30) * w_x_budget[:, None]
     # fallback: nothing feasible => uniform over active (keep traffic flowing)
     none = ~(has_e | has_x)
-    uni = state.active.to(_F32)[None, :]
+    uni = act.to(_F32)
     uni = uni / torch.clamp_min(uni.sum(-1, keepdim=True), 1.0)
     weights = torch.where(none[:, None], uni, w)
 
@@ -396,11 +407,15 @@ def maintenance_subset(state: BanditState, params: BanditParams,
     the reference, which drops those rows with a ``mode="drop"``
     scatter. Torch has no such mode, so the scatter writes padding rows
     into one scratch row past the end, which is cut off again: no host
-    sync filters them.
+    sync filters them. With lanes the subset may take players of every
+    lane, each against its own lane's liveness row.
     """
     K = state.lat_buf.shape[0]
     idx = player_idx.to(torch.int64)
     safe = torch.clamp_max(idx, K - 1)
+    # one lane: the (M,) row is shared; lanes: each gathered player's own
+    active = (state.active if state.active.dim() == 1
+              else lane_rows(state.active, K)[safe])
     sub = state._replace(
         lat_buf=state.lat_buf[safe], ts_buf=state.ts_buf[safe],
         ptr=state.ptr[safe], mu_hat=state.mu_hat[safe],
@@ -408,7 +423,7 @@ def maintenance_subset(state: BanditState, params: BanditParams,
         err=state.err[safe], cooldown_until=state.cooldown_until[safe],
         in_pool=state.in_pool[safe], explore=state.explore[safe],
         r_buf=state.r_buf[safe], rts_buf=state.rts_buf[safe],
-        rptr=state.rptr[safe])                  # active is (M,): shared
+        rptr=state.rptr[safe], active=active)
     out = maintenance(sub, params, rtt[safe], t)
 
     tgt = torch.clamp_max(idx, K)              # padding -> scratch row K
@@ -435,12 +450,41 @@ def _onehot(m, M: int, device) -> torch.Tensor:
     return torch.arange(M, device=device) == torch.as_tensor(m, device=device)
 
 
-def instance_added(state: BanditState, params: BanditParams, m_new,
-                   rtt: torch.Tensor, t) -> BanditState:
-    """Alg 3: activate arm; join pools lazily with weight 0."""
+def _arm(state: BanditState, m, lane) -> torch.Tensor:
+    """The one-hot of arm ``m`` against ``state.active``: (M,), or with
+    lanes (S, M), set in ``lane``'s row only."""
     M = state.lat_buf.shape[1]
-    onehot = _onehot(m_new, M, state.weights.device)
-    row, ring = onehot[None, :], onehot[None, :, None]
+    onehot = _onehot(m, M, state.weights.device)
+    if state.active.dim() == 1:
+        return onehot
+    if lane is None:
+        raise ValueError("a lane-batched state needs the event's lane")
+    rows = torch.arange(state.active.shape[0], device=onehot.device)
+    return (rows == lane)[:, None] & onehot[None, :]
+
+
+def keep_lanes(moved: torch.Tensor, new, old):
+    """A lane-batched strategy state that takes ``new`` in the lanes
+    where ``moved`` (S,) and ``old`` in the others, so a lane an event
+    does not touch stays bit for bit as it was. Every tensor, in nested
+    states too, has a leading lane axis (S) or player axis (S·K) and is
+    selected row by row."""
+    S = moved.shape[0]
+    if isinstance(new, tuple):
+        return type(new)(*(keep_lanes(moved, a, b) for a, b in zip(new, old)))
+    rows = moved if new.shape[0] == S else \
+        moved.repeat_interleave(new.shape[0] // S)
+    return torch.where(rows.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def instance_added(state: BanditState, params: BanditParams, m_new,
+                   rtt: torch.Tensor, t, lane: int | None = None) -> BanditState:
+    """Alg 3: activate arm; join pools lazily with weight 0. With lanes,
+    ``lane`` names the lane whose instance came up."""
+    K = state.lat_buf.shape[0]
+    onehot = _arm(state, m_new, lane)
+    row = lane_rows(onehot, K)
+    ring = row[..., None]
     return state._replace(
         active=state.active | onehot,
         lat_buf=torch.where(ring, 0.0, state.lat_buf),
@@ -457,20 +501,23 @@ def sync_active(state: BanditState, params: BanditParams,
                 new_active: torch.Tensor) -> BanditState:
     """Vectorized Alg 3 + Alg 4 against a target liveness vector: arms
     turning off are purged and weights renormalized, arms turning on
-    are reset with weight 0 and optimistic mu."""
+    are reset with weight 0 and optimistic mu. With lanes ((S, M)
+    ``new_active``) only the lanes whose liveness changed move."""
+    K = state.lat_buf.shape[0]
     added = new_active & ~state.active
     removed = state.active & ~new_active
-    changed = (added | removed)[None, :]
-    w = torch.where(removed[None, :], 0.0, state.weights)
+    add_r, rem_r = lane_rows(added, K), lane_rows(removed, K)
+    changed = add_r | rem_r
+    w = torch.where(rem_r, 0.0, state.weights)
     wsum = w.sum(-1, keepdim=True)
-    unif = new_active.to(_F32)[None, :]
+    unif = lane_rows(new_active, K).to(_F32)
     unif = unif / torch.clamp_min(unif.sum(-1, keepdim=True), 1.0)
     weights = torch.where(wsum > 0, w / torch.clamp_min(wsum, 1e-30), unif)
-    weights = torch.where(added[None, :], 0.0, weights)
-    return state._replace(
+    weights = torch.where(add_r, 0.0, weights)
+    out = state._replace(
         active=new_active,
-        in_pool=state.in_pool & ~removed[None, :],
-        explore=state.explore & ~removed[None, :],
+        in_pool=state.in_pool & ~rem_r,
+        explore=state.explore & ~rem_r,
         weights=weights,
         cw=torch.where(changed, 0.0, state.cw),
         lat_buf=torch.where(changed[..., None], 0.0, state.lat_buf),
@@ -478,21 +525,27 @@ def sync_active(state: BanditState, params: BanditParams,
         ptr=torch.where(changed, 0, state.ptr).to(_I32),
         err=torch.where(changed, 0, state.err).to(_I32),
         cooldown_until=torch.where(changed, NEG_INF, state.cooldown_until),
-        mu_hat=torch.where(added[None, :], params.rho - 1e-6, state.mu_hat),
+        mu_hat=torch.where(add_r, params.rho - 1e-6, state.mu_hat),
     )
+    if new_active.dim() == 1:
+        return out
+    return keep_lanes((added | removed).any(-1), out, state)
 
 
-def instance_removed(state: BanditState, m_rem) -> BanditState:
-    """Alg 4: purge local data for the arm; renormalize weights."""
-    M = state.lat_buf.shape[1]
-    onehot = _onehot(m_rem, M, state.weights.device)
-    row, ring = onehot[None, :], onehot[None, :, None]
+def instance_removed(state: BanditState, m_rem,
+                     lane: int | None = None) -> BanditState:
+    """Alg 4: purge local data for the arm; renormalize weights. With
+    lanes, ``lane`` names the lane whose instance went down."""
+    K = state.lat_buf.shape[0]
+    onehot = _arm(state, m_rem, lane)
+    row = lane_rows(onehot, K)
+    ring = row[..., None]
     w = torch.where(row, 0.0, state.weights)
     wsum = w.sum(-1, keepdim=True)
-    unif = (state.active & ~onehot).to(_F32)[None, :]
+    unif = lane_rows(state.active & ~onehot, K).to(_F32)
     unif = unif / torch.clamp_min(unif.sum(-1, keepdim=True), 1.0)
     weights = torch.where(wsum > 0, w / torch.clamp_min(wsum, 1e-30), unif)
-    return state._replace(
+    out = state._replace(
         active=state.active & ~onehot,
         in_pool=state.in_pool & ~row,
         explore=state.explore & ~row,
@@ -504,3 +557,6 @@ def instance_removed(state: BanditState, m_rem) -> BanditState:
         err=torch.where(row, 0, state.err).to(_I32),
         cooldown_until=torch.where(row, NEG_INF, state.cooldown_until),
     )
+    if onehot.dim() == 1:
+        return out
+    return keep_lanes(onehot.any(-1), out, state)

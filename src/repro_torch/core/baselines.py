@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import fmath, prand
-from repro_torch.kernels.ref import _row_sum
+from repro_torch.kernels.ref import _row_sum, lane_rows
 
 _F32 = torch.float32
 
@@ -38,15 +38,17 @@ def proxy_mity_weights(rtt: torch.Tensor, alpha: float,
     """alpha * onehot(nearest active) + (1-alpha) uniform over active.
 
     The nearest instance is the first minimal RTT (``torch.argmin``
-    documents the first index on ties, as ``jnp.argmin`` breaks them)."""
+    documents the first index on ties, as ``jnp.argmin`` breaks them).
+    ``active`` is (M,), or (S, M) for S lanes of K/S players each."""
     K, M = rtt.shape
     if active is None:
         active = torch.ones(M, dtype=torch.bool, device=rtt.device)
+    act = lane_rows(active, K)
     big = torch.finfo(rtt.dtype).max
-    masked = torch.where(active[None, :], rtt, big)
+    masked = torch.where(act, rtt, big)
     nearest = torch.argmin(masked, dim=-1)
     onehot = torch.nn.functional.one_hot(nearest, M).to(rtt.dtype)
-    actf = active.to(rtt.dtype)[None, :]
+    actf = act.to(rtt.dtype)
     uni = actf / torch.clamp_min(actf.sum(-1, keepdim=True), 1.0)
     w = alpha * onehot + (1.0 - alpha) * uni
     return w / torch.clamp_min(_row_sum(w), 1e-30)    # summed left to right
@@ -87,7 +89,8 @@ def decsarsa_init(num_players: int, num_arms: int, rtt: torch.Tensor,
                   rtt_max: torch.Tensor | None = None) -> DecSarsaState:
     """Optimistic Q biased by proximity, on ``rtt``'s device. ``rtt_max``
     is the global RTT maximum (the one cross-player term), defaulting to
-    ``rtt.max()``."""
+    ``rtt.max()``; with lanes, a (K, 1) column of each player's lane's
+    maximum."""
     K, M = num_players, num_arms
     dev = rtt.device
     if rtt_max is None:
@@ -128,15 +131,17 @@ def decsarsa_draws(key: torch.Tensor, M: int,
 def decsarsa_choose(state: DecSarsaState, params: DecSarsaParams,
                     active: torch.Tensor, u: torch.Tensor,
                     gumbel: torch.Tensor):
-    """eps-greedy action per player from given draws. Returns
-    ``(choice (K,) int64, s (K,) i32)``."""
+    """eps-greedy action per player from given draws; ``active`` is
+    (M,), or (S, M) for S lanes. Returns ``(choice (K,) int64, s (K,)
+    i32)``."""
     K = state.q.shape[0]
     s = _bucket(state.last_lat, params)
     qs = state.q[torch.arange(K, device=s.device), s.to(torch.int64)]
     neg = torch.finfo(qs.dtype).min
-    qs = torch.where(active[None, :], qs, neg)
+    act = lane_rows(active, K)
+    qs = torch.where(act, qs, neg)
     greedy = torch.argmax(qs, dim=-1)
-    rand = torch.argmax(torch.where(active[None, :], gumbel, neg), dim=-1)
+    rand = torch.argmax(torch.where(act, gumbel, neg), dim=-1)
     explore = u < state.eps
     return torch.where(explore, rand, greedy), s
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.ref import lane_rows
+
 
 def oracle_weights(mu: torch.Tensor,
                    active: torch.Tensor | None = None) -> torch.Tensor:
@@ -19,8 +21,9 @@ def oracle_weights(mu: torch.Tensor,
 
 def step_regret(weights: torch.Tensor, mu: torch.Tensor,
                 active: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-player instantaneous regret (Eq. 8 summand). Returns (K,)."""
-    mu_eff = (torch.where(active[None, :], mu, -torch.inf)
+    """Per-player instantaneous regret (Eq. 8 summand). Returns (K,).
+    ``active`` is (M,), or (S, M) for S lanes of K/S players each."""
+    mu_eff = (torch.where(lane_rows(active, mu.shape[0]), mu, -torch.inf)
               if active is not None else mu)
     best = mu_eff.max(-1).values
     got = (weights * torch.where(torch.isfinite(mu_eff), mu, 0.0)).sum(-1)

@@ -18,8 +18,9 @@ runs it with ``jax_threefry_partitionable=True`` (its default):
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, uint32(d)))``;
 * ``uniform`` fills the mantissa of a float in [1, 2) and subtracts 1,
   ``normal`` is ``sqrt(2)·erfinv(uniform(nextafter(-1, 0), 1))``,
-  ``gumbel`` is ``-log(-log(uniform(tiny, 1)))``, and ``permutation``
-  sorts ``arange(n)`` on random uint32 keys (``jax.random._shuffle``).
+  ``gumbel`` is ``-log(-log(uniform(tiny, 1)))``, ``permutation``
+  sorts ``arange(n)`` on random uint32 keys (``jax.random._shuffle``),
+  and ``choice`` without replacement is a permutation's head.
 
 With the flag False every draw changes. ``normal`` and ``gumbel`` go
 through ``erfinv``/``log``; they use ``core.fmath``, which replays the
@@ -155,6 +156,14 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(subkey, (n,)), dim=-1, stable=True)[1]
         x = torch.gather(x, -1, order)
     return x
+
+
+def choice(key: torch.Tensor, n: int, count: int) -> torch.Tensor:
+    """``jax.random.choice(key, n, (count,), replace=False)``: jax takes
+    the first ``count`` entries of ``permutation(key, n)``."""
+    if not 0 <= count <= n:
+        raise ValueError(f"cannot take {count} of {n} without replacement")
+    return permutation(key, n)[..., :count]
 
 
 def player_normal(key: torch.Tensor, pids: torch.Tensor) -> torch.Tensor:

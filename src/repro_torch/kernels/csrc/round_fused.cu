@@ -31,8 +31,8 @@
 //   fallback counts (ballots) and the renormalisation run lane-parallel.
 //   The two ordered sums run serially on lane 0.
 // - One grid barrier per round. Before it each CTA adds its players'
-//   arrivals (summed in shared memory) onto the round's (M,) row of a
-//   workspace; after it every CTA recomputes the queue from that row in
+//   arrivals (summed in shared memory) onto the round's (S, M) rows of
+//   a workspace; after it every CTA recomputes the queue from that row in
 //   shared memory, in the plain version's op order, so every CTA holds
 //   the same queue and no second barrier is needed. The arrivals are
 //   integer-valued float32 counts: their sum is exact in any order
@@ -51,6 +51,13 @@
 //   player warps at a CTA barrier before the last grid barrier, which
 //   orders the copy before each warp writes its players' <= C ring
 //   slots in the sequential core.bandit.record order.
+// - Lanes: a call may carry S independent simulations. The players are
+//   S * Kl rows, lane s owning rows [s * Kl, (s + 1) * Kl); the
+//   per-instance rows (queue, arrivals, s_m, served, active) are (S, M),
+//   and a CTA keeps all S lanes' rows in shared memory. A player reads
+//   and feeds only its own lane's rows; a round's workspace row is
+//   (S, M), and every CTA recomputes every lane's queue after the one
+//   grid barrier. S = 1 is the single simulation.
 // Every input is read once and every output written once (the rows of
 // a warp with several players excepted).
 //
@@ -82,19 +89,19 @@ struct RoundArgs {
   const int32_t* err;       // (K, M)
   const float* cooldown;    // (K, M)
   const uint8_t* in_pool;   // (K, M) bool
-  const uint8_t* active;    // (M,)   bool
+  const uint8_t* active;    // (S, M) bool
   const float* lat_buf;     // (K, M, R)
   const float* ts_buf;      // (K, M, R)
   const int32_t* ptr;       // (K, M)
   const float* r_buf;       // (K, Rq)
   const float* rts_buf;     // (K, Rq)
   const int32_t* rptr;      // (K,)
-  const float* q_in;        // (M,)
+  const float* q_in;        // (S, M)
   const int32_t* nc;        // (K,)
   const float* z;           // (C, K)
   const float* rtt;         // (K, M)
-  const float* s_m;         // (M,)
-  const float* served;      // (M,)
+  const float* s_m;         // (S, M)
+  const float* served;      // (S, M)
   float* w_o;               // outputs, shaped as their inputs
   float* cw_o;
   int32_t* err_o;
@@ -106,14 +113,15 @@ struct RoundArgs {
   float* rb_o;
   float* rts_o;
   int32_t* rptr_o;
-  float* q_out;             // (M,)
-  float* arrivals;          // (M,)
+  float* q_out;             // (S, M)
+  float* arrivals;          // (S, M)
   int32_t* choices;         // (K, C)
   float* lats;              // (K, C)
   float* procs;             // (K, C)
   unsigned int* bar;        // workspace word 0: the barrier counter
-  float* arr_ws;            // workspace from word 32: (C, M) arrivals
-  int K, M, R, Rq, C;
+  float* arr_ws;            // workspace from word 32: (C, S, M) arrivals
+  int K, M, R, Rq, C;       // K: the players of all lanes
+  int S, Kl;                // lanes, players a lane
   int player_warps;         // warps a CTA that run players; kCopyWarps more copy
   int ppw;                  // players per warp (1: rows stay resident)
   float t, tau, cooldown_s;
@@ -376,7 +384,8 @@ __device__ void finish(const RoundArgs& a, const Row& row, int k, int r,
   __syncwarp();
 }
 
-// Round r's request of the warp's player onto the CTA's arrivals.
+// Round r's request of the warp's player onto the CTA's arrivals of
+// its lane (arr_s is that lane's row).
 __device__ __forceinline__ void request(const Row& row, int r, Pick pick,
                                        float* arr_s, int lane) {
   if (lane == 0 && r < *row.nc) atomicAdd(&arr_s[pick.choice], 1.f);
@@ -416,15 +425,17 @@ __device__ void ring_writes(const RoundArgs& a, const Row& row, int k, int lane)
 
 __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel(RoundArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int M = a.M;
+  const int M = a.M, S = a.S, SM = a.S * a.M;
   const int M4 = (M + 3) & ~3;      // words of a float/int row, 16 B aligned
   const int C4 = (a.C + 3) & ~3;
   const int MB = (M + 15) & ~15;    // bytes of a bool row
+  // every lane's rows: lane s's row of each starts s * M4 words (s * MB
+  // bytes) in
   float* q_s = reinterpret_cast<float*>(smem);
-  float* arr_s = q_s + M4;          // this CTA's arrivals this round
-  float* s_s = arr_s + M4;
-  float* srv_s = s_s + M4;
-  uint8_t* act_s = reinterpret_cast<uint8_t*>(srv_s + M4);
+  float* arr_s = q_s + S * M4;      // this CTA's arrivals this round
+  float* s_s = arr_s + S * M4;
+  float* srv_s = s_s + S * M4;
+  uint8_t* act_s = reinterpret_cast<uint8_t*>(srv_s + S * M4);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int pthreads = 32 * a.player_warps;
 
@@ -435,7 +446,7 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
   }
 
   const int wbytes = 24 * M4 + 4 * C4 + 16 + MB;
-  unsigned char* wbase = smem + 16 * M4 + MB + warp * wbytes;
+  unsigned char* wbase = smem + S * (16 * M4 + MB) + warp * wbytes;
   float* wf = reinterpret_cast<float*>(wbase);
   const Row row{wf, wf + M4, wf + 2 * M4, wf + 3 * M4,
                 reinterpret_cast<int32_t*>(wf + 4 * M4),
@@ -443,12 +454,13 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
                 reinterpret_cast<int32_t*>(wf + 6 * M4 + C4),
                 wbase + 24 * M4 + 4 * C4 + 16};
 
-  for (int m = threadIdx.x; m < M; m += pthreads) {
-    q_s[m] = a.q_in[m];
-    arr_s[m] = 0.f;
-    s_s[m] = a.s_m[m];
-    srv_s[m] = a.served[m];
-    act_s[m] = a.active[m];
+  for (int i = threadIdx.x; i < SM; i += pthreads) {
+    const int f = (i / M) * M4 + i % M;
+    q_s[f] = a.q_in[i];
+    arr_s[f] = 0.f;
+    s_s[f] = a.s_m[i];
+    srv_s[f] = a.served[i];
+    act_s[(i / M) * MB + i % M] = a.active[i];
   }
   sync_players(pthreads);
 
@@ -461,6 +473,7 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
   // whole round before the barrier.
   const bool resident = a.ppw == 1 && gw < a.K;
   const float t_cd = __fadd_rn(a.t, a.cooldown_s);
+  const int gl = resident ? gw / a.Kl : 0;   // the resident player's lane
   Pick pick{0, 0.f};
   if (resident) {
     load_row(a, row, gw, true, lane);
@@ -468,13 +481,15 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
   }
   for (int r = 0; r < a.C; ++r) {
     if (resident) {
-      request(row, r, pick, arr_s, lane);
+      request(row, r, pick, arr_s + gl * M4, lane);
     } else {
       for (int k = gw; k < a.K; k += W) {
+        const int l = k / a.Kl;
         load_row(a, row, k, r == 0, lane);
         const Pick p = select(row, M, lane);
-        finish(a, row, k, r, p, q_s, s_s, act_s, lane, t_cd);
-        request(row, r, p, arr_s, lane);
+        finish(a, row, k, r, p, q_s + l * M4, s_s + l * M4, act_s + l * MB,
+               lane, t_cd);
+        request(row, r, p, arr_s + l * M4, lane);
         store_row(a, row, k, lane);
       }
     }
@@ -482,15 +497,17 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
       __syncthreads();              // with the copy warps: the rings are copied
     else
       sync_players(pthreads);
-    float* ws = a.arr_ws + static_cast<size_t>(r) * M;
-    for (int m = threadIdx.x; m < M; m += pthreads) {
-      if (arr_s[m] != 0.f) atomicAdd(ws + m, arr_s[m]);
-      arr_s[m] = 0.f;
+    float* ws = a.arr_ws + static_cast<size_t>(r) * SM;
+    for (int i = threadIdx.x; i < SM; i += pthreads) {
+      const int f = (i / M) * M4 + i % M;
+      if (arr_s[f] != 0.f) atomicAdd(ws + i, arr_s[f]);
+      arr_s[f] = 0.f;
     }
     sync_players(pthreads);
     grid_arrive(a.bar);
     if (resident) {
-      finish(a, row, gw, r, pick, q_s, s_s, act_s, lane, t_cd);
+      finish(a, row, gw, r, pick, q_s + gl * M4, s_s + gl * M4,
+             act_s + gl * MB, lane, t_cd);
       if (r + 1 < a.C)
         pick = select(row, M, lane);
       else
@@ -498,18 +515,20 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
     }
     grid_wait(a.bar, static_cast<unsigned int>(r + 1) * gridDim.x);
     sync_players(pthreads);
-    for (int m = threadIdx.x; m < M; m += pthreads)
-      q_s[m] = fmaxf(__fsub_rn(__fadd_rn(q_s[m], __ldcg(ws + m)), srv_s[m]), 0.f);
+    for (int i = threadIdx.x; i < SM; i += pthreads) {
+      const int f = (i / M) * M4 + i % M;
+      q_s[f] = fmaxf(__fsub_rn(__fadd_rn(q_s[f], __ldcg(ws + i)), srv_s[f]), 0.f);
+    }
     sync_players(pthreads);
   }
 
   if (blockIdx.x == 0) {
-    for (int m = threadIdx.x; m < M; m += pthreads) {
+    for (int i = threadIdx.x; i < SM; i += pthreads) {
       float tot = 0.f;
       for (int r = 0; r < a.C; ++r)
-        tot = __fadd_rn(tot, __ldcg(a.arr_ws + static_cast<size_t>(r) * M + m));
-      a.q_out[m] = q_s[m];
-      a.arrivals[m] = tot;
+        tot = __fadd_rn(tot, __ldcg(a.arr_ws + static_cast<size_t>(r) * SM + i));
+      a.q_out[i] = q_s[(i / M) * M4 + i % M];
+      a.arrivals[i] = tot;
     }
   }
   for (int k = gw; k < a.K; k += W) ring_writes(a, row, k, lane);
@@ -543,8 +562,8 @@ extern "C" int round_step_occupancy(int threads, int smem, int* ctas_per_sm,
 
 // Cooperative launch of `grid` CTAs of `player_warps` + kCopyWarps warps
 // on `stream`; the inputs are read only, every output is written.
-// `workspace` holds 32 + C * M zeroed words. Returns the cudaError_t of
-// the launch.
+// `workspace` holds 32 + C * S * M zeroed words; K counts the players of
+// all S lanes, Kl = K / S a lane. Returns the cudaError_t of the launch.
 extern "C" int round_step_launch(
     const float* weights, const float* cw, const int32_t* err,
     const float* cooldown, const uint8_t* in_pool, const uint8_t* active,
@@ -555,7 +574,8 @@ extern "C" int round_step_launch(
     int32_t* err_o, float* cd_o, uint8_t* pool_o, float* lat_o, float* ts_o,
     int32_t* ptr_o, float* rb_o, float* rts_o, int32_t* rptr_o, float* q_out,
     float* arrivals, int32_t* choices, float* lats, float* procs,
-    float* workspace, int K, int M, int R, int Rq, int C, int grid,
+    float* workspace, int K, int M, int R, int Rq, int C, int S, int Kl,
+    int grid,
     int player_warps, int smem, int ppw, float t, float tau, int err_thresh,
     float cooldown_s, void* stream) {
   RoundArgs a{weights, cw, err, cooldown, in_pool, active, lat_buf, ts_buf,
@@ -563,7 +583,7 @@ extern "C" int round_step_launch(
               w_o, cw_o, err_o, cd_o, pool_o, lat_o, ts_o, ptr_o, rb_o,
               rts_o, rptr_o, q_out, arrivals, choices, lats, procs,
               reinterpret_cast<unsigned int*>(workspace), workspace + 32,
-              K, M, R, Rq, C, player_warps, ppw, t, tau, cooldown_s,
+              K, M, R, Rq, C, S, Kl, player_warps, ppw, t, tau, cooldown_s,
               err_thresh};
   void* args[] = {&a};
   cudaError_t e = allow_smem(smem);

@@ -180,7 +180,12 @@ def bandit_maintenance_stats(
     d = latf - mean[..., None]
     var = (d * d * m).sum(-1) / nc
     sigma = torch.sqrt(torch.clamp_min(var, 0.0))
-    h = torch.clamp_min(1.06 * sigma * nc ** (-0.2), min_bandwidth)
+    # n ** -0.2 rounded once from float64: torch's float32 pow takes a
+    # vector or a scalar path on the CPU by where an element sits in the
+    # tensor, and the two differ in the last bit, so a row's bandwidth
+    # would depend on the batch around it (lanes, subsets)
+    h = torch.clamp_min(1.06 * sigma * (nc.double() ** -0.2).float(),
+                        min_bandwidth)
 
     n = m.sum(-1)
     z = (tau - latf) / h[..., None]
@@ -209,13 +214,22 @@ def bandit_maintenance_stats(
 # for bit on the card. XLA reduces a row in its own order; the two
 # orders differ by at most a few float32 ULP of a weight row's sum.
 # The latency is one fused multiply-add, as XLA:CPU compiles it.
+#
+# Lanes. A call may carry S independent simulations ("lanes", the
+# reference's vmapped grid axis) side by side: the players are S·K rows
+# and lane s owns rows [s·K, (s+1)·K); the per-instance rows ``q``,
+# ``active``, ``s_m`` and ``served_per_round`` are (S, M), one row a
+# lane, and so are the outputs ``q`` and ``arrivals``. A 1-D (M,) row
+# is one lane, the reference's own layout. Every lane computes exactly
+# what it computes alone.
 # ---------------------------------------------------------------------------
 
 
 class RoundStepOut(NamedTuple):
     """Everything one fused round produces: the updated bandit tensors,
     the shared queue, and the per-request outputs the metric
-    accumulator consumes."""
+    accumulator consumes. With S lanes, K counts the players of all of
+    them and ``q``/``arrivals`` are (S, M)."""
     weights: torch.Tensor          # (K, M)
     cw: torch.Tensor               # (K, M)
     err: torch.Tensor              # (K, M) i32
@@ -227,11 +241,26 @@ class RoundStepOut(NamedTuple):
     r_buf: torch.Tensor            # (K, Rq)
     rts_buf: torch.Tensor          # (K, Rq)
     rptr: torch.Tensor             # (K,) i32
-    q: torch.Tensor                # (M,) queue after all C rounds
-    arrivals: torch.Tensor         # (M,) requests per instance this step
+    q: torch.Tensor                # (M,) or (S, M): queue after all C rounds
+    arrivals: torch.Tensor         # (M,) or (S, M): requests this step
     choices: torch.Tensor          # (K, C) i32
     lats: torch.Tensor             # (K, C)
     procs: torch.Tensor            # (K, C)
+
+
+def lane_rows(x: torch.Tensor, players: int) -> torch.Tensor:
+    """A per-lane row as rows against the (players, M) player axis: an
+    (M,) row (one lane) as (1, M), an (S, M) tensor as (players, M),
+    row s repeated for lane s's players/S players."""
+    if x.dim() == 1:
+        return x[None, :]
+    return x.repeat_interleave(players // x.shape[0], dim=0)
+
+
+def lane_of(players: int, lanes: int, device) -> torch.Tensor:
+    """(players,) int64: the lane each player row belongs to."""
+    return torch.div(torch.arange(players, device=device), players // lanes,
+                     rounding_mode="floor")
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -248,8 +277,6 @@ def _row_sum(x: torch.Tensor) -> torch.Tensor:
     for m in range(1, x.shape[1]):
         s = s + x[:, m]
     return s[:, None]
-
-
 def _ring_scatter(lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
                   choices, lats, t, mask, tau):
     """``core.bandit.record_rings_batch`` mirrored op for op. Writes the
@@ -288,23 +315,35 @@ def _ring_scatter(lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
     return lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr
 
 
+def _lanes(q, s_m, served_per_round):
+    """The per-lane rows as (S, M), and whether the caller gave lanes."""
+    lanes = q.dim() == 2
+    S, M = (q.shape if lanes else (1, q.shape[0]))
+    return (lanes, S, q.reshape(S, M), s_m.reshape(S, M),
+            served_per_round.reshape(S, M))
+
+
 def round_step_swrr(
     weights, cw, err, cooldown_until, in_pool, active,
     lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
     q, nc, z, rtt_t, s_m, served_per_round, t,
     tau: float, err_thresh: int, cooldown: float,
 ) -> RoundStepOut:
-    """All C SWRR rounds of one step (plain PyTorch); same arguments,
-    shapes and dtypes as ``repro.kernels.ref.round_step_swrr``. The
-    inputs are left untouched; every output is a new tensor."""
+    """All C SWRR rounds of one step (plain PyTorch); the arguments,
+    shapes and dtypes of ``repro.kernels.ref.round_step_swrr``, with the
+    lane axis above. The inputs are left untouched; every output is a
+    new tensor."""
     K, M, R = lat_buf.shape
     C = z.shape[0]
     dev = weights.device
+    lanes, S, qc, s2, srv2 = _lanes(q, s_m, served_per_round)
+    lane = lane_of(K, S, dev)
+    act = lane_rows(active, K)
     kidx = torch.arange(K, device=dev)
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
-    w, cw_c, err_c, cd, pool, qc = weights, cw, err, cooldown_until, in_pool, q
+    w, cw_c, err_c, cd, pool = weights, cw, err, cooldown_until, in_pool
     ch_r, lat_r, proc_r = [], [], []
-    arrivals = torch.zeros(M, dtype=torch.float32, device=dev)
+    arrivals = torch.zeros(S, M, dtype=torch.float32, device=dev)
     for r in range(C):
         mask = r < nc
         # --- core.swrr.swrr_select ---
@@ -315,7 +354,7 @@ def round_step_swrr(
         cw_c = cw_c - onehot.to(torch.float32) * total
         # --- latency (simulator round_body); the reference's compiler
         # fuses rtt + (q+1)s * z into one FMA, so the sum rounds once ---
-        q1s = (qc[choice] + 1.0) * s_m[choice]
+        q1s = (qc[lane, choice] + 1.0) * s2[lane, choice]
         proc = q1s * z[r]
         lat = _fma(q1s, z[r], rtt_t[kidx, choice])
         # --- core.bandit._record_control ---
@@ -333,18 +372,18 @@ def round_step_swrr(
         pool = pool & ~tripped
         w2 = torch.where(tripped, 0.0, w)
         wsum = _row_sum(w2)
-        remaining = pool & active[None, :]
+        remaining = pool & act
         rem_any = remaining.any(-1, keepdim=True)
         fallback = torch.where(rem_any, remaining,
-                               active[None, :] & ~tripped).to(torch.float32)
+                               act & ~tripped).to(torch.float32)
         fallback = fallback / torch.clamp_min(
             fallback.sum(-1, keepdim=True), 1.0)
         w = torch.where(wsum > 0, w2 / torch.clamp_min(wsum, 1e-30), fallback)
         cw_c = torch.where(tripped, 0.0, cw_c)
-        # --- shared-queue recursion ---
-        arr_r = torch.zeros(M, dtype=torch.float32, device=dev).index_add_(
-            0, choice, mask.to(torch.float32))
-        qc = torch.clamp_min(qc + arr_r - served_per_round, 0.0)
+        # --- shared-queue recursion, each lane on its own row ---
+        arr_r = torch.zeros(S * M, dtype=torch.float32, device=dev).index_add_(
+            0, lane * M + choice, mask.to(torch.float32)).reshape(S, M)
+        qc = torch.clamp_min(qc + arr_r - srv2, 0.0)
         arrivals = arrivals + arr_r          # integer-valued: order-free
         ch_r.append(choice)
         lat_r.append(lat)
@@ -357,6 +396,8 @@ def round_step_swrr(
     lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr = _ring_scatter(
         lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
         choices, lats, t, mask_kc, tau)
+    if not lanes:
+        qc, arrivals = qc[0], arrivals[0]
     return RoundStepOut(w, cw_c, err_c, cd, pool,
                         lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
                         qc, arrivals, choices, lats, procs)
@@ -364,30 +405,36 @@ def round_step_swrr(
 
 def round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m, served_per_round):
     """All C Gumbel-categorical rounds of one step (plain PyTorch, on
-    every device; ``repro.kernels.ref.round_step_gumbel``).
+    every device; ``repro.kernels.ref.round_step_gumbel``), with the
+    lane axis of ``round_step_swrr``.
 
     Stateless strategies (proxy-mity) pick arms from fixed weights, so
-    every round's argmax happens at once and only the (M,) queue
-    recursion runs round by round. ``gum`` is (C, K, M), ``z`` (C, K).
-    Returns ``(q, arrivals, choices (K, C) i32, lats, procs)``."""
+    every round's argmax happens at once and only the queue recursion
+    runs round by round. ``gum`` is (C, K, M), ``z`` (C, K). Returns
+    ``(q, arrivals, choices (K, C) i32, lats, procs)``."""
     # imported here: ``core`` imports this module (see the top)
     from repro_torch.core import fmath
     C, K, M = gum.shape
     dev = weights.device
+    lanes, S, q, s2, srv2 = _lanes(q, s_m, served_per_round)
+    lane = lane_of(K, S, dev)
     logits = fmath.log(weights + 1e-30)
     choices = torch.argmax(logits[None] + gum, dim=-1)           # (C, K)
     mask = torch.arange(C, device=dev)[:, None] < nc[None, :]
-    rows = torch.arange(C, device=dev)[:, None] * M + choices
-    arr = torch.zeros(C * M, dtype=torch.float32, device=dev).index_add_(
-        0, rows.reshape(-1), mask.to(torch.float32).reshape(-1)).reshape(C, M)
+    rows = (torch.arange(C, device=dev)[:, None] * S + lane) * M + choices
+    arr = torch.zeros(C * S * M, dtype=torch.float32, device=dev).index_add_(
+        0, rows.reshape(-1), mask.to(torch.float32).reshape(-1)
+    ).reshape(C, S, M)
     q_seen = []
     for r in range(C):
-        q_seen.append(q[choices[r]])
-        q = torch.clamp_min(q + arr[r] - served_per_round, 0.0)
-    q1s = (torch.stack(q_seen) + 1.0) * s_m[choices]
+        q_seen.append(q[lane, choices[r]])
+        q = torch.clamp_min(q + arr[r] - srv2, 0.0)
+    q1s = (torch.stack(q_seen) + 1.0) * s2[lane, choices]
     procs = q1s * z
     # rtt + (q+1)s * z rounds once, as in round_step_swrr
     lats = _fma(q1s, z, rtt_t[torch.arange(K, device=dev)[None, :], choices])
     arrivals = arr.sum(0)                    # integer-valued: order-free
+    if not lanes:
+        q, arrivals = q[0], arrivals[0]
     return (q, arrivals, choices.T.to(torch.int32).contiguous(),
             lats.T.contiguous(), procs.T.contiguous())

@@ -12,9 +12,16 @@ metric readouts against the JAX package's harness.
   streaming, the compiled ``baseline`` scenario) one seed at a time.
 * The CLI, ``python -m repro_torch.bench.figures --smoke --device
   cpu``, prints the payloads of the reference's figure functions, key
-  for key, run here on the JAX lanes.
-* The suite's drivers equal the reference's compiled ``baseline``
-  scenario, and its configs the reference harness's.
+  for key, run here on the JAX lanes: Figs 3-9, the regret curve, and
+  Figs 10-11 (the surge and removal events as the two lanes of one run
+  per strategy, smoke's first two strategies). The events' proxy-mity
+  payload equals the reference's exactly (its runs are exact);
+  ``qedgeproxy``'s QoS ratios agree within ``EVENT_QOS_TOL`` (the KDE
+  ``mu`` drift of ROADMAP queue C moves a few picks).
+* The suite's drivers, compiled by the port's ``compile_scenario``,
+  equal the reference's compiled ``baseline`` scenario, and its configs
+  the reference harness's; each strategy's seeds run as the lanes of
+  one run.
 * Trace against stream inside the port: every readout of the
   accumulator agrees with its trace-mode counterpart (counts exact,
   float sums to float32 tolerance, the latency sketch within its bin
@@ -49,6 +56,8 @@ SMOKE = tf.configure(smoke=True)
 FIGS = ("fig3_qos_success", "fig4_fairness", "fig5_per_client",
         "fig6_rolling_qos", "fig7_request_distribution", "fig8_p90_latency",
         "fig9_single_lb", "regret_curve")
+EVENT_FIGS = ("fig10_client_surge", "fig11_instance_removal")
+EVENT_QOS_TOL = 0.01
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -104,6 +113,30 @@ def ref_payloads(jax_suite):
 
 
 @pytest.fixture(scope="module")
+def ref_event_payloads(jax_suite):
+    """The reference's Figs 10-11 on the JAX lanes, at its smoke config
+    (both events as lanes of one vmapped run per strategy)."""
+    cfg, suite = jax_suite
+    got = {}
+    mp = pytest.MonkeyPatch()
+    bfigures._event_cache.clear()
+    try:
+        mp.setattr(bcommon, "CFG", cfg)
+        mp.setattr(bcommon, "WARM", SMOKE.warm)
+        mp.setattr(bcommon, "SMOKE", True)
+        mp.setattr(bfigures, "get_suite", lambda: suite)
+        mp.setattr(bfigures, "emit",
+                   lambda name, us, derived, payload=None:
+                   got.__setitem__(name, payload))
+        for name in EVENT_FIGS:
+            getattr(bfigures, name)()
+    finally:
+        mp.undo()
+        bfigures._event_cache.clear()
+    return got
+
+
+@pytest.fixture(scope="module")
 def cli(tmp_path_factory):
     """``python -m repro_torch.bench.figures --smoke --device cpu``:
     the printed payloads by figure, and the ``--out`` directory."""
@@ -145,11 +178,18 @@ def test_suite_drivers_are_the_baseline_scenario(seed):
         Scenario("baseline", n_nodes=tf.N_LBS, n_instances=tf.N_INSTANCES),
         cfg, jax.random.PRNGKey(seed))
     want = convert.drivers_to_torch(jax.tree.map(np.asarray, want), "cpu")
-    got = tscn.neutral_drivers(SMOKE.cfg, tf.N_LBS, tf.N_INSTANCES,
-                               device="cpu")
+    got = tscn.compile_scenario(
+        tscn.Scenario("baseline", n_nodes=tf.N_LBS,
+                      n_instances=tf.N_INSTANCES),
+        SMOKE.cfg, seed, device="cpu")
     for f in want._fields:
         a, b = getattr(want, f), getattr(got, f)
         assert a.dtype == b.dtype and torch.equal(a, b), f
+    # the baseline scenario is the constant fill
+    neutral = tscn.neutral_drivers(SMOKE.cfg, tf.N_LBS, tf.N_INSTANCES,
+                                   device="cpu")
+    for f in want._fields:
+        assert torch.equal(getattr(neutral, f), getattr(got, f)), f
 
 
 def test_cli_prints_the_reference_payloads(cli, ref_payloads):
@@ -165,7 +205,8 @@ def test_cli_prints_the_reference_payloads(cli, ref_payloads):
                 assert np.shape(got[label][k]) == np.shape(v), (name, k)
         saved = json.loads((out / f"{name}.json").read_text())
         assert saved == dict(got, provenance=prov)
-    assert len(stdout.splitlines()) == len(printed) == len(FIGS) + 1
+    assert len(stdout.splitlines()) == len(printed) == \
+        len(FIGS) + len(EVENT_FIGS) + 1
 
 
 def test_tier3_figure_statistics_within_the_seed_spread(cli, jax_suite):
@@ -192,24 +233,64 @@ def test_tier3_figure_statistics_within_the_seed_spread(cli, jax_suite):
         assert fig3["qedgeproxy"]["mean"] > fig3[label]["mean"], label
 
 
-def test_figs_10_and_11_wait_for_the_scenario_compiler():
-    for fn in (tf.fig10_client_surge, tf.fig11_instance_removal):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            fn(None)
+def test_figs_10_and_11_match_the_reference(cli, ref_event_payloads):
+    printed, _, _ = cli
+    for name in EVENT_FIGS:
+        want, got = ref_event_payloads[name], dict(printed[name])
+        got.pop("provenance")
+        assert list(got) == list(want) == ["qedgeproxy", "proxy_mity_1.0"]
+        for label in want:
+            assert list(got[label]) == list(want[label]), (name, label)
+            assert list(got[label]["acc_window"]) == \
+                list(want[label]["acc_window"])
+        # proxy-mity's runs are exact: so is its payload
+        assert got["proxy_mity_1.0"] == want["proxy_mity_1.0"], name
+        a, b = want["qedgeproxy"], got["qedgeproxy"]
+        for key in ("pre", "dip", "post_steady"):
+            assert abs(a[key] - b[key]) <= EVENT_QOS_TOL, (name, key)
+        for key in ("pre", "dip", "steady"):
+            assert abs(a["acc_window"][key] - b["acc_window"][key]) \
+                <= EVENT_QOS_TOL, (name, key)
+        # the paper's claim at this horizon: QoS holds through the event
+        assert b["post_steady"] >= 0.95, name
+
+
+def test_cli_prints_figs_10_and_11(cli):
+    printed, out, _ = cli
+    for name in EVENT_FIGS:
+        payload = printed[name]
+        assert payload["provenance"]["benchmark"] == name
+        saved = json.loads((out / f"{name}.json").read_text())
+        assert saved == payload
+        for label in ("qedgeproxy", "proxy_mity_1.0"):
+            cell = payload[label]
+            assert 0.0 <= cell["post_steady"] <= 1.0
+            assert cell["acc_window"]["recovered"] in (True, False)
+    assert printed["suite_build"]["qedgeproxy"]["scenarios"] == 2
 
 
 def test_suite_lanes_record_their_runs():
-    suite = tf.get_suite("cpu", seeds=(3,), horizon=1.5)
+    suite = tf.get_suite("cpu", seeds=(3, 4), horizon=1.5)
     assert suite.device == "cpu" and suite.config.warm == 5
     T = suite.config.cfg.num_steps
     for label, _ in tf.STRATEGIES:
-        lane = suite.lanes[(3, label)]
-        assert lane["seconds"] > 0 and lane["steps_per_s"] > 0
+        timing = suite.timings[label]
+        assert timing["seconds"] > 0 and timing["lanes"] == 2
+        assert timing["grid_steps_per_s"] == pytest.approx(
+            2 * T / timing["seconds"])
         # the CPU runs the plain versions: no kernel launches
-        assert set(lane["launches"].values()) == {0}
-        assert len(suite.runs[(3, label)].series.succ) == T
+        assert set(timing["launches"].values()) == {0}
+        for seed in (3, 4):
+            assert suite.runs[(seed, label)].series.succ.shape == (T,)
     topo = ttopo.make_topology(3, 30, 10, device="cpu")
     assert torch.equal(suite.topos[3].rtt, topo.rtt)
+    # each seed's lane equals the seed run alone
+    alone = ts.run_sim_stream("qedgeproxy", suite.topos[4].lb_instance_rtt(),
+                              suite.config.cfg, 104,
+                              warmup_steps=suite.config.warm, device="cpu")
+    for f in alone.acc._fields:
+        assert torch.equal(getattr(alone.acc, f),
+                           getattr(suite.runs[(4, "qedgeproxy")].acc, f)), f
 
 
 # ---------------------------------------------------------------------------
