@@ -26,6 +26,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
                 simulator kernels must launch once per step.
+   lifecycle_fleet -- the same fleet for 200 steps, the last 10 of its
+                50 instances the controller's standby pool: (a) under
+                the control plane (autoscaler and admission), on the
+                fused round (round kernel and maintenance once a step)
+                and on the round scan, every accumulator field, series
+                value and control counter equal; (b) also on the
+                bounded request lifecycle (timeout 55 ms, <= 2 retries,
+                breakers; maintenance once a step, the round kernel
+                never); (c) run (b) in 50-step chunks, stopped at step
+                100 into a checkpoint and resumed, equal to (b). Steps/s
+                beside the neutral fleet's, peak device memory.
 6. baselines -- the 30x10 testbed for 50 steps from key 7, fused round
                 against the round scan: ``qedgeproxy`` (the round kernel
                 against the torch scan; maintenance once per step in
@@ -58,6 +69,18 @@ Phases, one JSON line each; any failure exits non-zero:
                 surge and the instance removal as the two lanes of one
                 run per strategy, all four, 60 s; ``qedgeproxy``'s
                 post-event steady QoS >= 0.95 in both.
+   degradation -- ``bench.scenarios``' graceful-degradation lane: the
+                smoke probe (``retry_storm``) under the five request-
+                lifecycle policies at tau = 150 ms, 30 s; ``bounded``'s
+                worst dip >= ``neutral``'s, ``naive``'s retry rate >=
+                ``bounded``'s, every readout finite and every cell's keys
+                the reference payload's.
+   closed_loop -- the closed-loop lane: the smoke probes on the 30 x
+                (10 + 4) fleet under the eight control policies, 30 s;
+                ``prewarmed`` drops <= 1 % and >= 90 % clients reach rho
+                in each probe, ``static`` drops more; readouts finite,
+                keys the reference payload's (but ``max_recovery_s``,
+                which depends on a recovery inside the horizon).
 8. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
                 published width behind the QEdgeProxy router (3 replicas,
                 one slow); every request answers with finite logits, the
@@ -82,10 +105,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 serve_shares: each serving kernel's time x launches over
                 its serve run's median prefill / decode call, and the
                 device time of a replayed dense decode call over it.
-11. profile  -- with ``--profile``: torch.profiler over 20 fleet steps, 20
-                steps of each suite strategy, 20 steps of the lanes
-                phase's four lanes and one prefill and one decode call
-                of each served model.
+11. profile  -- with ``--profile``: torch.profiler over 20 fleet steps
+                (neutral, under control, under control and the
+                lifecycle), 20 steps of each suite strategy, 20 steps of
+                the lanes phase's four lanes and one prefill and one
+                decode call of each served model (``--profile-only``:
+                these alone, no checks).
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -124,6 +149,15 @@ LANES = dict(scenarios=("cascade_failure", "surge", "partition_heal",
                         "rtt_drift"), horizon=30.0, warm=100)
 SCENARIO_HORIZON = 60.0                     # the library as lanes, 600 steps
 EVENTS = dict(horizon=60.0, min_post_steady=0.95)   # Figs 10-11, 600 steps
+# the anchor fleet under the request lifecycle and the control plane:
+# 200 steps, the last 10 of the 50 instances the controller's standby
+LIFECYCLE = dict(horizon=20.0, managed=10, chunk_steps=50, stop_at=100)
+LIFECYCLE_CONTROL = dict(managed=10, warmup=1.0, up_queue=2.0, down_queue=0.5,
+                         hold=0.4, action_cooldown=2.0, batch=2, admit=True,
+                         target_queue=1.5)
+DEGRADE_HORIZON = 30.0       # the graceful-degradation lane, 300 steps
+CONTROL_HORIZON = 30.0       # the closed-loop lane, 300 steps
+PAYLOAD = "results/benchmarks/scenario_suite.json"   # the reference's lanes
 # (S, K, M, lane-major fleet): the round kernel with a lane axis, the
 # testbed's shape at S = 3 and 4 and the fleet's at S = 4
 ROUND_LANE_CASES = ((3, 30, 10), (4, 30, 10), (4, 1000, 50))
@@ -881,7 +915,7 @@ def phase_fleet(dev) -> dict:
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times in "
                                  f"{steps} steps, the path needs {n}")
-    return launches
+    return launches, steps / secs
 
 
 def sim_launches() -> dict:
@@ -891,14 +925,202 @@ def sim_launches() -> dict:
 
 
 def check_identical(a, b, what: str) -> None:
-    """Every accumulator field and series value of two streaming runs
-    exactly equal."""
+    """Every accumulator field, series value and control counter of two
+    streaming runs exactly equal."""
     import torch
-    for part in ("acc", "series"):
+    if (a.ctrl is None) != (b.ctrl is None):
+        raise AssertionError(f"{what}: one run has control counters")
+    for part in ("acc", "series", "ctrl"):
         x, y = getattr(a, part), getattr(b, part)
-        for f in x._fields:
+        for f in (x._fields if x is not None else ()):
             if not torch.equal(getattr(x, f), getattr(y, f)):
                 raise AssertionError(f"{what}: {part}.{f} differs")
+
+
+def check_lifecycle_conservation(acc, shed) -> None:
+    """Every attempt lands once on an instance; every served request
+    (issued but not shed) once in the routing and latency counts."""
+    attempts, served = float(acc.att_k.sum()), float(acc.n_kc.sum()) - shed
+    for name, want in (("arrivals_m", attempts), ("choice_counts", served),
+                       ("proc_hist", served)):
+        got = float(getattr(acc, name).sum())
+        if got != want:
+            raise AssertionError(f"{name} counts {got}, the run needs {want}")
+    for f in acc._fields:
+        if not bool(getattr(acc, f).isfinite().all()):
+            raise AssertionError(f"non-finite {f}")
+
+
+def phase_lifecycle_fleet(dev, neutral_steps_per_s: float) -> None:
+    """The anchor fleet under the control plane (a), then also the
+    bounded request lifecycle (b), then (b) chunked, stopped at step 100
+    into a checkpoint and resumed (c): (a) fused round against the round
+    scan, and (c) against (b), bit for bit."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.bench.scenarios import CONTROL_RES
+    from repro_torch.continuum import ControlConfig, run_sim_stream
+    cfg, rtt = fleet_inputs(dev, LIFECYCLE["horizon"])
+    steps = cfg.num_steps
+    ctl_cfg = dataclasses.replace(cfg, control=ControlConfig(
+        **LIFECYCLE_CONTROL))
+    res_cfg = dataclasses.replace(ctl_cfg, **CONTROL_RES)
+
+    def run(label, cfg, needs, ran=steps, **kw):
+        base = memory_baseline(dev)
+        for fn in all_kernels():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = sim_launches()
+        shed = float(out.ctrl.shed_k.sum())
+        emit(phase="lifecycle_fleet", run=label, K=FLEET["K"], M=FLEET["M"],
+             managed=LIFECYCLE["managed"], steps=ran, seconds=secs,
+             steps_per_s=ran / secs,
+             neutral_fleet_steps_per_s=neutral_steps_per_s,
+             peak_mem_bytes=peak_above(dev, base), **base, launches=launches,
+             scale_up=float(out.ctrl.scale_up),
+             scale_down=float(out.ctrl.scale_down), shed=shed,
+             attempts=float(out.acc.att_k.sum()),
+             timeouts=float(out.acc.timeout_k.sum()),
+             drops=float(out.acc.drop_k.sum()),
+             breaker_open_steps=float(out.acc.open_km.sum()),
+             requests=float(out.acc.n_kc.sum()))
+        if needs is not None and launches != needs:
+            raise AssertionError(f"lifecycle_fleet {label}: launches "
+                                 f"{launches}, the path needs {needs}")
+        check_lifecycle_conservation(out.acc, shed)
+        return out
+
+    each = dict(round_step_swrr=steps, fused_maintenance=steps)
+    scan = dict(round_step_swrr=0, fused_maintenance=steps)
+    fused = run("a_control_fused", ctl_cfg, each)
+    scanned = run("a_control_scan", dataclasses.replace(ctl_cfg,
+                                                        fused_round=False),
+                  scan)
+    check_identical(fused, scanned, "lifecycle_fleet (a) fused vs scan")
+    if not float(fused.ctrl.scale_up) > 0 or not float(
+            fused.ctrl.shed_k.sum()) > 0:
+        raise AssertionError("lifecycle_fleet (a): the controller never "
+                             "scaled up or shed")
+    whole = run("b_control_lifecycle", res_cfg, scan)
+    if not float(whole.acc.timeout_k.sum()) > 0:
+        raise AssertionError("lifecycle_fleet (b): no attempt timed out")
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(chunk_steps=LIFECYCLE["chunk_steps"], checkpoint_dir=d)
+        stop = LIFECYCLE["stop_at"]
+        part = run("c_stopped", res_cfg, None, ran=stop, stop_at_step=stop,
+                   **kw)
+        if part.series.succ.shape[0] != stop:
+            raise AssertionError(f"stopped run: {part.series.succ.shape[0]} "
+                                 f"steps, {stop} wanted")
+        resumed = run("c_resumed", res_cfg, None, ran=steps - stop,
+                      resume=True, **kw)
+    check_identical(whole, resumed, "lifecycle_fleet (c) resumed vs (b)")
+    emit(phase="lifecycle_fleet", fused_equals_scan=True,
+         resumed_equals_uninterrupted=True)
+
+
+def payload_cells(lane: str) -> dict:
+    """The reference payload's cells of ``lane``: {scenario: {policy:
+    cell}}."""
+    return json.loads((ROOT / PAYLOAD).read_text())[lane]
+
+
+def check_cells(lane: str, rows: dict, optional: set) -> None:
+    """Every readout finite; each cell's keys those of the reference
+    payload's cell, but ``optional`` (keys present only where an event
+    recovered inside the horizon)."""
+    ref = payload_cells(lane)
+    for name, row in rows.items():
+        for label, cell in row.items():
+            bad = [k for k, v in cell.items()
+                   if isinstance(v, float) and not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{lane} {name} {label}: non-finite "
+                                     f"{bad}")
+            want = set(ref[name][label]) - optional
+            if set(cell) - optional != want:
+                raise AssertionError(f"{lane} {name} {label}: keys "
+                                     f"{sorted(cell)}, the reference's "
+                                     f"{sorted(ref[name][label])}")
+
+
+def lane_phase_launches(phase: str, suite: dict, resilient) -> None:
+    """Each policy's launches: maintenance once a step, the round kernel
+    once a step only without the request lifecycle."""
+    T = suite["config"].cfg.num_steps
+    for label, timing in suite["timings"].items():
+        sim = {k: timing["launches"][k] for k in sim_launches()}
+        n = 0 if resilient(label) else T
+        emit(phase=f"{phase}_policy", policy=label, lanes=timing["lanes"],
+             steps=T, seconds=timing["seconds"],
+             grid_steps_per_s=timing["grid_steps_per_s"], launches=sim)
+        if sim != dict(round_step_swrr=n, fused_maintenance=T):
+            raise AssertionError(f"{phase} {label}: launches {sim}, the path "
+                                 f"needs {n} and {T}")
+
+
+def phase_degradation(dev) -> None:
+    """The graceful-degradation lane on the card: the smoke probe under
+    the five request-lifecycle policies."""
+    import torch
+    from repro_torch.bench import scenarios as bs
+    t0 = time.perf_counter()
+    suite = bs.get_degradation_suite(dev, smoke=True,
+                                     horizon=DEGRADE_HORIZON)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rows = bs.graceful_degradation(suite)
+    lane_phase_launches("degradation", suite, lambda label: label != "neutral")
+    for (name, label), run in suite["runs"].items():
+        check_lifecycle_conservation(run.acc, 0.0)
+    for name in suite["names"]:
+        emit(phase="degradation_row", scenario=name, **rows[name])
+    check_cells("graceful_degradation", rows, set())
+    emit(phase="degradation", scenarios=suite["names"],
+         steps=suite["config"].cfg.num_steps, seconds=secs,
+         device=suite["device"])
+    row = rows["retry_storm"]
+    if not row["bounded"]["worst_dip"] >= row["neutral"]["worst_dip"]:
+        raise AssertionError(f"bounded worst dip {row['bounded']} below "
+                             f"neutral's {row['neutral']}")
+    if not row["naive"]["retry_rate"] >= row["bounded"]["retry_rate"]:
+        raise AssertionError(f"naive retry rate {row['naive']['retry_rate']} "
+                             f"below bounded's {row['bounded']['retry_rate']}")
+
+
+def phase_closed_loop(dev) -> None:
+    """The closed-loop lane on the card: the smoke probes on the fleet
+    with its standby pool, under the eight control policies."""
+    import torch
+    from repro_torch.bench import scenarios as bs
+    t0 = time.perf_counter()
+    suite = bs.get_control_suite(dev, smoke=True, horizon=CONTROL_HORIZON)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rows = bs.closed_loop(suite)
+    lane_phase_launches("closed_loop", suite, lambda label: True)
+    for (name, label), run in suite["runs"].items():
+        check_lifecycle_conservation(
+            run.acc, 0.0 if run.ctrl is None else float(run.ctrl.shed_k.sum()))
+    for name in suite["names"]:
+        emit(phase="closed_loop_row", scenario=name, **rows[name])
+    check_cells("closed_loop", rows, {"max_recovery_s"})
+    emit(phase="closed_loop", scenarios=suite["names"],
+         steps=suite["config"].cfg.num_steps, seconds=secs,
+         device=suite["device"])
+    for name, row in rows.items():
+        pre, static = row["prewarmed"], row["static"]
+        if not (pre["drop_rate"] <= 0.01 and pre["qos_sat_pct"] >= 90.0):
+            raise AssertionError(f"{name}: prewarmed {pre}")
+        if not static["drop_rate"] > pre["drop_rate"]:
+            raise AssertionError(f"{name}: static drop rate "
+                                 f"{static['drop_rate']} not above "
+                                 f"prewarmed's {pre['drop_rate']}")
 
 
 def phase_baselines(dev) -> None:
@@ -1438,6 +1660,19 @@ def phase_profile(dev, trace_dir: Path) -> None:
     run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
     profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
              "fleet", trace_dir, steps=cfg.num_steps)
+    # the fleet under the control plane (a), then also the lifecycle (b)
+    import dataclasses
+    from repro_torch.bench.scenarios import CONTROL_RES
+    from repro_torch.continuum import ControlConfig
+    ctl_cfg = dataclasses.replace(cfg, control=ControlConfig(
+        **LIFECYCLE_CONTROL))
+    for name, c in (("fleet_control", ctl_cfg),
+                    ("fleet_lifecycle", dataclasses.replace(ctl_cfg,
+                                                            **CONTROL_RES))):
+        def run(c=c):
+            run_sim_stream("qedgeproxy", rtt, c, 7, device=dev)
+        run()                                                    # warm
+        profiled(run, name, trace_dir, steps=c.num_steps)
     rtt = make_topology(1, bf.N_LBS, bf.N_INSTANCES, device=dev).lb_instance_rtt()
     for label, kw in bf.STRATEGIES:
         def lane():
@@ -1482,9 +1717,14 @@ def main() -> int:
                     help="add torch.profiler breakdowns of fleet steps, suite "
                          "steps and a prefill and decode call of each served "
                          "model, and write their Chrome traces to "
-                         "DIR/{fleet,suite_<strategy>,lanes,prefill,decode,"
-                         "ssm_prefill,ssm_decode}_trace.json")
+                         "DIR/{fleet,fleet_control,fleet_lifecycle,"
+                         "suite_<strategy>,lanes,prefill,decode,ssm_prefill,"
+                         "ssm_decode}_trace.json")
+    ap.add_argument("--profile-only", action="store_true",
+                    help="with --profile: build the kernels and run only the "
+                         "profiler breakdowns, no checks")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1502,6 +1742,9 @@ def main() -> int:
     emit(phase="build", seconds=build_s,
          sources=[str(s.relative_to(ROOT)) for s in _build.sources()],
          ptxas=ptxas)
+    if args.profile_only and args.profile is not None:
+        phase_profile(dev, args.profile)
+        return 0
     spilled = [k for k in ptxas if k["spill_stores"]
                and k["kernel"].startswith(NO_SPILL)]
     if spilled:
@@ -1509,12 +1752,15 @@ def main() -> int:
     from repro_torch.kernels import decode_attention, flash_attention, ssd
     errs = phase_kernels(dev)
     phase_testbed(dev)
-    launches = phase_fleet(dev)
+    launches, fleet_steps_per_s = phase_fleet(dev)
+    phase_lifecycle_fleet(dev, fleet_steps_per_s)
     phase_baselines(dev)
     phase_suite(dev)
     phase_lanes(dev)
     phase_scenarios(dev)
     phase_events(dev)
+    phase_degradation(dev)
+    phase_closed_loop(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),
@@ -1544,6 +1790,7 @@ def main() -> int:
              "fused_maintenance"])
     if args.profile is not None:
         phase_profile(dev, args.profile)
+    emit(phase="total", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,48 +1,120 @@
 """The scenario library on the card: every named non-stationarity regime
-as the lanes of one run per strategy, with QoS and event-recovery
-columns.
+as the lanes of one run per strategy or policy, with QoS, event-recovery,
+request-lifecycle and control columns.
 
-Twin of the open-loop part of the JAX package's
-``benchmarks/scenario_suite.py``: the library (``get_library``) on the
-paper's 30 x 10 testbed, seed 1's topology for every lane, lane i
-compiled at key ``500 + i``, one run key (11) for every lane so that
-scenarios share the noise stream, under the contrast pair
-``qedgeproxy`` and ``proxy_mity_1.0``. Per scenario and strategy the
-payload records clients >= rho (%), Jain fairness, the number of events,
-the worst dip and the slowest recovery from ``event_recovery`` (the
-reference's ``stream_cell``). Each strategy records its seconds and
-``grid_steps_per_s`` (lanes x steps / seconds).
+Twin of the JAX package's ``benchmarks/scenario_suite.py``, on the
+paper's 30 x 10 testbed, seed 1's topology for every lane and one run
+key (11) for every lane so that scenarios share the noise stream:
 
-The reference's ``graceful_degradation`` and ``closed_loop`` lanes need
-the resilience layer and the control plane (ROADMAP A9); their row
-functions raise.
+* the open-loop rows: the library (``get_library``), lane i compiled at
+  key ``500 + i``, under the contrast pair ``qedgeproxy`` and
+  ``proxy_mity_1.0``; per scenario and strategy clients >= rho (%),
+  Jain fairness, the number of events, the worst dip and the slowest
+  recovery from ``event_recovery``;
+* ``graceful_degradation``: the resilience probes (lane i compiled at
+  ``600 + i``) at tau = 150 ms under the five request-lifecycle
+  ``DEGRADE_POLICIES`` (neutral, deadline-bounded retries with and
+  without breakers, naive unbounded retries, a timeout inside the
+  healthy band), each policy one ``qedgeproxy`` run; the cells add the
+  attempt, retry, timeout and drop counts and the breakers' open share;
+* ``closed_loop``: the overload probes on a fleet widened by
+  ``CONTROL_STANDBY`` parked instances (``with_standby``, lane i
+  compiled at ``700 + i``) under the eight ``CONTROL_POLICIES`` (parked
+  standby, three autoscalers, admission, both, migration, a pre-warmed
+  fleet), every row on ``CONTROL_RES``'s bounded lifecycle at tau = 80
+  ms; the cells add the drop rate, the per-player QoS spread and the
+  control counters' readouts.
 
-    python -m repro_torch.bench.scenarios [--smoke] [--device cpu]
+Each strategy or policy records its seconds and ``grid_steps_per_s``
+(lanes x steps / seconds).
+
+    python -m repro_torch.bench.scenarios [--smoke] [--horizon S] [--device cpu]
 
 prints the payload as one JSON line, then the timings as another; smoke
-runs the reference's ``SMOKE_SCENARIOS`` at the 24 s smoke horizon.
+runs the reference's smoke scenario sets at the 24 s smoke horizon.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.bench import figures
-from repro_torch.continuum import (client_qos_satisfaction_stream,
-                                   compile_scenario, event_recovery,
-                                   get_library, jain_fairness_stream, lane,
-                                   make_topology, stack_drivers)
+from repro_torch.continuum import (ControlConfig, breaker_open_fraction_stream,
+                                   client_qos_satisfaction_stream,
+                                   compile_scenario, control_stats_stream,
+                                   event_recovery, get_library,
+                                   jain_fairness_stream, lane, make_topology,
+                                   per_tenant_qos_spread,
+                                   resilience_stats_stream, stack_drivers,
+                                   with_standby)
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
 
 # contrast pair: the adaptive balancer against static proximity
 SUITE_STRATEGIES = (("qedgeproxy", {}), ("proxy_mity_1.0", dict(alpha=1.0)))
 SMOKE_SCENARIOS = ("baseline", "surge", "cascade_failure", "everything")
-COMPILE_KEY0, RUN_KEY = 500, 11
+COMPILE_KEY0, RUN_KEY, TOPOLOGY_SEED = 500, 11, 1
+
+# graceful-degradation lane: scenarios x request-lifecycle policies
+DEGRADE_SCENARIOS = ("retry_storm", "metastable_overload", "flash_crowd")
+SMOKE_DEGRADE_SCENARIOS = ("retry_storm",)
+DEGRADE_POLICIES = (
+    ("neutral", {}),
+    ("bounded", dict(attempt_timeout=0.090, max_retries=2,
+                     retry_backoff=0.002, breaker_threshold=5,
+                     breaker_cooldown=1.0)),
+    ("bounded_nobrk", dict(attempt_timeout=0.090, max_retries=2,
+                           retry_backoff=0.002)),
+    ("naive", dict(attempt_timeout=0.090, max_retries=5,
+                   retry_deadline=False)),
+    # the bounded policy with its timeout inside the healthy latency band
+    ("tight", dict(attempt_timeout=0.070, max_retries=2,
+                   retry_backoff=0.002, breaker_threshold=5,
+                   breaker_cooldown=1.0)),
+)
+DEGRADE_TAU = 0.150
+DEGRADE_KEY0 = 600
+
+# closed-loop lane: controller x scenario grid at the paper's tau, the
+# base fleet plus CONTROL_STANDBY parked instances (appended last, where
+# ControlConfig.managed points), every row on the bounded lifecycle
+CONTROL_SCENARIOS = ("retry_storm", "metastable_overload",
+                     "sustained_overload", "surge", "cascade_failure")
+SMOKE_CONTROL_SCENARIOS = ("retry_storm", "metastable_overload")
+CONTROL_STANDBY = 4
+CONTROL_RES = dict(attempt_timeout=0.055, max_retries=2,
+                   retry_backoff=0.002, breaker_threshold=4,
+                   breaker_cooldown=1.0)
+_AUTOSCALE = dict(managed=CONTROL_STANDBY, warmup=1.0, up_queue=2.0,
+                  down_queue=0.5, hold=0.4, action_cooldown=2.0, batch=2)
+# a standby pool nothing ever spawns: the open-loop floor
+_PARKED = dict(managed=CONTROL_STANDBY, up_queue=math.inf,
+               down_queue=-1.0)
+CONTROL_POLICIES = (
+    ("static", ControlConfig(**_PARKED)),
+    ("autoscale_fast", ControlConfig(**_AUTOSCALE)),
+    ("autoscale_slow", ControlConfig(**{**_AUTOSCALE, "warmup": 4.0,
+                                        "hold": 2.0,
+                                        "action_cooldown": 10.0,
+                                        "batch": 1})),
+    # thresholds nearly touching and a short dwell: the thrash probe
+    ("autoscale_narrow", ControlConfig(**{**_AUTOSCALE, "up_queue": 1.2,
+                                          "down_queue": 1.0, "hold": 0.2,
+                                          "action_cooldown": 1.0})),
+    ("admit", ControlConfig(**_PARKED, admit=True, target_queue=1.5)),
+    ("autoscale_admit", ControlConfig(**_AUTOSCALE, admit=True,
+                                      target_queue=1.5)),
+    ("migrate", ControlConfig(**_PARKED, regions=2)),
+    # every instance live from t=0, no controller: the capacity ceiling
+    ("prewarmed", None),
+)
+CONTROL_KEY0 = 700
 
 
 def get_scenario_suite(device=None, smoke: bool = False,
@@ -59,14 +131,11 @@ def get_scenario_suite(device=None, smoke: bool = False,
     K, M = figures.N_LBS, figures.N_INSTANCES
     lib = get_library(cfg.horizon, K, M)
     names = [n for n in lib if not smoke or n in SMOKE_SCENARIOS]
-    S = len(names)
-    rtt = make_topology(1, K, M, device=dev).lb_instance_rtt()
-    rtts = rtt[None].expand(S, K, M).contiguous()
+    rtts, keys = _lanes_inputs(len(names), K, M, dev)
     # lane i compiles at key 500 + i, as the reference keys them
     drivers = stack_drivers(
         [compile_scenario(lib[n], cfg, COMPILE_KEY0 + i, device=dev)
          for i, n in enumerate(names)])
-    keys = prand.prng_key(RUN_KEY, dev)[None].expand(S, 2).contiguous()
     runs, timings = {}, {}
     for label, kw in SUITE_STRATEGIES:
         out, timings[label] = figures.run_lanes(label, kw, rtts, keys,
@@ -77,7 +146,79 @@ def get_scenario_suite(device=None, smoke: bool = False,
                 device=figures.device_name(dev))
 
 
-def recovery_summary(recs: list[dict]) -> dict:
+def _lanes_inputs(S: int, K: int, M: int, dev):
+    """Topology 1's RTT and run key 11 for each of S lanes."""
+    rtt = make_topology(TOPOLOGY_SEED, K, M, device=dev).lb_instance_rtt()
+    rtts = rtt[None].expand(S, K, M).contiguous()
+    keys = prand.prng_key(RUN_KEY, dev)[None].expand(S, 2).contiguous()
+    return rtts, keys
+
+
+def _policy_suite(policies, names, lib_fn, key0, base_cfg, conf, M, dev):
+    """One ``qedgeproxy`` run of the scenario lanes per ``(label,
+    cfg)`` of ``policies``: ``{"names", "config", "runs": {(name,
+    label): StreamOutputs}, "timings", "device"}``; lane i compiles
+    ``lib_fn(name)`` at key ``key0 + i`` (the schedules never depend on
+    the policy, so every policy shares them)."""
+    K = figures.N_LBS
+    rtts, keys = _lanes_inputs(len(names), K, M, dev)
+    drivers = stack_drivers([compile_scenario(lib_fn(n), base_cfg, key0 + i,
+                                              device=dev)
+                             for i, n in enumerate(names)])
+    runs, timings = {}, {}
+    for label, cfg in policies:
+        out, timings[label] = figures.run_lanes(
+            "qedgeproxy", {}, rtts, keys, drivers,
+            dataclasses.replace(conf, cfg=cfg), dev)
+        for i, name in enumerate(names):
+            runs[(name, label)] = lane(out, i)
+    return dict(names=list(names), config=conf, runs=runs, timings=timings,
+                device=figures.device_name(dev))
+
+
+def _suite_config(smoke: bool, horizon: float | None):
+    base = figures.configure(smoke)
+    return figures._config(base.cfg.horizon if horizon is None else horizon,
+                           base.seeds, smoke)
+
+
+def get_degradation_suite(device=None, smoke: bool = False,
+                          horizon: float | None = None) -> dict:
+    """The graceful-degradation lane: ``DEGRADE_SCENARIOS`` (smoke:
+    ``SMOKE_DEGRADE_SCENARIOS``) as the lanes of one run per
+    ``DEGRADE_POLICIES`` entry, at tau = ``DEGRADE_TAU``."""
+    conf = _suite_config(smoke, horizon)
+    dev = resolve_device(device)
+    K, M = figures.N_LBS, figures.N_INSTANCES
+    names = SMOKE_DEGRADE_SCENARIOS if smoke else DEGRADE_SCENARIOS
+    lib = get_library(conf.cfg.horizon, K, M)
+    base = dataclasses.replace(conf.cfg, tau=DEGRADE_TAU)
+    policies = [(label, dataclasses.replace(base, **knobs))
+                for label, knobs in DEGRADE_POLICIES]
+    return _policy_suite(policies, names, lib.__getitem__, DEGRADE_KEY0,
+                         base, conf, M, dev)
+
+
+def get_control_suite(device=None, smoke: bool = False,
+                      horizon: float | None = None) -> dict:
+    """The closed-loop lane: ``CONTROL_SCENARIOS`` (smoke:
+    ``SMOKE_CONTROL_SCENARIOS``) over the base fleet plus
+    ``CONTROL_STANDBY`` parked instances as the lanes of one run per
+    ``CONTROL_POLICIES`` entry, each on ``CONTROL_RES``."""
+    conf = _suite_config(smoke, horizon)
+    dev = resolve_device(device)
+    K, M = figures.N_LBS, figures.N_INSTANCES
+    names = SMOKE_CONTROL_SCENARIOS if smoke else CONTROL_SCENARIOS
+    lib = get_library(conf.cfg.horizon, K, M)
+    base = dataclasses.replace(conf.cfg, **CONTROL_RES)
+    policies = [(label, dataclasses.replace(base, control=ctl))
+                for label, ctl in CONTROL_POLICIES]
+    return _policy_suite(policies, names,
+                         lambda n: with_standby(lib[n], CONTROL_STANDBY),
+                         CONTROL_KEY0, base, conf, M + CONTROL_STANDBY, dev)
+
+
+def recovery_summary(recs: list[dict], *, max_recovery: bool = True) -> dict:
     """``worst_dip`` / ``unrecovered_events`` / ``max_recovery_s`` from
     an ``event_recovery`` readout (empty without events); events with no
     data-bearing post bucket count as unrecovered and stay out of the
@@ -90,19 +231,43 @@ def recovery_summary(recs: list[dict]) -> dict:
         out["worst_dip"] = min(dips)
     recovered = [r["recovery_s"] for r in recs if r["recovered"]]
     out["unrecovered_events"] = len(recs) - len(recovered)
-    if recovered:
+    if max_recovery and recovered:
         out["max_recovery_s"] = max(recovered)
     return out
 
 
-def stream_cell(outs, rho: float, bucket_s: float) -> dict:
-    """One scenario x strategy row: the reference's ``stream_cell(...,
-    jain=True, n_events=True)``."""
-    recs = event_recovery(outs.acc, bucket_s)
-    cell = {"qos_sat_pct": client_qos_satisfaction_stream(outs.acc, rho),
-            "jain": jain_fairness_stream(outs.acc),
-            "events": len(recs)}
-    cell.update(recovery_summary(recs))
+def stream_cell(outs, rho: float, bucket_s: float, *, jain: bool = True,
+                n_events: bool = True, resilience: bool = False,
+                breaker_frac: bool = False, tenants: bool = False,
+                drop_rate: bool = False, control: bool = False,
+                max_recovery: bool = True) -> dict:
+    """One scenario x strategy cell of one lane's run: the reference's
+    ``obs.registry.stream_cell`` with its keyword switches (here
+    ``jain`` and ``n_events`` default on, as the open-loop rows use
+    them). ``breaker_open_frac`` is a float32 mean, as the reference
+    takes it."""
+    acc = outs.acc
+    recs = event_recovery(acc, bucket_s)
+    cell = {"qos_sat_pct": client_qos_satisfaction_stream(acc, rho)}
+    if jain:
+        cell["jain"] = jain_fairness_stream(acc)
+    if tenants:
+        spread = per_tenant_qos_spread(acc)
+        cell["tenant_qos_spread"] = spread["spread"]
+        cell["tenant_qos_min"] = spread["min"]
+    if resilience:
+        cell.update(resilience_stats_stream(acc))
+    elif drop_rate:
+        cell["drop_rate"] = resilience_stats_stream(acc)["drop_rate"]
+    if breaker_frac:
+        frac = breaker_open_fraction_stream(acc).astype(np.float32)
+        cell["breaker_open_frac"] = float(
+            frac.sum(dtype=np.float32) * np.float32(1.0 / frac.size))
+    if n_events:
+        cell["events"] = len(recs)
+    cell.update(recovery_summary(recs, max_recovery=max_recovery))
+    if control and outs.ctrl is not None:
+        cell.update(control_stats_stream(acc, outs.ctrl))
     return cell
 
 
@@ -117,15 +282,26 @@ def scenario_rows(suite: dict) -> dict:
 
 
 def graceful_degradation(suite: dict) -> dict:
-    raise NotImplementedError(
-        "the graceful-degradation lane needs request-lifecycle resilience, "
-        "not ported to repro_torch yet (ROADMAP A9)")
+    """``{scenario: {policy: cell}}`` of ``get_degradation_suite``: the
+    reference payload's ``graceful_degradation`` rows."""
+    cfg = suite["config"].cfg
+    return {name: {label: stream_cell(
+        suite["runs"][(name, label)], cfg.rho, cfg.ev_bucket, jain=False,
+        n_events=False, resilience=True,
+        breaker_frac=bool(knobs.get("breaker_threshold")),
+        max_recovery=False) for label, knobs in DEGRADE_POLICIES}
+        for name in suite["names"]}
 
 
 def closed_loop(suite: dict) -> dict:
-    raise NotImplementedError(
-        "the closed-loop lane needs the control plane, not ported to "
-        "repro_torch yet (ROADMAP A9)")
+    """``{scenario: {policy: cell}}`` of ``get_control_suite``: the
+    reference payload's ``closed_loop`` rows."""
+    cfg = suite["config"].cfg
+    return {name: {label: stream_cell(
+        suite["runs"][(name, label)], cfg.rho, cfg.ev_bucket, jain=True,
+        n_events=False, tenants=True, drop_rate=True, control=True)
+        for label, _ in CONTROL_POLICIES}
+        for name in suite["names"]}
 
 
 def main(argv=None) -> int:
@@ -134,10 +310,17 @@ def main(argv=None) -> int:
                     help="24 s horizon, the reference's smoke scenarios")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
+    ap.add_argument("--horizon", type=float, default=None,
+                    help="simulated seconds (default 180, smoke 24)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
-    suite = get_scenario_suite(args.device, smoke=args.smoke)
+    kw = dict(smoke=args.smoke, horizon=args.horizon)
+    suite = get_scenario_suite(args.device, **kw)
     payload = scenario_rows(suite)
+    degrade = get_degradation_suite(args.device, **kw)
+    payload["graceful_degradation"] = graceful_degradation(degrade)
+    control = get_control_suite(args.device, **kw)
+    payload["closed_loop"] = closed_loop(control)
     conf = suite["config"]
     payload["provenance"] = {
         "benchmark": "scenario_suite",
@@ -145,7 +328,9 @@ def main(argv=None) -> int:
         "device": suite["device"], "torch": torch.__version__,
         "smoke": conf.smoke, "horizon_s": conf.cfg.horizon}
     print(json.dumps(payload), flush=True)
-    print(json.dumps({"timings": suite["timings"]}), flush=True)
+    print(json.dumps({"timings": suite["timings"],
+                      "graceful_degradation": degrade["timings"],
+                      "closed_loop": control["timings"]}), flush=True)
     return 0
 
 

@@ -1,0 +1,242 @@
+"""Checkpointing with atomic commits, async writes and content integrity.
+
+Port of ``repro/checkpoint/checkpointer.py`` for the port's state: trees
+of dicts, NamedTuples, tuples, lists and ``None`` with tensor (or numpy)
+leaves. Layout per step::
+
+    <dir>/step_<n>.tmp/   -> written, fsync'd, then os.replace ->
+    <dir>/step_<n>/
+        manifest.json     # schema, step, leaf shapes and dtypes, checksum
+        arrays.npz        # the leaves, keyed by their path in the tree
+
+The manifest carries a ``schema`` version and the SHA-256 of
+``arrays.npz``; ``restore`` checks both before it parses any leaf and
+raises ``CheckpointCorruptError`` on a truncated, bit-flipped or
+foreign-version checkpoint. ``save`` snapshots every leaf to numpy on
+the caller's thread, so an async write never races the caller's next
+step; ``keep`` bounds the steps kept on disk.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_SEP = "/"
+
+# Bump on any incompatible change to the on-disk layout; a manifest
+# without the field is version 1 (no checksum).
+SCHEMA_VERSION = 2
+
+
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint failed its integrity check: a payload whose checksum
+    does not match, an unreadable manifest, or a schema version this
+    code does not understand. Do not resume from it."""
+
+
+def _canonical(obj):
+    """A deterministically serialisable view of a config: dataclasses
+    and NamedTuples as dicts, everything else as its repr."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _canonical(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if hasattr(obj, "_asdict"):                       # NamedTuple
+        return {k: _canonical(v) for k, v in obj._asdict().items()}
+    if isinstance(obj, dict):
+        return {str(k): _canonical(v) for k, v in sorted(obj.items())}
+    if isinstance(obj, (list, tuple)):
+        return [_canonical(v) for v in obj]
+    if isinstance(obj, (str, int, float, bool)) or obj is None:
+        return obj
+    return repr(obj)
+
+
+def config_hash(config) -> str:
+    """Stable short hash of a config object (``SimConfig``, a dict, ...)."""
+    blob = json.dumps(_canonical(config), sort_keys=True,
+                      separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _children(tree):
+    """``(name, child)`` pairs of an inner node, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(str(k), v) for k, v in tree.items()]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def _flatten(tree, path: str = "", out: dict | None = None) -> dict:
+    """Every leaf as a numpy copy, keyed by its path (``None`` has no
+    leaf)."""
+    out = {} if out is None else out
+    if tree is None:
+        return out
+    kids = _children(tree)
+    if kids is None:
+        leaf = (tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
+                else np.asarray(tree))
+        out[path] = np.array(leaf, copy=True)
+        return out
+    for name, child in kids:
+        _flatten(child, f"{path}{_SEP}{name}" if path else name, out)
+    return out
+
+
+def _unflatten(template, data, path: str = ""):
+    """``template``'s structure with its leaves from ``data``: a tensor
+    leaf becomes a tensor on the template's device, any other a numpy
+    array."""
+    if template is None:
+        return None
+    kids = _children(template)
+    if kids is None:
+        arr = data[path]
+        if isinstance(template, torch.Tensor):
+            return torch.from_numpy(np.array(arr, copy=True)).to(
+                template.device)
+        return arr
+    vals = [_unflatten(child, data, f"{path}{_SEP}{name}" if path else name)
+            for name, child in kids]
+    if isinstance(template, dict):
+        return dict(zip(template.keys(), vals))
+    if hasattr(template, "_fields"):
+        return type(template)(*vals)
+    return type(template)(vals)
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    # -- save ---------------------------------------------------------
+    def save(self, step: int, tree: Any, blocking: bool = True,
+             meta: Optional[dict] = None) -> str:
+        """Snapshot on the caller's thread, write (optionally) async.
+        ``meta`` is stored verbatim in the manifest; restore ignores
+        it."""
+        arrays = _flatten(tree)
+        manifest = {
+            "schema": SCHEMA_VERSION,
+            "step": int(step),
+            "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+                     for k, v in arrays.items()},
+        }
+        if meta is not None:
+            manifest["meta"] = meta
+        final = self._path(step)
+
+        def write():
+            tmp = final + ".tmp"
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            npz = os.path.join(tmp, "arrays.npz")
+            np.savez(npz, **arrays)
+            # checksum the bytes as they landed on disk
+            manifest["checksum"] = "sha256:" + _sha256(npz)
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+                f.flush()
+                os.fsync(f.fileno())
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)          # atomic commit
+            self._gc()
+
+        self.wait()
+        if blocking:
+            write()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+        return final
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
+        for s in self.all_steps()[:-self.keep]:
+            shutil.rmtree(self._path(s), ignore_errors=True)
+
+    # -- restore ------------------------------------------------------
+    def all_steps(self) -> list:
+        return sorted(int(name.split("_")[1]) for name in os.listdir(self.dir)
+                      if name.startswith("step_")
+                      and not name.endswith(".tmp"))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def verify(self, step: int) -> dict:
+        """Integrity-check one step's files and return its manifest;
+        raises ``CheckpointCorruptError`` on an unreadable manifest, a
+        newer schema, or an ``arrays.npz`` whose SHA-256 differs from
+        the recorded one."""
+        path = self._path(step)
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, json.JSONDecodeError) as e:
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: unreadable manifest ({e}); delete "
+                f"the step directory and resume from an earlier step"
+            ) from e
+        schema = manifest.get("schema", 1)
+        if not isinstance(schema, int) or schema > SCHEMA_VERSION:
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: schema version {schema!r} is newer "
+                f"than this code understands (<= {SCHEMA_VERSION})")
+        recorded = manifest.get("checksum")
+        if recorded is not None:
+            try:
+                actual = "sha256:" + _sha256(os.path.join(path, "arrays.npz"))
+            except OSError as e:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path}: cannot read arrays.npz ({e})"
+                ) from e
+            if actual != recorded:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path}: arrays.npz checksum mismatch "
+                    f"(manifest {recorded}, file {actual}): the payload "
+                    f"is truncated or bit-flipped")
+        return manifest
+
+    def restore(self, template: Any, step: Optional[int] = None):
+        """``(tree, step)``: ``template``'s structure rebuilt from the
+        step's arrays (default the latest), after ``verify``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        self.verify(step)
+        with np.load(os.path.join(self._path(step), "arrays.npz")) as data:
+            tree = _unflatten(template, {k: data[k] for k in data.files})
+        return tree, step

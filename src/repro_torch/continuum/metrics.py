@@ -1,7 +1,7 @@
 """Metrics for the paper's §VII figures (single-service subset).
 
-Port of ``repro/continuum/metrics.py`` without the resilience and
-tenant readouts: the simulator's step loop carries an O(K·M)
+Port of ``repro/continuum/metrics.py`` without the tenant readouts:
+the simulator's step loop carries an O(K·M)
 ``MetricAccumulator`` on the device and fills O(T) scalar
 ``StepSeries``; the ``*_stream`` readouts turn them into the Figs 3-9
 and regret statistics on the host. The per-instance latency quantile
@@ -46,9 +46,8 @@ class MetricAccumulator(NamedTuple):
     and the variation budget cover the whole horizon. ``ev_succ`` /
     ``ev_n`` are the event-relative recovery windows (slot 0 the
     pre-event baseline, slots 1..B consecutive post-event buckets).
-    The resilience counters stay at their neutral values on this path
-    (``att_k`` equals issued requests; timeouts, drops, open breakers
-    zero)."""
+    With the request lifecycle off, ``att_k`` equals issued requests
+    and timeouts, drops and open breakers stay zero."""
     succ_kc: torch.Tensor        # (K, C) post-warmup QoS successes per client slot
     n_kc: torch.Tensor           # (K, C) post-warmup issued requests per client slot
     arrivals_m: torch.Tensor     # (M,)  post-warmup arrivals per instance
@@ -75,8 +74,10 @@ class StepSeries(NamedTuple):
 
 
 class StreamOutputs(NamedTuple):
-    """``ctrl`` (control counters) and ``rec`` (flight recorder) are
-    ``None`` on this path, as on every open-loop reference run."""
+    """``ctrl`` holds the control plane's ``ControlCounters`` when a
+    closed-loop config is on (lanes: every field with a leading (S,)
+    axis, ``shed_k`` (S, K)), else ``None``; ``rec`` (the flight
+    recorder) is always ``None``."""
     acc: MetricAccumulator
     series: StepSeries
     ctrl: object = None
@@ -313,6 +314,32 @@ def variation_budget_emp(outs) -> np.ndarray:
     return np.abs(np.diff(_np(outs.true_mu), axis=0)).max(-1).sum(0)
 
 
+def resilience_stats(outs, warmup_steps: int = 0) -> dict:
+    """Request-lifecycle counters from a trace; timeouts per slot are
+    ``attempts - completed``."""
+    att = _np(outs.attempts, np.float64)[warmup_steps:]
+    drop = _np(outs.dropped)[warmup_steps:]
+    m = _np(outs.issued)[warmup_steps:]
+    return _resilience_dict(
+        requests=m.sum(), attempts=att.sum(),
+        timeouts=(att - (m & ~drop)).sum(), drops=(drop & m).sum())
+
+
+def _resilience_dict(*, requests, attempts, timeouts, drops) -> dict:
+    requests, attempts = float(requests), float(attempts)
+    timeouts, drops = float(timeouts), float(drops)
+    return {
+        "requests": requests,
+        "attempts": attempts,
+        "retries": attempts - requests,
+        "timeouts": timeouts,
+        "drops": drops,
+        "retry_rate": (attempts - requests) / max(requests, 1.0),
+        "timeout_rate": timeouts / max(attempts, 1.0),
+        "drop_rate": drops / max(requests, 1.0),
+    }
+
+
 # ---------------------------------------------------------------------------
 # Streaming readouts (MetricAccumulator / StepSeries).
 # ---------------------------------------------------------------------------
@@ -409,6 +436,38 @@ def cumulative_regret_series(series: StepSeries) -> np.ndarray:
 def variation_budget_stream(acc: MetricAccumulator) -> np.ndarray:
     """(K,) empirical V_k(T) partial sum (Def. 1)."""
     return _np(acc.vb_k)
+
+
+def resilience_stats_stream(acc: MetricAccumulator) -> dict:
+    """Post-warmup attempt, retry, timeout and drop counts and rates."""
+    return _resilience_dict(
+        requests=_np(acc.n_kc, np.float64).sum(),
+        attempts=_np(acc.att_k, np.float64).sum(),
+        timeouts=_np(acc.timeout_k, np.float64).sum(),
+        drops=_np(acc.drop_k, np.float64).sum())
+
+
+def breaker_open_fraction_stream(acc: MetricAccumulator) -> np.ndarray:
+    """(K, M) share of post-warmup steps each (player, arm) breaker was
+    open."""
+    steps = max(float(_np(acc.steps_measured)), 1.0)
+    return _np(acc.open_km, np.float64) / steps
+
+
+def goodput_offered_series(series: StepSeries, dt: float,
+                           window_steps: int) -> tuple[np.ndarray, np.ndarray]:
+    """Rolling (goodput, offered) req/s from the per-step streams:
+    requests that met their deadline, and every attempt on the wire
+    (retries included); the gap is work that satisfied nobody."""
+    succ = _np(series.succ, np.float64)
+    att = _np(series.attempts, np.float64)
+    T = len(succ)
+    cs_s = np.concatenate([[0.0], np.cumsum(succ)])
+    cs_a = np.concatenate([[0.0], np.cumsum(att)])
+    lo = np.maximum(0, np.arange(T) - window_steps + 1)
+    hi = np.arange(1, T + 1)
+    span = (hi - lo) * dt
+    return (cs_s[hi] - cs_s[lo]) / span, (cs_a[hi] - cs_a[lo]) / span
 
 
 # ---------------------------------------------------------------------------

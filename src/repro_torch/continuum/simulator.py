@@ -2,16 +2,17 @@
 
 Port of the single-service path of ``repro/continuum/simulator.py``:
 strategies ``qedgeproxy``, ``proxy_mity`` (any alpha) and
-``dec_sarsa``, drivers as compiled, unsharded, resilience / control /
-recorder / tenancy off, the fused round or the round scan, streaming
-metrics (``run_sim_stream``) or full trajectories (``run_sim``), one
+``dec_sarsa``, drivers as compiled, unsharded, recorder and tenancy
+off, the fused round or the round scan, streaming metrics
+(``run_sim_stream``) or full trajectories (``run_sim``), one
 simulation or S of them as lanes of one run (``run_sim_batch``,
-``run_sim_grid``). The instance model and the step are the
-reference's: every step of ``dt`` issues up to ``max_clients`` rounds
-of requests per load balancer; a request that finds q requests queued
-at instance m sees ``rtt + (q + 1) * s_m * Z`` with ``Z ~ LogNormal(0,
-proc_sigma^2)``; queues drain ``dt / (C * s_m)`` per round. Staggered
-Alg-1 maintenance runs for ~K / maint_every players per step.
+``run_sim_grid``), chunked horizons with checkpoint and resume. The
+instance model and the step are the reference's: every step of ``dt``
+issues up to ``max_clients`` rounds of requests per load balancer; a
+request that finds q requests queued at instance m sees ``rtt + (q +
+1) * s_m * Z`` with ``Z ~ LogNormal(0, proc_sigma^2)``; queues drain
+``dt / (C * s_m)`` per round. Staggered Alg-1 maintenance runs for ~K
+/ maint_every players per step.
 
 ``lax.scan`` becomes a host loop over steps that never waits on the
 card: the per-step placement-event flags come from the drivers on the
@@ -25,6 +26,24 @@ batched PyTorch (``kernels.ops.round_step_gumbel``). The round scan
 (``fused_round=False``, and always for ``dec_sarsa``, which reads its
 own state between rounds) is a host loop over the C rounds whose keys
 and noise are drawn for all rounds at once, before the loop.
+
+**Request lifecycle** (``attempt_timeout > 0``): each round makes up to
+1 + ``max_retries`` attempts per request. A timed-out attempt is
+observed as a censored latency (``core.bandit.censored_latency``), its
+instance keeps the work, and the retry re-routes over the current
+weights (``core.bandit.retry_pick``) after a backoff charged against
+the request's deadline; ``breaker_threshold`` opens per-(player, arm)
+circuit breakers. Every attempt's keys and noise are drawn before the
+round loop, and resilience runs the round scan, as in the reference.
+
+**Control plane** (``control=ControlConfig(...)``, streaming only): the
+``continuum.control`` state rides in the carry; at step start it turns
+the drivers into the effective liveness, admitted client slots and
+service row that everything downstream sees (the fused round kernel
+included), at step end it observes the fleet's QoS. An autoscaler's
+liveness is device data, so with ``managed`` standby instances the
+placement events run every step, masked to the lanes whose effective
+liveness moved.
 
 **Lanes.** ``jax.vmap`` over the reference's run becomes a leading lane
 axis carried through the step: S simulations (each its own base RTT,
@@ -46,6 +65,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.continuum import control as qc
 from repro_torch.continuum import metrics as qm
 from repro_torch.continuum import scenarios as qs
 from repro_torch.continuum.metrics import StepSeries, StreamOutputs
@@ -62,9 +82,18 @@ from repro_torch.kernels.ref import lane_of, lane_rows
 
 @dataclass(frozen=True)
 class SimConfig:
-    """Every field of the reference ``SimConfig``; on this path the
-    resilience, control, recorder and tenancy fields must stay
-    neutral."""
+    """Every field of the reference ``SimConfig``; the recorder and
+    tenancy fields must stay neutral.
+
+    Request lifecycle (off by default): an attempt past
+    ``attempt_timeout`` seconds is abandoned by the client and observed
+    as a censored latency; with ``max_retries`` > 0 it is retried on a
+    re-selected instance after ``retry_backoff * 2^(a-1)`` seconds, as
+    long as the elapsed budget stays inside tau (``retry_deadline=False``
+    drops that guard: the naive policy); ``breaker_threshold``
+    consecutive timeouts on one (player, arm) open a breaker for
+    ``breaker_cooldown`` seconds. ``control`` takes a
+    ``continuum.control.ControlConfig``."""
     dt: float = 0.1                  # step length [s] = client period
     horizon: float = 300.0           # simulated seconds
     maint_every: int = 10            # QEdgeProxy decision interval H_d [steps]
@@ -104,7 +133,7 @@ class SimConfig:
 
     @property
     def control_on(self) -> bool:
-        return self.control is not None and self.control.enabled
+        return qc.control_enabled(self)
 
     @property
     def recorder_on(self) -> bool:
@@ -130,10 +159,6 @@ def _check_main_path(cfg: SimConfig, pshard) -> None:
                              "drivers.s_m unscaled")
     if cfg.tenancy_on:
         raise _not_ported("the multi-tenant engine", "A9")
-    if cfg.resilience_on or cfg.max_retries or cfg.breaker_threshold:
-        raise _not_ported("request-lifecycle resilience", "A9")
-    if cfg.control_on:
-        raise _not_ported("the closed-loop control plane", "A9")
     if cfg.recorder_on:
         raise _not_ported("the flight recorder", "A9")
     if pshard is not None:
@@ -154,8 +179,8 @@ class SimOutputs(NamedTuple):
     true_mu: torch.Tensor      # (T, K, M) oracle success probabilities
     regret: torch.Tensor       # (T, K) per-step oracle regret
     eps: torch.Tensor          # (T, K) exploration rate (qedgeproxy) or 0
-    attempts: torch.Tensor     # (T, K, C) attempts per request (1 here)
-    dropped: torch.Tensor      # (T, K, C) always False here
+    attempts: torch.Tensor     # (T, K, C) attempts per request (1 + retries)
+    dropped: torch.Tensor      # (T, K, C) deadline exhausted without completing
 
 
 def _true_mu_tau(rtt, q, tau, sigma, service_time):
@@ -433,6 +458,13 @@ def _row(drawn, r: int):
     return drawn[r]
 
 
+def _by_attempt(drawn):
+    """Lane-major retry draws (S, C, A-1, K, ...) as (C, A-1, S·K, ...)."""
+    S, C, A1, K = drawn.shape[:4]
+    return drawn.permute(1, 2, 0, 3, *range(4, drawn.dim())).reshape(
+        C, A1, S * K, *drawn.shape[4:])
+
+
 def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 fused: bool, trace: bool, warmup_steps: int, pshard,
                 **strategy_kw):
@@ -443,13 +475,33 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     lane numbered across the lanes (lane s's player k is ``s·K + k``;
     sentinel ``S·K``); ``changed`` an (S,) numpy bool array; the queue
     and liveness (S, M), the accumulator and ``ys`` with a leading (S,)
-    axis."""
+    axis; the breaker (S·K, M) and the control carry in the lane layout
+    of ``continuum.control``."""
     _check_main_path(cfg, pshard)
+    res_on = cfg.attempt_timeout > 0.0
+    if not res_on and (cfg.max_retries or cfg.breaker_threshold):
+        raise ValueError(
+            "max_retries/breaker_threshold need attempt_timeout > 0: "
+            "the per-attempt timeout is the failure signal both "
+            "mechanisms respond to")
+    brk_on = res_on and cfg.breaker_threshold > 0
+    ctl_on = qc.control_enabled(cfg)
+    ccfg = cfg.control
+    if ctl_on and trace:
+        raise ValueError(
+            "the control plane is streaming-only: closed-loop runs are "
+            "fleet-scale by construction (set trace=False)")
+    # an autoscaler's liveness is device data: placement events then run
+    # every step, masked on the card, instead of from host flags
+    managed = ctl_on and ccfg.managed > 0
+    A = 1 + (cfg.max_retries if res_on else 0)
+    censor = (qb.censored_latency(cfg.attempt_timeout, cfg.tau)
+              if res_on else 0.0)
     T, C, SK = cfg.num_steps, cfg.max_clients, S * K
     strat = make_strategy(strategy_name, cfg, SK, M, **strategy_kw)
     batched_record = fused and "record_rings" in strat
     subset_maint = fused and "maintain_subset" in strat
-    fused_round_on = (cfg.fused_round and batched_record
+    fused_round_on = (cfg.fused_round and batched_record and not res_on
                       and "fused_round" in strat)
     feed = strat["record_feedback"] if batched_record else strat["record"]
     n_phases = max(cfg.maint_every, 1)
@@ -475,8 +527,11 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         acc = None if trace else qm.init_accumulator(
             K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
             device=dev, lanes=S)
+        brk = qb.breaker_init(SK, M, device=dev) if brk_on else None
+        ctl = (qc.control_init(ccfg, SK, M, lanes=S, device=dev)
+               if ctl_on else None)
         keys = prand.split(k_scan, T)
-        return (s0, q0, active0, acc, groups, pids, None, None, None), keys
+        return (s0, q0, active0, acc, groups, pids, brk, ctl, None), keys
 
     def round_scan(state, q, act, t, rtt_t, s_m, served, k_step, pids,
                    mask_all):
@@ -514,23 +569,164 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             state = strat["record_rings"](state, choices, lats, t, mask_all)
         return state, q, arrivals, choices, lats, procs
 
+    def resilient_scan(state, q, act, t, t_plus, rtt_t, s_m, served, k_step,
+                       pids, mask_all, brk):
+        """The C rounds with 1 + R attempts each: the breaker's veto,
+        censored observations, retries re-routed and backed off inside
+        the deadline, every attempt's arrivals on its round's queues.
+        Every key is drawn before the loop: round r's veto key is
+        ``fold_in(k_r, 101)``, attempt a's ``split(fold_in(k_r, 1000 +
+        a))`` (pick, noise), with ``k_r = fold_in(k_step, r)``."""
+        dev = q.device
+        k_r = prand.fold_in(k_step[..., None, :],
+                            torch.arange(C, device=dev))       # (S, C, 2)
+        ks = prand.split(k_r)
+        z = _noise(cfg, ks[..., 1, :], pids)
+        drawn = _by_round(strat["draw"](ks[..., 0, :], pids))
+        g_veto = (_by_round(prand.player_gumbel(prand.fold_in(k_r, 101),
+                                                pids, M)) if brk_on else None)
+        if A > 1:
+            k_a = prand.split(prand.fold_in(
+                k_r[..., None, :], 1000 + torch.arange(1, A, device=dev)))
+            g_retry = _by_attempt(prand.player_gumbel(k_a[..., 0, :], pids,
+                                                      M))
+            z_retry = _by_attempt(fmath.exp(
+                cfg.proc_sigma * prand.player_normal(k_a[..., 1, :], pids)))
+        open_at = t_plus(cfg.breaker_cooldown)
+        kidx = torch.arange(SK, device=dev)
+        lane = lane_of(SK, S, dev)
+        timeout = cfg.attempt_timeout
+
+        def attempt(choice, z_a):
+            q1s = (q[lane, choice] + 1.0) * s_m[lane, choice]
+            return q1s * z_a, fmath.fma(q1s, z_a, rtt_t[kidx, choice])
+
+        def arrive(m, choice):
+            return torch.zeros(S * M, dtype=torch.float32,
+                               device=dev).index_add_(
+                0, lane * M + choice, m.to(torch.float32)).reshape(S, M)
+
+        arrivals = torch.zeros(S, M, dtype=torch.float32, device=dev)
+        rows = [[] for _ in range(8)]
+        for r in range(C):
+            mask = mask_all[:, r]
+            choice, state = strat["select"](state, _row(drawn, r), t, act,
+                                            pids)
+            choice = choice.to(torch.int64)
+            if brk_on:
+                # the bandit's pick stands unless its breaker is open
+                choice = qb.breaker_veto(choice, brk, t,
+                                         strat["weights"](state), act,
+                                         g_veto[r], mask)
+            proc, lat = attempt(choice, z[r])
+            timed_out = mask & (lat > timeout)
+            obs = torch.where(timed_out, censor, lat)
+            # a censored sample clips the processing sketch at the timeout
+            proc_f = torch.where(timed_out, torch.clamp_max(proc, timeout),
+                                 proc)
+            elapsed = torch.where(mask, torch.clamp_max(lat, timeout), 0.0)
+            if brk_on:
+                brk = qb.breaker_update(brk, choice, timed_out, mask, t,
+                                        cfg.breaker_threshold,
+                                        cfg.breaker_cooldown, open_at)
+            state = feed(state, choice, obs, t, mask)
+            arr = arrive(mask, choice)
+            att_ch, att_obs, att_m = [choice], [obs], [mask]
+            completed = mask & ~timed_out
+            choice_f, pending = choice, timed_out
+            for a in range(1, A):
+                p = pending
+                backoff = cfg.retry_backoff * (2.0 ** (a - 1))
+                if cfg.retry_deadline:
+                    # no retry that cannot finish inside the deadline
+                    p = p & (elapsed + backoff < cfg.tau)
+                open_now = qb.breaker_is_open(brk, t) if brk_on else None
+                alt = qb.retry_pick(strat["weights"](state), act, choice_f,
+                                    open_now, g_retry[r, a - 1])
+                choice_a = torch.where(p, alt, choice_f)
+                proc_a, lat_a = attempt(choice_a, z_retry[r, a - 1])
+                to_a = p & (lat_a > timeout)
+                obs_a = torch.where(to_a, censor, lat_a)
+                elapsed = torch.where(
+                    p, elapsed + backoff + torch.clamp_max(lat_a, timeout),
+                    elapsed)
+                if brk_on:
+                    brk = qb.breaker_update(brk, choice_a, to_a, p, t,
+                                            cfg.breaker_threshold,
+                                            cfg.breaker_cooldown, open_at)
+                state = feed(state, choice_a, obs_a, t, p)
+                arr = arr + arrive(p, choice_a)
+                att_ch.append(choice_a)
+                att_obs.append(obs_a)
+                att_m.append(p)
+                choice_f = torch.where(p, choice_a, choice_f)
+                proc_f = torch.where(
+                    to_a, torch.clamp_max(proc_a, timeout),
+                    torch.where(p, proc_a, proc_f))
+                completed = completed | (p & ~to_a)
+                pending = to_a
+            # the client's latency: the elapsed budget when the request
+            # completed, the censor sentinel (> tau) when it dropped
+            lat_out = torch.where(completed, elapsed, censor)
+            att_n = sum(m.to(torch.int32) for m in att_m)
+            q = torch.clamp_min(q + arr - served, 0.0)
+            arrivals = arrivals + arr            # integer-valued: order-free
+            for buf, y in zip(rows, (choice_f, lat_out, proc_f, att_n,
+                                     mask & ~completed, torch.stack(att_ch),
+                                     torch.stack(att_obs),
+                                     torch.stack(att_m))):
+                buf.append(y)
+        chf, lat, proc, att, drop, ach, aobs, am = (torch.stack(b)
+                                                    for b in rows)
+        if batched_record:
+            # all C·A attempts in the step's one ring scatter, round-major
+            # and attempt-minor
+            def cols(x):
+                return x.permute(2, 0, 1).reshape(SK, C * A)
+            state = strat["record_rings"](state, cols(ach), cols(aobs), t,
+                                          cols(am))
+        return (state, q, arrivals, chf.T.to(torch.int32),
+                lat.T.contiguous(), proc.T.contiguous(), att.T.contiguous(),
+                drop.T.contiguous(), brk)
+
     def step_fn(rtt, marks, carry, xs, changed):
         state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
         t_idx, nc, act, rtt_scale, cut_k, cut_m, s_m, k_step, group = xs
         dev = rtt.device
         t_host = float(np.float32(t_idx) * dt32)
         t = torch.full((), t_host, dtype=torch.float32, device=dev)
+        nc = nc.reshape(SK)
+
+        def t_plus(c: float) -> float:
+            # ``t + c`` as the reference's compiler rounds it: one FMA
+            # of t_idx * dt + c
+            return float(np.float32(np.float64(np.float32(t_idx))
+                                    * np.float64(dt32)
+                                    + np.float64(np.float32(c))))
+
+        # control plane: the effective drivers for everything downstream;
+        # ``nc`` becomes the admitted slots, ``nc_sched`` the demand
+        if ctl_on:
+            nc_sched = nc
+            ctl, act, nc, s_m, _ = qc.control_actuate(
+                ccfg, cfg.dt, t_host, ctl, q, act, nc, s_m,
+                1.0 if t_idx >= warmup_steps else 0.0, t_plus)
 
         # effective RTT and service rows for this step, the players of
         # every lane as rows
         rtt_t = (rtt * rtt_scale[:, None, :] + torch.minimum(
             cut_k[:, :, None], cut_m[:, None, :])).reshape(SK, M)
 
-        # placement events (paper Alg 3/4), flagged on the host per lane;
-        # each strategy moves only the lanes whose liveness changed
-        if changed.any():
-            state = strat["on_activity"](state, act, rtt_t, t,
-                                         torch.as_tensor(changed, device=dev))
+        # placement events (paper Alg 3/4): each strategy moves only the
+        # lanes whose liveness changed, flagged on the host per lane, or
+        # on the card every step under an autoscaler; liveness flips
+        # also clear the arms' breakers
+        if managed or changed.any():
+            moved = ((act != prev_active).any(-1) if managed
+                     else torch.as_tensor(changed, device=dev))
+            state = strat["on_activity"](state, act, rtt_t, t, moved)
+            if brk_on:
+                brk = qb.breaker_reset_arms(brk, act != prev_active)
 
         # maintenance: only the player group whose clock fires
         if subset_maint:
@@ -545,24 +741,47 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         w_now = strat["weights"](state)
         reg = step_regret(w_now, mu_true, act)
         q_start = q
-        nc = nc.reshape(SK)
-        mask_all = torch.arange(C, device=dev)[None, :] < nc[:, None]
+        mask_adm = torch.arange(C, device=dev)[None, :] < nc[:, None]
+        mask_all = (torch.arange(C, device=dev)[None, :] < nc_sched[:, None]
+                    if ctl_on else mask_adm)
         served_per_round = torch.full_like(s_m, cfg.dt) / (C * s_m)
+        brk_open = None
 
-        if fused_round_on:
-            state, q, arrivals, choices, lats, procs = strat["fused_round"](
-                state, q, nc, act, t_host, rtt_t, s_m, served_per_round,
-                k_step, pids)
+        if res_on:
+            if brk_on:
+                brk_open = qb.breaker_is_open(brk, t).reshape(S, K, M)
+            (state, q, arrivals, choices, lats, procs, att_kc, dropped,
+             brk) = resilient_scan(state, q, act, t, t_plus, rtt_t, s_m,
+                                   served_per_round, k_step, pids, mask_adm,
+                                   brk)
         else:
-            state, q, arrivals, choices, lats, procs = round_scan(
-                state, q, act, t, rtt_t, s_m, served_per_round, k_step,
-                pids, mask_all)
-        att_kc = mask_all.to(torch.int32).reshape(S, K, C)
+            if fused_round_on:
+                state, q, arrivals, choices, lats, procs = \
+                    strat["fused_round"](state, q, nc, act, t_host, rtt_t,
+                                         s_m, served_per_round, k_step, pids)
+            else:
+                state, q, arrivals, choices, lats, procs = round_scan(
+                    state, q, act, t, rtt_t, s_m, served_per_round, k_step,
+                    pids, mask_adm)
+            att_kc = mask_adm.to(torch.int32)
+            dropped = torch.zeros_like(mask_all)
+        served_kc = None
+        if ctl_on and ccfg.admit:
+            # admission-shed slots: issued misses from the client's view,
+            # never served: censored to inf, dropped with no attempt, out
+            # of the routing and latency statistics
+            shed_kc = mask_all & ~mask_adm
+            lats = torch.where(shed_kc, torch.inf, lats)
+            dropped = dropped | shed_kc
+            served_kc = mask_adm.reshape(S, K, C)
+        att_kc = att_kc.reshape(S, K, C)
+        dropped = dropped.reshape(S, K, C)
         rewards = (lats <= cfg.tau).to(torch.float32).reshape(S, K, C)
         mask_kc = mask_all.reshape(S, K, C)
         choices, lats = choices.reshape(S, K, C), lats.reshape(S, K, C)
         procs = procs.reshape(S, K, C)
         reg = reg.reshape(S, K)
+        issf = mask_kc.to(torch.float32)
         if trace:
             ys = SimOutputs(
                 rewards=rewards, issued=mask_kc, choices=choices,
@@ -570,7 +789,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 queue=q_start, weights=w_now.reshape(S, K, M),
                 true_mu=mu_true.reshape(S, K, M), regret=reg,
                 eps=strat["eps"](state).reshape(S, K), attempts=att_kc,
-                dropped=torch.zeros_like(mask_kc))
+                dropped=dropped)
         else:
             acc = qm.update_accumulator(
                 acc, rewards=rewards, issued=mask_kc, choices=choices,
@@ -578,11 +797,19 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 mu=mu_true.reshape(S, K, M), t_idx=t_idx,
                 warmup_steps=warmup_steps, marks=marks,
                 ev_pre_steps=ev_pre_steps, ev_bucket_steps=ev_bucket_steps,
-                attempts=att_kc, dropped=torch.zeros_like(mask_kc))
-            issf = mask_kc.to(torch.float32)
+                attempts=att_kc, dropped=dropped, brk_open=brk_open,
+                served=served_kc)
             ys = StepSeries(succ=(rewards * issf).sum((1, 2)),
                             issued=issf.sum((1, 2)), regret=reg.sum(-1),
                             attempts=att_kc.to(torch.float32).sum((1, 2)))
+        if ctl_on:
+            # step-end feedback: the fleet's QoS and timeout totals
+            attf = att_kc.to(torch.float32)
+            compl = issf * (1.0 - dropped.to(torch.float32))
+            obs = torch.stack([(rewards * issf).sum((1, 2)), issf.sum((1, 2)),
+                               (attf - compl).sum((1, 2)), attf.sum((1, 2))],
+                              -1)
+            ctl = qc.control_observe(ccfg, ctl, obs, cfg.dt)
         return (state, q, act, acc, groups, pids, brk, ctl, rec), ys
 
     return init_fn, step_fn
@@ -618,8 +845,9 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
     writes and subset maintenance but runs the C rounds as a scan
     instead of one fused call. The carry is the reference's 9 slots
     ``(state, queue, prev_active, acc, groups, pids, breaker, control,
-    recorder)``; ``acc`` is None in trace mode and the last three are
-    None on this path.
+    recorder)`` in the reference's layout; ``acc`` is None in trace
+    mode, ``breaker`` unless breakers are on, ``control`` unless a
+    control mechanism is, and ``recorder`` always.
     """
     init1, step1 = _lane_parts(strategy_name, cfg, K, M, 1, fused, trace,
                                warmup_steps, pshard, **strategy_kw)
@@ -631,14 +859,16 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
         return None if x is None else type(x)(*(v[0] for v in x))
 
     def to_lanes(carry):
-        state, q, prev, acc, *rest = carry
+        state, q, prev, acc, groups, pids, brk, ctl, rec = carry
         return (_with_active(state, lambda a: a[None]), q[None], prev[None],
-                one(acc), *rest)
+                one(acc), groups, pids, brk,
+                None if ctl is None else qc.with_lane_axis(ctl), rec)
 
     def from_lanes(carry):
-        state, q, prev, acc, *rest = carry
+        state, q, prev, acc, groups, pids, brk, ctl, rec = carry
         return (_with_active(state, lambda a: a[0]), q[0], prev[0],
-                first(acc), *rest)
+                first(acc), groups, pids, brk,
+                None if ctl is None else qc.without_lane_axis(ctl), rec)
 
     def init_fn(rtt, active0, key, pids=None):
         carry, keys = init1(rtt[None], active0[None], key[None], pids)
@@ -712,9 +942,19 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
         host = [buf.cpu().movedim(0, 1).contiguous() for buf in rows]
         if trace:
             return SimOutputs(*host)
-        return StreamOutputs(acc=carry[3], series=StepSeries(*host))
+        return StreamOutputs(acc=carry[3], series=StepSeries(*host),
+                             ctrl=_lane_counters(carry[7], S))
 
     return run
+
+
+def _lane_counters(ctl, S: int):
+    """A lane-batched control carry's counters with every field's
+    leading axis the lanes (``shed_k`` (S, K)), for ``metrics.lane``."""
+    if ctl is None:
+        return None
+    cnt = ctl.counters
+    return cnt._replace(shed_k=cnt.shed_k.reshape(S, -1))
 
 
 def build_sim_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
@@ -877,6 +1117,45 @@ def run_sim_grid(
     return run_grid(rtts, drv, keys)
 
 
+def build_sim_chunks(strategy_name: str, cfg: SimConfig, K: int, M: int,
+                     fused: bool = True, warmup_steps: int = 0,
+                     **strategy_kw):
+    """Chunked-horizon streaming: ``(init_fn, chunk_fn)``.
+
+    ``init_fn`` is ``build_sim_parts``'s. ``chunk_fn(rtt, carry, t_idx,
+    drivers, keys, service_time=None) -> (carry, StepSeries)`` runs the
+    steps ``t_idx`` (global indices, a range or a tensor) on
+    ``drivers``, a ``scenarios.slice_drivers`` slice over them, and
+    ``keys``, the same slice of ``init_fn``'s per-step keys; the series
+    are device tensors of the chunk's length. Chunks in order equal the
+    whole horizon's run bit for bit: a chunk's first placement flag is
+    read from the carry (one host read a chunk)."""
+    init_fn, step_fn = build_sim_parts(
+        strategy_name, cfg, K, M, fused=fused, trace=False,
+        warmup_steps=warmup_steps, **strategy_kw)
+    n_phases = max(cfg.maint_every, 1)
+
+    def chunk_fn(rtt, carry, t_idx, drivers: Drivers, keys,
+                 service_time=None):
+        if service_time is not None:
+            drivers = drivers._replace(
+                s_m=torch.full_like(drivers.s_m, service_time))
+        steps = [int(i) for i in t_idx]
+        a = drivers.active.cpu().numpy()
+        prev = np.concatenate([carry[2].cpu().numpy()[None], a[:-1]])
+        changed = (a != prev).any(-1)
+        rows = []
+        for i, ti in enumerate(steps):
+            xs = (ti, *(getattr(drivers, f)[i] for f in qs.STEP_FIELDS),
+                  keys[i], carry[4][ti % n_phases])
+            carry, ys = step_fn(rtt, drivers.marks, carry, xs,
+                                bool(changed[i]))
+            rows.append(ys)
+        return carry, StepSeries(*(torch.stack(c) for c in zip(*rows)))
+
+    return init_fn, chunk_fn
+
+
 def run_sim_stream(
     strategy_name: str,
     rtt,                          # (K, M) base LB->instance RTT [s]
@@ -900,18 +1179,86 @@ def run_sim_stream(
     Runs on ``device`` (default ``cuda``); ``rtt``, ``key`` and the
     drivers move there. ``key`` is a ``(2,)`` tensor of uint32 words
     (``prand.prng_key(seed)``, or ``convert.key_to_torch`` of a JAX
-    key) or an integer seed. Chunked horizons with checkpointing and
-    player meshes are not ported yet and raise.
+    key) or an integer seed. ``ctrl`` of the result holds the control
+    counters when ``cfg.control`` is on.
+
+    ``chunk_steps`` drives the horizon in chunks of that many steps
+    (``build_sim_chunks``); chunked and unchunked runs follow the same
+    steps on the same keys and are equal bit for bit.
+    ``checkpoint_dir`` commits the carry and the series drained so far
+    every ``checkpoint_every`` chunks (``checkpoint.Checkpointer``:
+    snapshot on the caller's thread, written in the background);
+    ``resume=True`` restarts from the directory's latest checkpoint (an
+    empty directory is a cold start) and equals the uninterrupted run
+    exactly. ``stop_at_step`` halts at the first chunk boundary at or
+    past that step and returns the partial result. All three need
+    ``chunk_steps`` < the horizon. Player meshes are not ported.
     """
-    if chunk_steps is not None and chunk_steps < cfg.num_steps:
-        raise _not_ported("chunked horizons (chunk_steps)", "A8")
     if mesh is not None:
         raise _not_ported("player meshes", "A10")
-    if checkpoint_dir is not None or resume or stop_at_step is not None:
-        raise _not_ported("checkpoint/resume", "A8")
     dev, rtt, key = _inputs(rtt, key, device)
     K, M = rtt.shape
+    T = cfg.num_steps
     drv = _resolve_drivers(cfg, K, M, drivers, n_clients, active, dev)
-    run = build_sim_fn(strategy_name, cfg, K, M, trace=False,
-                       warmup_steps=warmup_steps, **strategy_kw)
-    return run(rtt, drv, key)
+    if chunk_steps is None or chunk_steps >= T:
+        if checkpoint_dir is not None or stop_at_step is not None:
+            raise ValueError(
+                "checkpoint_dir/resume/stop_at_step need the chunked "
+                "loop: pass chunk_steps < num_steps")
+        run = build_sim_fn(strategy_name, cfg, K, M, trace=False,
+                           warmup_steps=warmup_steps, **strategy_kw)
+        return run(rtt, drv, key)
+
+    init_fn, chunk_fn = build_sim_chunks(
+        strategy_name, cfg, K, M, warmup_steps=warmup_steps, **strategy_kw)
+    carry, keys = init_fn(rtt, drv.active[0], key)
+    ckpt = None
+    start = 0
+    parts: list = []                 # device series of chunks not drained
+    done: StepSeries | None = None   # host series drained so far
+    if checkpoint_dir is not None:
+        from repro_torch.checkpoint import Checkpointer, config_hash
+        ckpt = Checkpointer(checkpoint_dir)
+        meta = {"config_hash": config_hash(cfg), "horizon_steps": int(T)}
+        if resume and ckpt.latest_step() is not None:
+            # the fresh carry is the structure; the series keeps the
+            # length it was saved with
+            template = {"carry": carry, "series": StepSeries(
+                *(np.zeros(0, np.float32) for _ in StepSeries._fields))}
+            restored, start = ckpt.restore(template)
+            carry, done = restored["carry"], restored["series"]
+
+    def drain() -> StepSeries | None:
+        """Fold the pending device chunks into the host series."""
+        nonlocal parts, done
+        if parts:
+            prev = [done] if done is not None else []
+            host = [StepSeries(*(x.cpu().numpy() for x in p)) for p in parts]
+            done = StepSeries(*(np.concatenate([getattr(p, f)
+                                                for p in prev + host])
+                                for f in StepSeries._fields))
+            parts = []
+        return done
+
+    chunks_done = 0
+    for lo in range(start, T, chunk_steps):
+        if stop_at_step is not None and lo >= stop_at_step:
+            break
+        hi = min(lo + chunk_steps, T)
+        carry, ys = chunk_fn(rtt, carry, range(lo, hi),
+                             qs.slice_drivers(drv, lo, hi), keys[lo:hi])
+        parts.append(ys)
+        chunks_done += 1
+        if (ckpt is not None and hi < T
+                and chunks_done % checkpoint_every == 0):
+            ckpt.save(hi, {"carry": carry, "series": drain()},
+                      blocking=False, meta=meta)
+    series = drain() or StepSeries(
+        *(np.zeros(0, np.float32) for _ in StepSeries._fields))
+    if ckpt is not None:
+        ckpt.wait()
+    series = StepSeries(*(torch.from_numpy(np.ascontiguousarray(x))
+                          for x in series))
+    ctl = carry[7]
+    return StreamOutputs(acc=carry[3], series=series,
+                         ctrl=None if ctl is None else ctl.counters)

@@ -13,7 +13,9 @@ or a raw ``PRNGKey``), and the port keeps key words in int64 (see
 ``BanditState`` converts to the port's ``BanditState``, and the
 baselines' strategy states (the reference defines them inside its
 strategy adapters) to the port's ``simulator.PMState`` (proxy-mity)
-and ``simulator.DSState`` (Dec-SARSA, with its ``DecSarsaState``).
+and ``simulator.DSState`` (Dec-SARSA, with its ``DecSarsaState``); the
+breaker's ``BreakerState`` and the control plane's ``ControlCarry``
+(``ControlState``, ``ControlCounters``) likewise.
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
 ``init_params`` pytree (as numpy, layers stacked on a leading L axis)
@@ -25,16 +27,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.continuum.control import (ControlCarry, ControlCounters,
+                                           ControlState)
 from repro_torch.continuum.metrics import MetricAccumulator
 from repro_torch.continuum.scenarios import Drivers
 from repro_torch.continuum.simulator import DSState, PMState
-from repro_torch.core.bandit import BanditState
+from repro_torch.core.bandit import BanditState, BreakerState
 from repro_torch.core.baselines import DecSarsaState
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import Model, build_model
 
 # The step carry's 9 slots, as the reference's ``build_sim_parts`` lays
-# them out; the last three are None on the ported path.
+# them out; the recorder's is None on the ported path.
 CARRY_SLOTS = ("state", "queue", "prev_active", "acc", "groups", "pids",
                "breaker", "control", "recorder")
 
@@ -67,7 +71,9 @@ def key_to_numpy(key: torch.Tensor) -> np.ndarray:
 
 # the NamedTuples a carry can hold, by their field names
 _TUPLES = {cls._fields: cls for cls in (BanditState, PMState, DSState,
-                                        DecSarsaState)}
+                                        DecSarsaState, BreakerState,
+                                        ControlCarry, ControlState,
+                                        ControlCounters)}
 
 
 def _tuple_to_torch(cls, x, device):
@@ -110,32 +116,51 @@ def drivers_to_torch(drv, device=None) -> Drivers:
     return _tuple_to_torch(Drivers, drv, device)
 
 
+def breaker_to_torch(brk, device=None) -> BreakerState:
+    return _tuple_to_torch(BreakerState, brk, device)
+
+
+def control_to_torch(ctl, device=None):
+    """A ``ControlCarry``, or its ``ControlCounters`` alone (the
+    ``ctrl`` of a reference ``StreamOutputs``), in the reference's
+    layout (one controller, no lane axis)."""
+    cls = ControlCarry if ctl._fields == ControlCarry._fields \
+        else ControlCounters
+    return _tuple_to_torch(cls, ctl, device)
+
+
 def carry_to_torch(carry, device=None) -> tuple:
     """The 9-slot step carry ``(state, queue, prev_active, acc, groups,
     pids, breaker, control, recorder)`` of any strategy, streaming
-    (``acc`` set) or trace mode (``acc`` None); the last three must be
-    None (resilience, control and the recorder are not ported)."""
+    (``acc`` set) or trace mode (``acc`` None), with or without the
+    breaker and control slots; the recorder's must be None (not
+    ported)."""
     if len(carry) != len(CARRY_SLOTS):
         raise ValueError(f"a step carry has {len(CARRY_SLOTS)} slots")
-    state, q, prev_active, acc, groups, pids, *rest = carry
-    if any(r is not None for r in rest):
-        raise NotImplementedError("breaker/control/recorder carry slots are "
-                                  "not ported (ROADMAP A9)")
+    state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
+    if rec is not None:
+        raise NotImplementedError("the recorder carry slot is not ported "
+                                  "(ROADMAP A9)")
     return (strategy_state_to_torch(state, device),
             array_to_torch(q, device),
             array_to_torch(prev_active, device),
             None if acc is None else accumulator_to_torch(acc, device),
             array_to_torch(groups, device), array_to_torch(pids, device),
-            None, None, None)
+            None if brk is None else breaker_to_torch(brk, device),
+            None if ctl is None else control_to_torch(ctl, device),
+            None)
 
 
 def carry_to_numpy(carry) -> tuple:
     """The port's step carry as numpy arrays, in the same 9 slots."""
-    state, q, prev_active, acc, groups, pids, *rest = carry
+    state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
+
+    def tup(x):
+        return None if x is None else _tuple_to_numpy(x)
+
     return (_tuple_to_numpy(state), array_to_numpy(q),
-            array_to_numpy(prev_active),
-            None if acc is None else _tuple_to_numpy(acc),
-            array_to_numpy(groups), array_to_numpy(pids), *rest)
+            array_to_numpy(prev_active), tup(acc), array_to_numpy(groups),
+            array_to_numpy(pids), tup(brk), tup(ctl), rec)
 
 
 def _flatten(tree, prefix: str = ""):

@@ -5,16 +5,25 @@ QoS estimation (``kde.py``), SWRR routing (``swrr.py``), oracle regret
 from repro_torch.core.bandit import (
     BanditParams,
     BanditState,
+    BreakerState,
+    breaker_init,
+    breaker_is_open,
+    breaker_reset_arms,
+    breaker_update,
+    breaker_veto,
+    censored_latency,
     init_state,
     instance_added,
     instance_removed,
     keep_lanes,
     maintenance,
+    masked_pick,
     maintenance_subset,
     record,
     record_batch,
     record_feedback,
     record_rings_batch,
+    retry_pick,
     select,
     sync_active,
 )
@@ -29,7 +38,10 @@ from repro_torch.core.oracle import oracle_weights, step_regret, variation_budge
 from repro_torch.core.swrr import swrr_select
 
 __all__ = [
-    "BanditParams", "BanditState", "init_state", "select", "record",
+    "BanditParams", "BanditState", "BreakerState", "breaker_init",
+    "breaker_is_open", "breaker_reset_arms", "breaker_update",
+    "breaker_veto", "censored_latency", "masked_pick", "retry_pick",
+    "init_state", "select", "record",
     "record_batch", "record_feedback", "record_rings_batch", "maintenance",
     "maintenance_subset", "instance_added", "instance_removed", "keep_lanes",
     "sync_active", "kde_success_prob", "empirical_success_prob",

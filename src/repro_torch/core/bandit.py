@@ -1,10 +1,11 @@
-"""QEdgeProxy MP-MAB core (paper §IV–V, Algorithms 1–4), main-path subset.
+"""QEdgeProxy MP-MAB core (paper §IV–V, Algorithms 1–4).
 
 Port of ``repro/core/bandit.py``: the state, the request path (SWRR
-selection, feedback, ring writes), Alg-1 maintenance and the Alg 3/4
-placement events. The state factorizes over players (load balancers);
-every reduction is over the trailing per-player axes. The breaker and
-retry helpers of the reference wait for the resilience layer.
+selection, feedback, ring writes), the request lifecycle's circuit
+breakers, vetoed and retried picks and censored observations, Alg-1
+maintenance and the Alg 3/4 placement events. The state factorizes
+over players (load balancers); every reduction is over the trailing
+per-player axes.
 
 State layout (R = ring-buffer capacity per (player, arm)):
   lat_buf (K,M,R) f32   end-to-end latency samples
@@ -41,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import kde as kde_mod
-from repro_torch.core import prand
+from repro_torch.core import fmath, prand
 from repro_torch.core.swrr import swrr_select
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
@@ -271,6 +272,129 @@ def record_batch(state: BanditState, params: BanditParams,
         state = record_feedback(state, params, choices[:, c],
                                 latencies[:, c], t, mask[:, c])
     return state
+
+
+# ---------------------------------------------------------------------------
+# Request-lifecycle resilience: circuit breakers + censored observations.
+#
+# An Envoy-style breaker sits between the balancer and the wire: an arm
+# whose last ``threshold`` attempts all timed out is ejected for
+# ``cooldown`` seconds and traffic re-routes over the remaining pool;
+# after the cooldown one half-open probe is admitted, a further timeout
+# re-trips it and a success closes it. The state is (players, M), no
+# cross-player terms; with lanes its rows are the players of every lane
+# and ``active`` is (S, M).
+# ---------------------------------------------------------------------------
+
+class BreakerState(NamedTuple):
+    """Per-(player, arm) circuit breaker state.
+
+    fails      (K, M) i32  consecutive timed-out attempts
+    open_until (K, M) f32  ejected until this sim time (NEG_INF = closed)
+    """
+    fails: torch.Tensor
+    open_until: torch.Tensor
+
+
+def breaker_init(num_players: int, num_arms: int, device=None) -> BreakerState:
+    dev = resolve_device(device)
+    return BreakerState(
+        fails=torch.zeros(num_players, num_arms, dtype=_I32, device=dev),
+        open_until=torch.full((num_players, num_arms), NEG_INF, dtype=_F32,
+                              device=dev))
+
+
+def breaker_is_open(brk: BreakerState, t) -> torch.Tensor:
+    """(K, M) bool: arm currently ejected for this player."""
+    return _time(t, brk.open_until) < brk.open_until
+
+
+def breaker_update(brk: BreakerState, choice: torch.Tensor,
+                   timed_out: torch.Tensor, attempted: torch.Tensor, t,
+                   threshold: int, cooldown: float,
+                   open_at=None) -> BreakerState:
+    """Advance the breaker after one attempt per player: a success
+    closes it (counter and ejection cleared), a timeout counts and at
+    ``threshold`` opens the arm for ``cooldown`` seconds, leaving the
+    counter at ``threshold - 1`` so the half-open probe re-trips on one
+    failure. ``open_at`` overrides ``t + cooldown`` with the caller's
+    own rounding of that sum."""
+    K = brk.fails.shape[0]
+    ch = choice.to(torch.int64)
+    kidx = torch.arange(K, device=ch.device)
+    old_f = brk.fails[kidx, ch]
+    new_f = torch.where(timed_out, old_f + 1, 0).to(_I32)
+    trip = attempted & (new_f >= threshold)
+    new_f = torch.where(trip, threshold - 1, new_f).to(_I32)
+    old_ou = brk.open_until[kidx, ch]
+    if open_at is None:
+        open_at = _time(t, old_ou) + cooldown
+    new_ou = torch.where(trip, open_at,
+                         torch.where(timed_out, old_ou, NEG_INF))
+    return BreakerState(
+        fails=brk.fails.index_put((kidx, ch),
+                                  torch.where(attempted, new_f, old_f)),
+        open_until=brk.open_until.index_put(
+            (kidx, ch), torch.where(attempted, new_ou, old_ou)))
+
+
+def breaker_reset_arms(brk: BreakerState, changed: torch.Tensor) -> BreakerState:
+    """Clear the breaker columns of arms whose liveness changed (Alg 3/4
+    purge the arm's bandit data the same way); ``changed`` is (M,) or
+    (S, M)."""
+    row = lane_rows(changed, brk.fails.shape[0])
+    return BreakerState(fails=torch.where(row, 0, brk.fails).to(_I32),
+                        open_until=torch.where(row, NEG_INF, brk.open_until))
+
+
+def masked_pick(weights: torch.Tensor, ok: torch.Tensor,
+                gumbel: torch.Tensor) -> torch.Tensor:
+    """(K,) weighted sample over the arms ``ok`` allows (Gumbel trick):
+    argmax of ``log(w + 1e-30) + g`` restricted to ``ok``, the log as
+    the reference's compiler rounds it (``fmath.log``)."""
+    score = fmath.log(weights + 1e-30) + gumbel
+    return torch.argmax(torch.where(ok, score, NEG_INF), dim=-1)
+
+
+def breaker_veto(choice: torch.Tensor, brk: BreakerState, t,
+                 weights: torch.Tensor, active: torch.Tensor,
+                 gumbel: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Re-route a pick whose arm is open to a weighted pick over closed
+    active arms; fails open (no veto) when every active arm is open."""
+    K = weights.shape[0]
+    act = lane_rows(active, K)
+    open_now = breaker_is_open(brk, t)
+    ok = act & ~open_now
+    ok = torch.where(ok.any(-1, keepdim=True), ok, act)
+    alt = masked_pick(weights, ok, gumbel)
+    ch = choice.to(torch.int64)
+    blocked = mask & open_now[torch.arange(K, device=ch.device), ch]
+    return torch.where(blocked, alt, ch)
+
+
+def retry_pick(weights: torch.Tensor, active: torch.Tensor,
+               avoid: torch.Tensor, open_now: torch.Tensor | None,
+               gumbel: torch.Tensor) -> torch.Tensor:
+    """A retry's arm: weighted pick over active, breaker-closed arms but
+    the one that just failed; drops the breaker constraint when nothing
+    is closed, and retries the failed arm when it is the only active
+    one."""
+    K, M = weights.shape
+    act = lane_rows(active, K)
+    ok = act & (torch.arange(M, device=weights.device)[None, :]
+                != avoid.to(torch.int64)[:, None])
+    if open_now is not None:
+        okb = ok & ~open_now
+        ok = torch.where(okb.any(-1, keepdim=True), okb, ok)
+    ok = torch.where(ok.any(-1, keepdim=True), ok, act)
+    return masked_pick(weights, ok, gumbel)
+
+
+def censored_latency(attempt_timeout: float, tau: float) -> float:
+    """The observation a timed-out attempt records: its lower bound
+    pushed past the QoS threshold, so the KDE sees a miss (the safe
+    direction for a balancer)."""
+    return max(float(attempt_timeout), float(tau)) + float(tau)
 
 
 # ---------------------------------------------------------------------------

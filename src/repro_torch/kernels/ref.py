@@ -66,8 +66,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token per head against the first ``length[b]`` cache
     slots of batch row b. (B, Hq, D) in q's dtype; a row with length 0
-    gets a uniform average over its S slots, as the reference's softmax
-    over all-masked logits does (the kernel returns zeros there)."""
+    is zeros, as the TPU kernel and the CUDA kernel give (a softmax over
+    all-masked logits would average V)."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -78,6 +78,7 @@ def decode_attention(
     p = torch.softmax(torch.where(valid[:, None, None, :], logits, _NEG),
                       dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    out = torch.where((length > 0)[:, None, None, None], out, 0.0)
     return out.reshape(B, Hq, D).to(q.dtype)
 
 

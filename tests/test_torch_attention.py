@@ -310,9 +310,26 @@ def test_split_combine_rule_vs_reference(case, dtype, oracle):
     check(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_gives_the_tpu_kernels_zeros_for_length_zero(dtype):
+    # a row of length 0 beside a full one: the plain version gives the
+    # TPU kernel's answer (zeros), the full row its attention
+    B, Hq, Hkv, S, D = 2, 4, 2, 40, 16
+    q, k, v = arrays([(B, Hq, D), (B, Hkv, S, D), (B, Hkv, S, D)], dtype, 12)
+    length = np.asarray([0, S], np.int32)
+    want = jdec.decode_attention(*(to_jax(a, dtype) for a in (q, k, v)),
+                                 jnp.asarray(length), block_k=BLOCK,
+                                 interpret=True)
+    assert not np.asarray(want.astype(jnp.float32))[0].any()
+    got = ref.decode_attention(*(to_torch(a, dtype) for a in (q, k, v)),
+                               torch.from_numpy(length))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    check(got, want, dtype)
+
+
 def test_split_combine_rule_gives_zeros_for_length_zero():
     # every split of the row is empty: L = 0 and the output is exactly 0,
-    # as the TPU kernel gives (the plain version averages V there)
+    # as the TPU kernel and the plain version give
     q, k, v = arrays([(2, 4, 16), (2, 2, 130, 16), (2, 2, 130, 16)],
                      "float32", 9)
     length = torch.tensor([0, 70], dtype=torch.int32)

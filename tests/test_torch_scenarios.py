@@ -16,8 +16,15 @@ JAX package's (live JAX calls on the CPU).
   reference's ``obs.registry.stream_cell`` on the reference's lanes, a
   degenerate event included, and ``get_scenario_suite`` /
   ``scenario_rows`` give the reference's rows for ``proxy_mity_1.0``.
+* The graceful-degradation and closed-loop lanes: their constants are
+  the reference's; ``graceful_degradation`` / ``closed_loop`` of
+  converted reference runs equal the reference's ``stream_cell`` with
+  the switches ``benchmarks/scenario_suite.py`` gives each policy (the
+  breakers' open share within float32 reassociation), and their key
+  sets are the committed reference payload's.
 """
 import dataclasses
+import json
 import math
 import warnings
 
@@ -226,9 +233,16 @@ def test_stack_drivers_and_batched_conversion():
 def test_scenario_suite_constants_match_the_reference():
     assert tsuite.SMOKE_SCENARIOS == bsuite.SMOKE_SCENARIOS
     assert tsuite.SUITE_STRATEGIES == bsuite.SUITE_STRATEGIES
-    for fn in (tsuite.graceful_degradation, tsuite.closed_loop):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            fn({})
+    for name in ("DEGRADE_SCENARIOS", "SMOKE_DEGRADE_SCENARIOS",
+                 "DEGRADE_POLICIES", "DEGRADE_TAU", "CONTROL_SCENARIOS",
+                 "SMOKE_CONTROL_SCENARIOS", "CONTROL_STANDBY", "CONTROL_RES"):
+        assert getattr(tsuite, name) == getattr(bsuite, name), name
+    assert [label for label, _ in tsuite.CONTROL_POLICIES] == \
+        [label for label, _ in bsuite.CONTROL_POLICIES]
+    for (_, a), (_, b) in zip(tsuite.CONTROL_POLICIES,
+                              bsuite.CONTROL_POLICIES):
+        assert (a is None and b is None) or \
+            dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 # ---------------------------------------------------------------------------
@@ -386,3 +400,84 @@ def test_scenario_suite_rows_match_the_reference():
         timing = suite["timings"][label]
         assert timing["lanes"] == len(suite["names"])
         assert timing["grid_steps_per_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The graceful-degradation and closed-loop lanes.
+# ---------------------------------------------------------------------------
+
+PAYLOAD = "results/benchmarks/scenario_suite.json"
+# recovery keys that appear only where an event recovered in the horizon
+RECOVERY_KEYS = {"max_recovery_s"}
+
+
+def _lane_run(knobs, control, standby, key):
+    """One reference ``retry_storm`` run at 6 x 4 (+ standby), 3 s."""
+    K, M = 6, 4
+    cfg = js.SimConfig(horizon=3.0, max_clients=4, ring=16, **knobs,
+                       control=control)
+    scn = jlib.get_library(cfg.horizon, K, M)["retry_storm"]
+    if standby:
+        scn = jscn.with_standby(scn, standby)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        drv = jscn.compile_scenario(scn, cfg, jax.random.PRNGKey(key))
+    rtt = jtopo.make_topology(jax.random.PRNGKey(1), K,
+                              M + standby).lb_instance_rtt()
+    out = js.run_sim_stream("qedgeproxy", rtt, cfg, jax.random.PRNGKey(11),
+                            drivers=drv, warmup_steps=10)
+    return cfg, jax.tree.map(np.asarray, out)
+
+
+def _port_run(out):
+    ctrl = None if out.ctrl is None else convert.control_to_torch(out.ctrl,
+                                                                  "cpu")
+    return tm.StreamOutputs(acc=convert.accumulator_to_torch(out.acc, "cpu"),
+                            series=None, ctrl=ctrl)
+
+
+def _assert_cells(got, want):
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if k == "breaker_open_frac":
+            assert got[k] == pytest.approx(w, rel=1e-6, abs=1e-9)
+        else:
+            assert got[k] == w, k
+
+
+def test_degradation_and_closed_loop_cells_match_the_registry():
+    payload = json.load(open(PAYLOAD))
+    cfg, deg = _lane_run(dict(bsuite.DEGRADE_POLICIES)["bounded"], None, 0,
+                         600)
+    assert float(deg.acc.open_km.sum()) > 0
+    conf = tfigures.SuiteConfig(ts.SimConfig(horizon=cfg.horizon), 10, (1,),
+                                True)
+    suite = {"names": ["retry_storm"], "config": conf,
+             "runs": {("retry_storm", label): _port_run(deg)
+                      for label, _ in tsuite.DEGRADE_POLICIES}}
+    rows = tsuite.graceful_degradation(suite)["retry_storm"]
+    ref_rows = payload["graceful_degradation"]["retry_storm"]
+    for label, knobs in bsuite.DEGRADE_POLICIES:
+        want = jregistry.stream_cell(
+            deg, rho=cfg.rho, bucket_s=cfg.ev_bucket, resilience=True,
+            breaker_frac=bool(knobs.get("breaker_threshold")),
+            max_recovery=False)
+        _assert_cells(rows[label], want)
+        assert set(rows[label]) == set(ref_rows[label]), label
+
+    ctl = dict(bsuite.CONTROL_POLICIES)["autoscale_admit"]
+    cfg, cl = _lane_run(bsuite.CONTROL_RES, ctl, bsuite.CONTROL_STANDBY, 700)
+    _, pre = _lane_run(bsuite.CONTROL_RES, None, bsuite.CONTROL_STANDBY, 700)
+    assert float(cl.ctrl.admit_frac_sum) < float(cl.ctrl.steps)   # it acted
+    runs = {("retry_storm", label): _port_run(pre if c is None else cl)
+            for label, c in tsuite.CONTROL_POLICIES}
+    rows = tsuite.closed_loop(dict(suite, runs=runs))["retry_storm"]
+    ref_rows = payload["closed_loop"]["retry_storm"]
+    for label, c in bsuite.CONTROL_POLICIES:
+        want = jregistry.stream_cell(
+            pre if c is None else cl, rho=cfg.rho, bucket_s=cfg.ev_bucket,
+            jain=True, tenants=True, drop_rate=True, control=True)
+        _assert_cells(rows[label], want)
+        assert set(rows[label]) - RECOVERY_KEYS == \
+            set(ref_rows[label]) - RECOVERY_KEYS, label
+

@@ -287,17 +287,25 @@ def test_stagger_groups_exact(K):
     exact(want, got.numpy(), "groups")
 
 
+class _Recorder:
+    """A flight-recorder config that is on (the recorder is not ported)."""
+    enabled = True
+
+
 @pytest.mark.parametrize("change", [
-    dict(attempt_timeout=0.09),
+    dict(recorder=_Recorder()),
     dict(tenancy=TenancyConfig(taus=(0.08, 0.2))),
     dict(max_retries=1)])
 def test_off_path_settings_raise(change, rtt30):
-    # resilience and tenancy wait for ROADMAP A9, in either strategy
-    # family and in either mode
+    # the recorder and tenancy wait for ROADMAP A9, in either strategy
+    # family and in either mode; retries without a timeout are refused,
+    # as the reference refuses them
     cfg = ts.SimConfig(horizon=0.5, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    error, match = ((ValueError, "attempt_timeout") if "max_retries" in change
+                    else (NotImplementedError, "ROADMAP A9"))
+    with pytest.raises(error, match=match):
         ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(error, match=match):
         ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
 
 
@@ -308,10 +316,13 @@ def test_other_entry_options_raise(rtt30, tmp_path):
                           device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         ts.build_sim_parts("dec_sarsa", cfg, 30, 10, pshard=("players", 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, chunk_steps=2,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # chunks run (tests/test_torch_checkpoint.py holds them against whole
+    # runs); checkpoints need the chunked loop
+    whole = ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")
+    chunked = ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, chunk_steps=2,
+                                device="cpu")
+    assert torch.equal(whole.acc.choice_counts, chunked.acc.choice_counts)
+    with pytest.raises(ValueError, match="chunked loop"):
         ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7,
                           checkpoint_dir=str(tmp_path / "ckpt"),
                           device="cpu")
