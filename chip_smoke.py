@@ -37,6 +37,25 @@ Phases, one JSON line each; any failure exits non-zero:
                 never); (c) run (b) in 50-step chunks, stopped at step
                 100 into a checkpoint and resumed, equal to (b). Steps/s
                 beside the neutral fleet's, peak device memory.
+   recorder  -- the flight recorder and the obs layer: (a) the anchor
+                fleet, 300 steps, with ``RecorderConfig(capacity=1024)``
+                against the same run without it, in interleaved pairs
+                (off, on, off, on): every accumulator field and series
+                value equal, the round kernel and maintenance once a
+                step, the events appended and dropped, peak memory and
+                steps/s, the median on/off ratio (printed, not gated);
+                (b) one ``record_step`` at the fleet's shapes (breakers,
+                retry drops, sheds, control deltas) under
+                ``torch.cuda.set_sync_debug_mode("error")``: no host
+                sync, and the ring equal to the same call on the CPU;
+                (c) ``python -m repro_torch.obs smoke --horizon 30`` on
+                the card (the request lifecycle at 30x10: maintenance
+                once a step, the round kernel never): the kinds
+                recorded, the run directory's validation, the mark and
+                trace replays; (d) two library scenarios as the lanes of
+                one 100-step ``run_sim_grid`` at 30x10 with the recorder
+                on: each lane's ring equal to its run alone bit for bit.
+                The phase's seconds (budget 90 s).
 6. baselines -- the 30x10 testbed for 50 steps from key 7, fused round
                 against the round scan: ``qedgeproxy`` (the round kernel
                 against the torch scan; maintenance once per step in
@@ -76,7 +95,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 ``bounded``'s, every readout finite and every cell's keys
                 the reference payload's.
    closed_loop -- the closed-loop lane: the smoke probes on the 30 x
-                (10 + 4) fleet under the eight control policies, 30 s;
+                (10 + 4) fleet under the eight control policies, 15 s;
                 ``prewarmed`` drops <= 1 % and >= 90 % clients reach rho
                 in each probe, ``static`` drops more; readouts finite,
                 keys the reference payload's (but ``max_recovery_s``,
@@ -156,8 +175,17 @@ LIFECYCLE_CONTROL = dict(managed=10, warmup=1.0, up_queue=2.0, down_queue=0.5,
                          hold=0.4, action_cooldown=2.0, batch=2, admit=True,
                          target_queue=1.5)
 DEGRADE_HORIZON = 30.0       # the graceful-degradation lane, 300 steps
-CONTROL_HORIZON = 30.0       # the closed-loop lane, 300 steps
+# the closed-loop lane, 150 steps: cut from 30 s for the script's time
+# limit (its gates hold at 15 s; the degradation lane's retry gate does
+# not, so that lane keeps 30 s)
+CONTROL_HORIZON = 15.0
 PAYLOAD = "results/benchmarks/scenario_suite.json"   # the reference's lanes
+# the recorder phase: the fleet's ring, the obs smoke's horizon, two library
+# scenarios as lanes (lane i compiled at key 500 + i, topology i + 1, run
+# key 101 + i) for 100 steps, and the phase's budget in seconds
+RECORDER = dict(capacity=1024, pairs=2, smoke_horizon=30.0,
+                lanes=("cascade_failure", "surge"), lanes_horizon=10.0,
+                budget_s=90.0)
 # (S, K, M, lane-major fleet): the round kernel with a lane axis, the
 # testbed's shape at S = 3 and 4 and the fleet's at S = 4
 ROUND_LANE_CASES = ((3, 30, 10), (4, 30, 10), (4, 1000, 50))
@@ -1024,6 +1052,190 @@ def phase_lifecycle_fleet(dev, neutral_steps_per_s: float) -> None:
          resumed_equals_uninterrupted=True)
 
 
+def check_same_ring(a, b, what: str) -> None:
+    """Two recorder states equal field by field, bit for bit."""
+    import torch
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: rec.{f} differs")
+
+
+def recorder_sync_check(dev) -> dict:
+    """One ``record_step`` at the fleet's shapes with every lane of
+    candidates on, under the sync debug mode's "error": any host sync
+    raises. The ring must equal the same call on the CPU."""
+    import torch
+    from repro_torch.continuum.scenarios import MAX_MARKS
+    from repro_torch.obs import recorder as obr
+    K, M = FLEET["K"], FLEET["M"]
+    rcfg = obr.RecorderConfig(capacity=RECORDER["capacity"])
+    rng = np.random.default_rng(0)
+    iss = rng.integers(0, 9, (1, K)).astype(np.float32)
+    host = dict(
+        marks=np.full((1, MAX_MARKS), -1, np.int32),
+        miss_k=np.minimum(iss, rng.integers(0, 9, (1, K))).astype(np.float32),
+        iss_k=iss,
+        retry_drop_k=(rng.integers(0, 3, (1, K))
+                      * (rng.uniform(size=(1, K)) < 0.1)).astype(np.float32),
+        shed_k=(rng.integers(0, 3, (1, K))
+                * (rng.uniform(size=(1, K)) < 0.1)).astype(np.float32),
+        open_now=rng.uniform(size=(1, K, M)) < 0.05)
+    host["marks"][0, :2] = (7, 9)
+    prev_open = rng.uniform(size=(1, K, M)) < 0.05
+    rings = {}
+    for where in ("cpu", dev):
+        kw = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+        kw["ctl_deltas"] = tuple(torch.tensor([v], dtype=torch.float32,
+                                              device=where)
+                                 for v in (1.0, 0.0, 2.0))
+        pids = torch.arange(K, dtype=torch.int32, device=where)
+        rec = obr.recorder_init(rcfg, K, M, True, lanes=1, device=where)
+        rec = rec._replace(prev_open=torch.from_numpy(prev_open).to(where))
+        if where == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec = obr.record_step(rcfg, rec, t_idx=7, pids=pids, **kw)
+        finally:
+            if where == dev:
+                torch.cuda.set_sync_debug_mode(0)
+        rings[str(where)] = rec
+    check_same_ring(rings["cpu"], rings[str(dev)], "record_step card vs cpu")
+    rec = rings[str(dev)]
+    return dict(no_host_sync=True, equals_cpu=True,
+                events_appended=obr.events_appended(rec),
+                events_dropped=obr.events_dropped(rec))
+
+
+def phase_recorder(dev, neutral_steps_per_s: float) -> None:
+    """The flight recorder in the fleet's step, free of host syncs, the
+    obs smoke on the card, and lane-batched rings (module docstring)."""
+    import dataclasses
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.continuum import (SimConfig, compile_scenario,
+                                       get_library, lane, make_topology,
+                                       run_sim_grid, run_sim_stream,
+                                       stack_drivers)
+    from repro_torch.core import prand
+    from repro_torch.obs import recorder as obr
+    from repro_torch.obs import runlog
+    from repro_torch.obs.__main__ import main as obs_main
+    t_phase = time.perf_counter()
+
+    # (a) the anchor fleet, recorder off and on in interleaved pairs
+    cfg_off, rtt = fleet_inputs(dev, FLEET["horizon"])
+    cfg_on = dataclasses.replace(cfg_off, recorder=obr.RecorderConfig(
+        capacity=RECORDER["capacity"]))
+    steps = cfg_off.num_steps
+    each = dict(round_step_swrr=steps, fused_maintenance=steps)
+    runs, ratios = [], []
+    for pair in range(RECORDER["pairs"]):
+        for label, cfg in (("off", cfg_off), ("on", cfg_on)):
+            base = memory_baseline(dev)
+            for fn in all_kernels():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = sim_launches()
+            if launches != each:
+                raise AssertionError(f"recorder (a) {label}: launches "
+                                     f"{launches}, the path needs {each}")
+            runs.append(dict(pair=pair, recorder=label, steps_per_s=steps
+                             / secs, seconds=secs,
+                             peak_mem_bytes=peak_above(dev, base), **base))
+            if label == "off":
+                off = out
+            else:
+                check_identical(off, out, f"recorder (a) pair {pair} on "
+                                          f"vs off")
+                on = out
+                ratios.append(runs[-2]["steps_per_s"]
+                              / runs[-1]["steps_per_s"])
+    emit(phase="recorder", part="a_fleet", K=FLEET["K"], M=FLEET["M"],
+         steps=steps, capacity=RECORDER["capacity"], runs=runs,
+         time_ratio_on_over_off=ratios,
+         median_ratio=statistics.median(ratios),
+         neutral_fleet_steps_per_s=neutral_steps_per_s,
+         peak_mem_above_off_bytes=runs[-1]["peak_mem_bytes"]
+         - runs[-2]["peak_mem_bytes"],
+         events_appended=obr.events_appended(on.rec),
+         events_dropped=obr.events_dropped(on.rec),
+         events_per_step=obr.events_appended(on.rec) / steps,
+         launches=each, identical_to_off=True)
+
+    # (b) one record_step at the fleet's shapes, no host sync
+    emit(phase="recorder", part="b_no_host_sync", **recorder_sync_check(dev))
+
+    # (c) the obs smoke on the card
+    for fn in all_kernels():
+        fn.launches = 0
+    horizon = RECORDER["smoke_horizon"]
+    with tempfile.TemporaryDirectory() as d:
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = obs_main(["smoke", "--horizon", str(horizon), "--device",
+                           str(dev), "--out", d])
+        secs = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        validation = runlog.validate_run(d)
+        events = runlog.load_run(d)["events"]
+    launches = sim_launches()
+    smoke_steps = int(round(horizon / SimConfig().dt))
+    need = dict(round_step_swrr=0, fused_maintenance=2 * smoke_steps)
+    kinds: dict = {}
+    for e in events["events"]:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    emit(phase="recorder", part="c_obs_smoke", horizon_s=horizon, rc=rc,
+         seconds=secs, output=lines, kinds=kinds,
+         appended=events["appended"], dropped=events["dropped"],
+         validation=validation, launches=launches)
+    if rc != 0 or "obs smoke OK" not in lines:
+        raise AssertionError(f"obs smoke failed: {lines}")
+    if any(validation.values()) or launches != need:
+        raise AssertionError(f"obs smoke: validation {validation}, launches "
+                             f"{launches} (the path needs {need})")
+
+    # (d) two library scenarios as lanes, each ring its run alone's
+    cfg = SimConfig(horizon=RECORDER["lanes_horizon"],
+                    recorder=obr.RecorderConfig(capacity=RECORDER["capacity"]))
+    names = RECORDER["lanes"]
+    lib = get_library(cfg.horizon, 30, 10)
+    drivers = [compile_scenario(lib[n], cfg, 500 + i, device=dev)
+               for i, n in enumerate(names)]
+    rtts = torch.stack([make_topology(i + 1, 30, 10, device=dev)
+                        .lb_instance_rtt() for i in range(len(names))])
+    keys = torch.stack([prand.prng_key(101 + i, dev)
+                        for i in range(len(names))])
+    T = cfg.num_steps
+    for fn in all_kernels():
+        fn.launches = 0
+    out = run_sim_grid("qedgeproxy", rtts, cfg, keys,
+                       drivers=stack_drivers(drivers), device=dev)
+    launches = sim_launches()
+    if launches != dict(round_step_swrr=T, fused_maintenance=T):
+        raise AssertionError(f"recorder (d): launches {launches} for {T} "
+                             f"steps of {len(names)} lanes")
+    appended = []
+    for s in range(len(names)):
+        one = run_sim_stream("qedgeproxy", rtts[s], cfg, keys[s],
+                             drivers=drivers[s], device=dev)
+        ln = lane(out, s)
+        check_identical(ln, one, f"recorder (d) lane {s}")
+        check_same_ring(ln.rec, one.rec, f"recorder (d) lane {s} ring")
+        appended.append(obr.events_appended(one.rec))
+    secs = time.perf_counter() - t_phase
+    emit(phase="recorder", part="d_lanes", lanes=list(names), steps=T,
+         launches=launches, events_appended=appended,
+         every_ring_identical=True, phase_seconds=secs,
+         within_budget=secs <= RECORDER["budget_s"])
+
+
 def payload_cells(lane: str) -> dict:
     """The reference payload's cells of ``lane``: {scenario: {policy:
     cell}}."""
@@ -1754,6 +1966,7 @@ def main() -> int:
     phase_testbed(dev)
     launches, fleet_steps_per_s = phase_fleet(dev)
     phase_lifecycle_fleet(dev, fleet_steps_per_s)
+    phase_recorder(dev, fleet_steps_per_s)
     phase_baselines(dev)
     phase_suite(dev)
     phase_lanes(dev)

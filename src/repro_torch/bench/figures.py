@@ -15,8 +15,9 @@ compiled from scenario specs as the reference compiles them.
 
     python -m repro_torch.bench.figures [--smoke] [--device cpu] [--out DIR]
 
-prints each figure's payload as one JSON line, stamped with a
-``provenance`` block (figure, compute time, device, torch, config);
+prints each figure's payload as one JSON line, stamped with
+``obs.provenance.stamp`` (git sha, torch and CUDA, the device, the
+config's hash, and under it the figure, compute time and settings);
 with ``--out`` it also writes ``DIR/<figure>.json``.
 """
 from __future__ import annotations
@@ -44,6 +45,7 @@ from repro_torch.continuum import (InstanceKill, LoadSurge, Scenario,
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs import provenance
 
 STRATEGIES = (
     ("qedgeproxy", {}),
@@ -370,8 +372,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", metavar="DIR",
                     help="write one JSON per figure into DIR")
     args = ap.parse_args(argv)
-    suite = get_suite(args.device, smoke=args.smoke)
-    events = get_events(suite.config, args.device)[0]
+    dev = resolve_device(args.device)
+    suite = get_suite(dev, smoke=args.smoke)
+    events = get_events(suite.config, dev)[0]
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     for fn in FIGURES:
@@ -380,11 +383,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         payload = fn(*inputs)
         us = (time.perf_counter() - t0) * 1e6
-        payload["provenance"] = {
+        provenance.stamp(payload, suite.config.cfg, device=dev, extra={
             "benchmark": name, "us_per_call": us, "device": suite.device,
             "torch": torch.__version__, "smoke": suite.config.smoke,
             "horizon_s": suite.config.cfg.horizon,
-            "seeds": list(suite.config.seeds)}
+            "seeds": list(suite.config.seeds)})
         print(json.dumps(payload), flush=True)
         if args.out:
             with open(os.path.join(args.out, f"{name}.json"), "w") as f:

@@ -41,20 +41,15 @@ import json
 import math
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.bench import figures
-from repro_torch.continuum import (ControlConfig, breaker_open_fraction_stream,
-                                   client_qos_satisfaction_stream,
-                                   compile_scenario, control_stats_stream,
-                                   event_recovery, get_library,
-                                   jain_fairness_stream, lane, make_topology,
-                                   per_tenant_qos_spread,
-                                   resilience_stats_stream, stack_drivers,
-                                   with_standby)
+from repro_torch.continuum import (ControlConfig, compile_scenario,
+                                   get_library, lane, make_topology,
+                                   stack_drivers, with_standby)
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
+from repro_torch.obs import provenance, registry
 
 # contrast pair: the adaptive balancer against static proximity
 SUITE_STRATEGIES = (("qedgeproxy", {}), ("proxy_mity_1.0", dict(alpha=1.0)))
@@ -218,57 +213,11 @@ def get_control_suite(device=None, smoke: bool = False,
                          CONTROL_KEY0, base, conf, M + CONTROL_STANDBY, dev)
 
 
-def recovery_summary(recs: list[dict], *, max_recovery: bool = True) -> dict:
-    """``worst_dip`` / ``unrecovered_events`` / ``max_recovery_s`` from
-    an ``event_recovery`` readout (empty without events); events with no
-    data-bearing post bucket count as unrecovered and stay out of the
-    dip minimum, as in the reference's ``obs.registry``."""
-    if not recs:
-        return {}
-    out = {}
-    dips = [r["dip"] for r in recs if math.isfinite(r["dip"])]
-    if dips:
-        out["worst_dip"] = min(dips)
-    recovered = [r["recovery_s"] for r in recs if r["recovered"]]
-    out["unrecovered_events"] = len(recs) - len(recovered)
-    if max_recovery and recovered:
-        out["max_recovery_s"] = max(recovered)
-    return out
-
-
-def stream_cell(outs, rho: float, bucket_s: float, *, jain: bool = True,
-                n_events: bool = True, resilience: bool = False,
-                breaker_frac: bool = False, tenants: bool = False,
-                drop_rate: bool = False, control: bool = False,
-                max_recovery: bool = True) -> dict:
-    """One scenario x strategy cell of one lane's run: the reference's
-    ``obs.registry.stream_cell`` with its keyword switches (here
-    ``jain`` and ``n_events`` default on, as the open-loop rows use
-    them). ``breaker_open_frac`` is a float32 mean, as the reference
-    takes it."""
-    acc = outs.acc
-    recs = event_recovery(acc, bucket_s)
-    cell = {"qos_sat_pct": client_qos_satisfaction_stream(acc, rho)}
-    if jain:
-        cell["jain"] = jain_fairness_stream(acc)
-    if tenants:
-        spread = per_tenant_qos_spread(acc)
-        cell["tenant_qos_spread"] = spread["spread"]
-        cell["tenant_qos_min"] = spread["min"]
-    if resilience:
-        cell.update(resilience_stats_stream(acc))
-    elif drop_rate:
-        cell["drop_rate"] = resilience_stats_stream(acc)["drop_rate"]
-    if breaker_frac:
-        frac = breaker_open_fraction_stream(acc).astype(np.float32)
-        cell["breaker_open_frac"] = float(
-            frac.sum(dtype=np.float32) * np.float32(1.0 / frac.size))
-    if n_events:
-        cell["events"] = len(recs)
-    cell.update(recovery_summary(recs, max_recovery=max_recovery))
-    if control and outs.ctrl is not None:
-        cell.update(control_stats_stream(acc, outs.ctrl))
-    return cell
+def stream_cell(outs, rho: float, bucket_s: float) -> dict:
+    """One open-loop scenario x strategy cell of one lane's run:
+    ``obs.registry.stream_cell`` with ``jain`` and ``n_events``."""
+    return registry.stream_cell(outs, rho=rho, bucket_s=bucket_s, jain=True,
+                                n_events=True)
 
 
 def scenario_rows(suite: dict) -> dict:
@@ -285,9 +234,9 @@ def graceful_degradation(suite: dict) -> dict:
     """``{scenario: {policy: cell}}`` of ``get_degradation_suite``: the
     reference payload's ``graceful_degradation`` rows."""
     cfg = suite["config"].cfg
-    return {name: {label: stream_cell(
-        suite["runs"][(name, label)], cfg.rho, cfg.ev_bucket, jain=False,
-        n_events=False, resilience=True,
+    return {name: {label: registry.stream_cell(
+        suite["runs"][(name, label)], rho=cfg.rho, bucket_s=cfg.ev_bucket,
+        resilience=True,
         breaker_frac=bool(knobs.get("breaker_threshold")),
         max_recovery=False) for label, knobs in DEGRADE_POLICIES}
         for name in suite["names"]}
@@ -297,9 +246,9 @@ def closed_loop(suite: dict) -> dict:
     """``{scenario: {policy: cell}}`` of ``get_control_suite``: the
     reference payload's ``closed_loop`` rows."""
     cfg = suite["config"].cfg
-    return {name: {label: stream_cell(
-        suite["runs"][(name, label)], cfg.rho, cfg.ev_bucket, jain=True,
-        n_events=False, tenants=True, drop_rate=True, control=True)
+    return {name: {label: registry.stream_cell(
+        suite["runs"][(name, label)], rho=cfg.rho, bucket_s=cfg.ev_bucket,
+        jain=True, tenants=True, drop_rate=True, control=True)
         for label, _ in CONTROL_POLICIES}
         for name in suite["names"]}
 
@@ -314,19 +263,20 @@ def main(argv=None) -> int:
                     help="simulated seconds (default 180, smoke 24)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
+    dev = resolve_device(args.device)
     kw = dict(smoke=args.smoke, horizon=args.horizon)
-    suite = get_scenario_suite(args.device, **kw)
+    suite = get_scenario_suite(dev, **kw)
     payload = scenario_rows(suite)
-    degrade = get_degradation_suite(args.device, **kw)
+    degrade = get_degradation_suite(dev, **kw)
     payload["graceful_degradation"] = graceful_degradation(degrade)
-    control = get_control_suite(args.device, **kw)
+    control = get_control_suite(dev, **kw)
     payload["closed_loop"] = closed_loop(control)
     conf = suite["config"]
-    payload["provenance"] = {
+    provenance.stamp(payload, conf.cfg, device=dev, extra={
         "benchmark": "scenario_suite",
         "us_per_call": (time.perf_counter() - t0) * 1e6,
         "device": suite["device"], "torch": torch.__version__,
-        "smoke": conf.smoke, "horizon_s": conf.cfg.horizon}
+        "smoke": conf.smoke, "horizon_s": conf.cfg.horizon})
     print(json.dumps(payload), flush=True)
     print(json.dumps({"timings": suite["timings"],
                       "graceful_degradation": degrade["timings"],

@@ -18,7 +18,6 @@ step; ``keep`` bounds the steps kept on disk.
 """
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import os
@@ -28,6 +27,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.obs.provenance import config_hash  # noqa: F401  (re-export)
 
 _SEP = "/"
 
@@ -40,30 +41,6 @@ class CheckpointCorruptError(RuntimeError):
     """A checkpoint failed its integrity check: a payload whose checksum
     does not match, an unreadable manifest, or a schema version this
     code does not understand. Do not resume from it."""
-
-
-def _canonical(obj):
-    """A deterministically serialisable view of a config: dataclasses
-    and NamedTuples as dicts, everything else as its repr."""
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return {f.name: _canonical(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
-    if hasattr(obj, "_asdict"):                       # NamedTuple
-        return {k: _canonical(v) for k, v in obj._asdict().items()}
-    if isinstance(obj, dict):
-        return {str(k): _canonical(v) for k, v in sorted(obj.items())}
-    if isinstance(obj, (list, tuple)):
-        return [_canonical(v) for v in obj]
-    if isinstance(obj, (str, int, float, bool)) or obj is None:
-        return obj
-    return repr(obj)
-
-
-def config_hash(config) -> str:
-    """Stable short hash of a config object (``SimConfig``, a dict, ...)."""
-    blob = json.dumps(_canonical(config), sort_keys=True,
-                      separators=(",", ":"))
-    return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
 def _children(tree):

@@ -76,8 +76,10 @@ class StepSeries(NamedTuple):
 class StreamOutputs(NamedTuple):
     """``ctrl`` holds the control plane's ``ControlCounters`` when a
     closed-loop config is on (lanes: every field with a leading (S,)
-    axis, ``shed_k`` (S, K)), else ``None``; ``rec`` (the flight
-    recorder) is always ``None``."""
+    axis, ``shed_k`` (S, K)), else ``None``; ``rec`` holds the flight
+    recorder's ``obs.recorder.RecorderState`` when ``SimConfig.recorder``
+    is on (lanes: one ring a lane, (S, cap) arrays and an (S, 1)
+    ``ptr``), else ``None``."""
     acc: MetricAccumulator
     series: StepSeries
     ctrl: object = None
@@ -476,7 +478,9 @@ def goodput_offered_series(series: StepSeries, dt: float,
 
 def lane(outs, s: int):
     """Lane ``s`` of a lane-batched ``StreamOutputs`` or ``SimOutputs``:
-    every tensor's leading (S,) axis indexed at ``s``."""
+    every tensor's leading (S,) axis indexed at ``s``; the recorder's
+    ring becomes lane s's (cap,) ring with its (1,) ``ptr``, the layout
+    of a single run."""
     def pick(x):
         if x is None:
             return None

@@ -2,8 +2,8 @@
 
 Port of the single-service path of ``repro/continuum/simulator.py``:
 strategies ``qedgeproxy``, ``proxy_mity`` (any alpha) and
-``dec_sarsa``, drivers as compiled, unsharded, recorder and tenancy
-off, the fused round or the round scan, streaming metrics
+``dec_sarsa``, drivers as compiled, unsharded, tenancy off, the fused
+round or the round scan, streaming metrics
 (``run_sim_stream``) or full trajectories (``run_sim``), one
 simulation or S of them as lanes of one run (``run_sim_batch``,
 ``run_sim_grid``), chunked horizons with checkpoint and resume. The
@@ -45,6 +45,12 @@ liveness is device data, so with ``managed`` standby instances the
 placement events run every step, masked to the lanes whose effective
 liveness moved.
 
+**Flight recorder** (``recorder=obs.RecorderConfig(...)``, streaming
+only): ``obs.recorder.record_step`` appends the step's events (scenario
+marks, control actions, breaker trips and resets, retry exhaustions,
+sheds, QoS-miss spikes) to a fixed ring in the carry, one ring a lane,
+without a host sync; ``StreamOutputs.rec`` returns it.
+
 **Lanes.** ``jax.vmap`` over the reference's run becomes a leading lane
 axis carried through the step: S simulations (each its own base RTT,
 drivers and key) advance together, one launch of each kernel a step for
@@ -78,12 +84,13 @@ from repro_torch.core.oracle import step_regret
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import lane_of, lane_rows
+from repro_torch.obs import recorder as obr
 
 
 @dataclass(frozen=True)
 class SimConfig:
-    """Every field of the reference ``SimConfig``; the recorder and
-    tenancy fields must stay neutral.
+    """Every field of the reference ``SimConfig``; the tenancy field
+    must stay neutral.
 
     Request lifecycle (off by default): an attempt past
     ``attempt_timeout`` seconds is abandoned by the client and observed
@@ -93,7 +100,8 @@ class SimConfig:
     drops that guard: the naive policy); ``breaker_threshold``
     consecutive timeouts on one (player, arm) open a breaker for
     ``breaker_cooldown`` seconds. ``control`` takes a
-    ``continuum.control.ControlConfig``."""
+    ``continuum.control.ControlConfig``, ``recorder`` an
+    ``obs.recorder.RecorderConfig`` (streaming only)."""
     dt: float = 0.1                  # step length [s] = client period
     horizon: float = 300.0           # simulated seconds
     maint_every: int = 10            # QEdgeProxy decision interval H_d [steps]
@@ -137,7 +145,7 @@ class SimConfig:
 
     @property
     def recorder_on(self) -> bool:
-        return self.recorder is not None and self.recorder.enabled
+        return obr.recorder_enabled(self)
 
 
 def _not_ported(what: str, item: str):
@@ -159,8 +167,6 @@ def _check_main_path(cfg: SimConfig, pshard) -> None:
                              "drivers.s_m unscaled")
     if cfg.tenancy_on:
         raise _not_ported("the multi-tenant engine", "A9")
-    if cfg.recorder_on:
-        raise _not_ported("the flight recorder", "A9")
     if pshard is not None:
         raise _not_ported("player sharding", "A10")
 
@@ -205,7 +211,9 @@ def _true_mu(rtt, q, cfg: SimConfig, service_time):
 # (S, C, 2) per-round selection keys; the result has leading (S, C)
 # axes, or is None), and ``select(state, drawn, t, active, pids)`` gets
 # its round's row (players of every lane). Each draw is the one the
-# reference's ``select`` makes from that round's key.
+# reference's ``select`` makes from that round's key. ``record``,
+# ``record_feedback`` and ``fused_round`` also take the step's
+# ``t_plus``, which rounds a deadline ``t + c`` as the reference does.
 # ---------------------------------------------------------------------------
 
 def _round_keys(k_step, C: int):
@@ -245,8 +253,11 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
         choice, state, valid = qb.select(state)
         return choice, state
 
-    def record(state, choice, lat, t, mask):
-        return qb.record(state, params, choice, lat, t, mask)
+    # ``t_plus`` rounds a tripped arm's deadline ``t + cooldown`` as the
+    # reference's compiler does (one FMA of t_idx * dt + cooldown)
+    def record(state, choice, lat, t, mask, t_plus):
+        return qb.record(state, params, choice, lat, t, mask,
+                         t_plus(params.cooldown))
 
     def maintain(state, rtt, t, lb_mask=None):
         return qb.maintenance(state, params, rtt, t, lb_mask)
@@ -254,8 +265,9 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
     def maintain_subset(state, rtt, t, player_idx):
         return qb.maintenance_subset(state, params, rtt, t, player_idx)
 
-    def record_feedback(state, choice, lat, t, mask):
-        return qb.record_feedback(state, params, choice, lat, t, mask)
+    def record_feedback(state, choice, lat, t, mask, t_plus):
+        return qb.record_feedback(state, params, choice, lat, t, mask,
+                                  t_plus(params.cooldown))
 
     def record_rings(state, choices, lats, t, mask):
         return qb.record_rings_batch(state, params, choices, lats, t, mask)
@@ -269,7 +281,8 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
     def eps(state):
         return state.eps
 
-    def fused_round(state, q, nc, act, t, rtt_t, s_m, served, k_step, pids):
+    def fused_round(state, q, nc, act, t, t_plus, rtt_t, s_m, served,
+                    k_step, pids):
         # all C rounds of every lane in one kernel call; the per-round
         # noise is drawn up front, each element the draw the
         # reference's round scan makes: a pure function of (step key,
@@ -282,7 +295,7 @@ def qedgeproxy_strategy(params: qb.BanditParams, cfg: SimConfig, K: int,
             state.r_buf, state.rts_buf, state.rptr,
             q, nc, _noise(cfg, ks[..., 1, :], pids), rtt_t, s_m, served, t,
             tau=params.tau, err_thresh=params.err_thresh,
-            cooldown=params.cooldown)
+            cooldown=params.cooldown, cooldown_at=t_plus(params.cooldown))
         state = state._replace(
             weights=out.weights, cw=out.cw, err=out.err,
             cooldown_until=out.cooldown_until, in_pool=out.in_pool,
@@ -333,7 +346,8 @@ def proxy_mity_strategy(alpha: float, cfg: SimConfig, K: int, M: int):
     def eps(state):
         return torch.zeros(K, dtype=torch.float32, device=state.weights.device)
 
-    def fused_round(state, q, nc, act, t, rtt_t, s_m, served, k_step, pids):
+    def fused_round(state, q, nc, act, t, t_plus, rtt_t, s_m, served,
+                    k_step, pids):
         # selection is queue-independent: every round's Gumbel rows are
         # drawn and argmaxed at once; only the queues run in order
         ks = _round_keys(k_step, cfg.max_clients)
@@ -375,7 +389,7 @@ def dec_sarsa_strategy(params: bl.DecSarsaParams, cfg: SimConfig, K: int,
         choice, s = bl.decsarsa_choose(state.inner, params, active, *drawn)
         return choice, state._replace(pend_s=s, active=active)
 
-    def record(state, choice, lat, t, mask):
+    def record(state, choice, lat, t, mask, t_plus):
         reward = (lat <= params.tau).to(torch.float32)
         inner = bl.decsarsa_update(
             state.inner, params, state.pend_s, choice, reward, lat, mask)
@@ -491,6 +505,12 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         raise ValueError(
             "the control plane is streaming-only: closed-loop runs are "
             "fleet-scale by construction (set trace=False)")
+    rcfg = cfg.recorder
+    rec_on = obr.recorder_enabled(cfg)
+    if rec_on and trace:
+        raise ValueError(
+            "the flight recorder is streaming-only: trace=True already "
+            "materializes full trajectories (set trace=False)")
     # an autoscaler's liveness is device data: placement events then run
     # every step, masked on the card, instead of from host flags
     managed = ctl_on and ccfg.managed > 0
@@ -530,10 +550,13 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         brk = qb.breaker_init(SK, M, device=dev) if brk_on else None
         ctl = (qc.control_init(ccfg, SK, M, lanes=S, device=dev)
                if ctl_on else None)
+        # one ring a lane, each the ring of its run alone
+        rec = (obr.recorder_init(rcfg, K, M, brk_on, lanes=S, device=dev)
+               if rec_on else None)
         keys = prand.split(k_scan, T)
-        return (s0, q0, active0, acc, groups, pids, brk, ctl, None), keys
+        return (s0, q0, active0, acc, groups, pids, brk, ctl, rec), keys
 
-    def round_scan(state, q, act, t, rtt_t, s_m, served, k_step, pids,
+    def round_scan(state, q, act, t, t_plus, rtt_t, s_m, served, k_step, pids,
                    mask_all):
         """The C rounds in order: select, feedback, the shared queues.
         Every round's keys and noise are drawn before the loop."""
@@ -554,7 +577,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             # the reference's compiler fuses rtt + (q+1)s * z into one
             # FMA, so the sum rounds once (as in the fused round)
             lat = fmath.fma(q1s, z[r], rtt_t[kidx, choice])
-            state = feed(state, choice, lat, t, mask)
+            state = feed(state, choice, lat, t, mask, t_plus)
             arr_r = torch.zeros(S * M, dtype=torch.float32,
                                 device=dev).index_add_(
                 0, lane * M + choice, mask.to(torch.float32)).reshape(S, M)
@@ -629,7 +652,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 brk = qb.breaker_update(brk, choice, timed_out, mask, t,
                                         cfg.breaker_threshold,
                                         cfg.breaker_cooldown, open_at)
-            state = feed(state, choice, obs, t, mask)
+            state = feed(state, choice, obs, t, mask, t_plus)
             arr = arrive(mask, choice)
             att_ch, att_obs, att_m = [choice], [obs], [mask]
             completed = mask & ~timed_out
@@ -654,7 +677,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                     brk = qb.breaker_update(brk, choice_a, to_a, p, t,
                                             cfg.breaker_threshold,
                                             cfg.breaker_cooldown, open_at)
-                state = feed(state, choice_a, obs_a, t, p)
+                state = feed(state, choice_a, obs_a, t, p, t_plus)
                 arr = arr + arrive(p, choice_a)
                 att_ch.append(choice_a)
                 att_obs.append(obs_a)
@@ -708,9 +731,16 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         # ``nc`` becomes the admitted slots, ``nc_sched`` the demand
         if ctl_on:
             nc_sched = nc
+            cnt_pre = ctl.counters
             ctl, act, nc, s_m, _ = qc.control_actuate(
                 ccfg, cfg.dt, t_host, ctl, q, act, nc, s_m,
                 1.0 if t_idx >= warmup_steps else 0.0, t_plus)
+            # the step's control actions for the recorder: the (S,)
+            # counter increments (already warm-up gated)
+            ctl_deltas = tuple(
+                getattr(ctl.counters, f) - getattr(cnt_pre, f)
+                for f in ("scale_up", "scale_down", "migrations")
+            ) if rec_on else None
 
         # effective RTT and service rows for this step, the players of
         # every lane as rows
@@ -757,15 +787,20 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         else:
             if fused_round_on:
                 state, q, arrivals, choices, lats, procs = \
-                    strat["fused_round"](state, q, nc, act, t_host, rtt_t,
-                                         s_m, served_per_round, k_step, pids)
+                    strat["fused_round"](state, q, nc, act, t_host, t_plus,
+                                         rtt_t, s_m, served_per_round,
+                                         k_step, pids)
             else:
                 state, q, arrivals, choices, lats, procs = round_scan(
-                    state, q, act, t, rtt_t, s_m, served_per_round, k_step,
-                    pids, mask_adm)
+                    state, q, act, t, t_plus, rtt_t, s_m, served_per_round,
+                    k_step, pids, mask_adm)
             att_kc = mask_adm.to(torch.int32)
             dropped = torch.zeros_like(mask_all)
-        served_kc = None
+        # retry exhaustions for the recorder, before the admission sheds
+        # join ``dropped`` (sheds are a kind of their own)
+        retry_drop_k = (dropped.to(torch.float32).sum(-1).reshape(S, K)
+                        if rec_on and res_on else None)
+        served_kc = shed_k = None
         if ctl_on and ccfg.admit:
             # admission-shed slots: issued misses from the client's view,
             # never served: censored to inf, dropped with no attempt, out
@@ -774,6 +809,8 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             lats = torch.where(shed_kc, torch.inf, lats)
             dropped = dropped | shed_kc
             served_kc = mask_adm.reshape(S, K, C)
+            if rec_on:
+                shed_k = shed_kc.to(torch.float32).sum(-1).reshape(S, K)
         att_kc = att_kc.reshape(S, K, C)
         dropped = dropped.reshape(S, K, C)
         rewards = (lats <= cfg.tau).to(torch.float32).reshape(S, K, C)
@@ -810,6 +847,16 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                                (attf - compl).sum((1, 2)), attf.sum((1, 2))],
                               -1)
             ctl = qc.control_observe(ccfg, ctl, obs, cfg.dt)
+        if rec_on:
+            # the step's events, from what the step computed; every
+            # lane appends to its own ring
+            rec = obr.record_step(
+                rcfg, rec, t_idx=t_idx, pids=pids, marks=marks,
+                miss_k=((1.0 - rewards) * issf).sum(-1), iss_k=issf.sum(-1),
+                retry_drop_k=retry_drop_k, shed_k=shed_k,
+                open_now=(qb.breaker_is_open(brk, t).reshape(S, K, M)
+                          if brk_on else None),
+                ctl_deltas=ctl_deltas if ctl_on else None)
         return (state, q, act, acc, groups, pids, brk, ctl, rec), ys
 
     return init_fn, step_fn
@@ -847,7 +894,8 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
     ``(state, queue, prev_active, acc, groups, pids, breaker, control,
     recorder)`` in the reference's layout; ``acc`` is None in trace
     mode, ``breaker`` unless breakers are on, ``control`` unless a
-    control mechanism is, and ``recorder`` always.
+    control mechanism is, and ``recorder`` unless ``cfg.recorder`` is
+    on (an ``obs.recorder.RecorderState``).
     """
     init1, step1 = _lane_parts(strategy_name, cfg, K, M, 1, fused, trace,
                                warmup_steps, pshard, **strategy_kw)
@@ -862,13 +910,14 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
         state, q, prev, acc, groups, pids, brk, ctl, rec = carry
         return (_with_active(state, lambda a: a[None]), q[None], prev[None],
                 one(acc), groups, pids, brk,
-                None if ctl is None else qc.with_lane_axis(ctl), rec)
+                None if ctl is None else qc.with_lane_axis(ctl), one(rec))
 
     def from_lanes(carry):
         state, q, prev, acc, groups, pids, brk, ctl, rec = carry
         return (_with_active(state, lambda a: a[0]), q[0], prev[0],
                 first(acc), groups, pids, brk,
-                None if ctl is None else qc.without_lane_axis(ctl), rec)
+                None if ctl is None else qc.without_lane_axis(ctl),
+                first(rec))
 
     def init_fn(rtt, active0, key, pids=None):
         carry, keys = init1(rtt[None], active0[None], key[None], pids)
@@ -943,7 +992,7 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
         if trace:
             return SimOutputs(*host)
         return StreamOutputs(acc=carry[3], series=StepSeries(*host),
-                             ctrl=_lane_counters(carry[7], S))
+                             ctrl=_lane_counters(carry[7], S), rec=carry[8])
 
     return run
 
@@ -1180,7 +1229,8 @@ def run_sim_stream(
     drivers move there. ``key`` is a ``(2,)`` tensor of uint32 words
     (``prand.prng_key(seed)``, or ``convert.key_to_torch`` of a JAX
     key) or an integer seed. ``ctrl`` of the result holds the control
-    counters when ``cfg.control`` is on.
+    counters when ``cfg.control`` is on, ``rec`` the flight recorder's
+    ring when ``cfg.recorder`` is.
 
     ``chunk_steps`` drives the horizon in chunks of that many steps
     (``build_sim_chunks``); chunked and unchunked runs follow the same
@@ -1260,5 +1310,8 @@ def run_sim_stream(
     series = StepSeries(*(torch.from_numpy(np.ascontiguousarray(x))
                           for x in series))
     ctl = carry[7]
+    # the ring rides the chunked carry and the checkpoint: chunked,
+    # checkpointed and resumed runs end with the same ring bit for bit
     return StreamOutputs(acc=carry[3], series=series,
-                         ctrl=None if ctl is None else ctl.counters)
+                         ctrl=None if ctl is None else ctl.counters,
+                         rec=carry[8])

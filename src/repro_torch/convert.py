@@ -14,8 +14,9 @@ or a raw ``PRNGKey``), and the port keeps key words in int64 (see
 baselines' strategy states (the reference defines them inside its
 strategy adapters) to the port's ``simulator.PMState`` (proxy-mity)
 and ``simulator.DSState`` (Dec-SARSA, with its ``DecSarsaState``); the
-breaker's ``BreakerState`` and the control plane's ``ControlCarry``
-(``ControlState``, ``ControlCounters``) likewise.
+breaker's ``BreakerState``, the control plane's ``ControlCarry``
+(``ControlState``, ``ControlCounters``) and the flight recorder's
+``RecorderState`` likewise.
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
 ``init_params`` pytree (as numpy, layers stacked on a leading L axis)
@@ -36,9 +37,10 @@ from repro_torch.core.bandit import BanditState, BreakerState
 from repro_torch.core.baselines import DecSarsaState
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import Model, build_model
+from repro_torch.obs.recorder import RecorderState
 
 # The step carry's 9 slots, as the reference's ``build_sim_parts`` lays
-# them out; the recorder's is None on the ported path.
+# them out.
 CARRY_SLOTS = ("state", "queue", "prev_active", "acc", "groups", "pids",
                "breaker", "control", "recorder")
 
@@ -73,7 +75,7 @@ def key_to_numpy(key: torch.Tensor) -> np.ndarray:
 _TUPLES = {cls._fields: cls for cls in (BanditState, PMState, DSState,
                                         DecSarsaState, BreakerState,
                                         ControlCarry, ControlState,
-                                        ControlCounters)}
+                                        ControlCounters, RecorderState)}
 
 
 def _tuple_to_torch(cls, x, device):
@@ -129,18 +131,24 @@ def control_to_torch(ctl, device=None):
     return _tuple_to_torch(cls, ctl, device)
 
 
+def recorder_to_torch(rec, device=None) -> RecorderState:
+    """A flight recorder's ring (the reference's ``RecorderState``:
+    (cap,) arrays, a (1,) ``ptr``, the breaker snapshot)."""
+    return _tuple_to_torch(RecorderState, rec, device)
+
+
+def recorder_to_numpy(rec: RecorderState) -> RecorderState:
+    return _tuple_to_numpy(rec)
+
+
 def carry_to_torch(carry, device=None) -> tuple:
     """The 9-slot step carry ``(state, queue, prev_active, acc, groups,
     pids, breaker, control, recorder)`` of any strategy, streaming
     (``acc`` set) or trace mode (``acc`` None), with or without the
-    breaker and control slots; the recorder's must be None (not
-    ported)."""
+    breaker, control and recorder slots."""
     if len(carry) != len(CARRY_SLOTS):
         raise ValueError(f"a step carry has {len(CARRY_SLOTS)} slots")
     state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
-    if rec is not None:
-        raise NotImplementedError("the recorder carry slot is not ported "
-                                  "(ROADMAP A9)")
     return (strategy_state_to_torch(state, device),
             array_to_torch(q, device),
             array_to_torch(prev_active, device),
@@ -148,7 +156,7 @@ def carry_to_torch(carry, device=None) -> tuple:
             array_to_torch(groups, device), array_to_torch(pids, device),
             None if brk is None else breaker_to_torch(brk, device),
             None if ctl is None else control_to_torch(ctl, device),
-            None)
+            None if rec is None else recorder_to_torch(rec, device))
 
 
 def carry_to_numpy(carry) -> tuple:
@@ -160,7 +168,7 @@ def carry_to_numpy(carry) -> tuple:
 
     return (_tuple_to_numpy(state), array_to_numpy(q),
             array_to_numpy(prev_active), tup(acc), array_to_numpy(groups),
-            array_to_numpy(pids), tup(brk), tup(ctl), rec)
+            array_to_numpy(pids), tup(brk), tup(ctl), tup(rec))
 
 
 def _flatten(tree, prefix: str = ""):

@@ -171,9 +171,12 @@ def select(state: BanditState):
 
 def _record_control(state: BanditState, params: BanditParams,
                     choice: torch.Tensor, reward: torch.Tensor, t,
-                    mask: torch.Tensor) -> BanditState:
+                    mask: torch.Tensor, cooldown_at=None) -> BanditState:
     """Error/cooldown/pool/weight part of one record round (Alg 2
-    lines 5-9). Touches only (K, M) fields."""
+    lines 5-9). Touches only (K, M) fields. ``cooldown_at`` overrides
+    the deadline ``t + cooldown`` of a tripped arm with the caller's own
+    rounding of that sum (the simulator's, as the reference's compiler
+    rounds ``t_idx * dt + cooldown``)."""
     K, M, _ = state.lat_buf.shape
     t = _time(t, state.weights)
     ch = choice.to(torch.int64)
@@ -184,8 +187,10 @@ def _record_control(state: BanditState, params: BanditParams,
     err = state.err.index_put(
         (kidx, ch),
         torch.where(mask, torch.where(trip, 0, new_err), old_err).to(_I32))
+    if cooldown_at is None:
+        cooldown_at = t + params.cooldown
     cd = state.cooldown_until.index_put(
-        (kidx, ch), torch.where(trip, t + params.cooldown,
+        (kidx, ch), torch.where(trip, cooldown_at,
                                 state.cooldown_until[kidx, ch]))
 
     # remove tripped arms from the pool immediately and renormalize
@@ -207,9 +212,11 @@ def _record_control(state: BanditState, params: BanditParams,
 
 
 def record(state: BanditState, params: BanditParams, choice: torch.Tensor,
-           latency: torch.Tensor, t, mask: torch.Tensor) -> BanditState:
+           latency: torch.Tensor, t, mask: torch.Tensor,
+           cooldown_at=None) -> BanditState:
     """Record one request per player (Alg 2 lines 4–9), vectorized.
-    Masked players leave the state untouched."""
+    Masked players leave the state untouched; ``cooldown_at`` as in
+    ``record_feedback``."""
     K, M, R = state.lat_buf.shape
     t = _time(t, state.weights)
     ch = choice.to(torch.int64)
@@ -233,16 +240,20 @@ def record(state: BanditState, params: BanditParams, choice: torch.Tensor,
 
     state = state._replace(lat_buf=lat_buf, ts_buf=ts_buf, ptr=ptr,
                            r_buf=r_buf, rts_buf=rts_buf, rptr=rptr)
-    return _record_control(state, params, choice, reward, t, mask)
+    return _record_control(state, params, choice, reward, t, mask,
+                           cooldown_at)
 
 
 def record_feedback(state: BanditState, params: BanditParams,
                     choice: torch.Tensor, latency: torch.Tensor, t,
-                    mask: torch.Tensor) -> BanditState:
+                    mask: torch.Tensor, cooldown_at=None) -> BanditState:
     """Control half of one record round: err/cooldown/pool/weights but
-    no ring writes (pair with ``record_rings_batch``)."""
+    no ring writes (pair with ``record_rings_batch``). ``cooldown_at``
+    (a host number) replaces ``t + params.cooldown`` as a tripped arm's
+    deadline."""
     reward = (latency <= params.tau).to(_F32)
-    return _record_control(state, params, choice, reward, t, mask)
+    return _record_control(state, params, choice, reward, t, mask,
+                           cooldown_at)
 
 
 def record_rings_batch(state: BanditState, params: BanditParams,

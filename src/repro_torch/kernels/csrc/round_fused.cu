@@ -65,8 +65,9 @@
 // maximal index (the largest credit, ties to the lower arm; -0.0 keyed
 // as 0.0); the SWRR total and the renormalising wsum add the M columns
 // left to right (wsum is the total itself unless the round trips, as
-// the columns are then the same); the latency chain and t + cooldown
-// use explicit round-to-nearest intrinsics, and the library is built
+// the columns are then the same); a tripped arm's cooldown deadline
+// comes in as a number (t_cd, rounded by the caller); the latency chain
+// uses explicit round-to-nearest intrinsics, and the library is built
 // with --fmad=false, so no a*b+c becomes an FMA except the one the
 // reference has: lat = fma((q + 1) * s, z, rtt), which XLA:CPU
 // contracts and the plain version rounds once as well; each new weight
@@ -124,7 +125,7 @@ struct RoundArgs {
   int S, Kl;                // lanes, players a lane
   int player_warps;         // warps a CTA that run players; kCopyWarps more copy
   int ppw;                  // players per warp (1: rows stay resident)
-  float t, tau, cooldown_s;
+  float t, tau, t_cd;        // t_cd: a tripped arm's cooldown deadline
   int err_thresh;
 };
 
@@ -472,7 +473,7 @@ __global__ void __launch_bounds__(32 * (kPlayerWarps + kCopyWarps)) round_kernel
   // the barrier completes. A warp with several players runs each one's
   // whole round before the barrier.
   const bool resident = a.ppw == 1 && gw < a.K;
-  const float t_cd = __fadd_rn(a.t, a.cooldown_s);
+  const float t_cd = a.t_cd;
   const int gl = resident ? gw / a.Kl : 0;   // the resident player's lane
   Pick pick{0, 0.f};
   if (resident) {
@@ -577,13 +578,13 @@ extern "C" int round_step_launch(
     float* workspace, int K, int M, int R, int Rq, int C, int S, int Kl,
     int grid,
     int player_warps, int smem, int ppw, float t, float tau, int err_thresh,
-    float cooldown_s, void* stream) {
+    float t_cd, void* stream) {
   RoundArgs a{weights, cw, err, cooldown, in_pool, active, lat_buf, ts_buf,
               ptr, r_buf, rts_buf, rptr, q_in, nc, z, rtt, s_m, served,
               w_o, cw_o, err_o, cd_o, pool_o, lat_o, ts_o, ptr_o, rb_o,
               rts_o, rptr_o, q_out, arrivals, choices, lats, procs,
               reinterpret_cast<unsigned int*>(workspace), workspace + 32,
-              K, M, R, Rq, C, S, Kl, player_warps, ppw, t, tau, cooldown_s,
+              K, M, R, Rq, C, S, Kl, player_warps, ppw, t, tau, t_cd,
               err_thresh};
   void* args[] = {&a};
   cudaError_t e = allow_smem(smem);

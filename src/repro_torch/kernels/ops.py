@@ -40,15 +40,19 @@ def bandit_maintenance_stats(lat, mask, rtt, tau, rho, min_bandwidth=1e-4):
 def round_step(weights, cw, err, cooldown_until, in_pool, active,
                lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
                q, nc, z, rtt_t, s_m, served_per_round, t,
-               tau: float, err_thresh: int, cooldown: float):
+               tau: float, err_thresh: int, cooldown: float,
+               cooldown_at=None):
     """Fused simulator round: all C SWRR rounds of one step (selection,
     shared-queue recursion, feedback control, ring writes). Returns a
-    ``ref.RoundStepOut``; the inputs are left untouched."""
+    ``ref.RoundStepOut``; the inputs are left untouched.
+    ``cooldown_at`` is a tripped arm's deadline (default ``t +
+    cooldown``)."""
     fn = ref.round_step_swrr if _on_host(weights) else _round.round_step_swrr
     return fn(weights, cw, err, cooldown_until, in_pool, active,
               lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
               q, nc, z, rtt_t, s_m, served_per_round, t,
-              tau=tau, err_thresh=err_thresh, cooldown=cooldown)
+              tau=tau, err_thresh=err_thresh, cooldown=cooldown,
+              cooldown_at=cooldown_at)
 
 
 def round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m, served_per_round):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 _INV_SQRT2 = 0.7071067811865476
@@ -226,6 +227,17 @@ def bandit_maintenance_stats(
 # ---------------------------------------------------------------------------
 
 
+def cooldown_deadline(t, cooldown: float, cooldown_at=None) -> float:
+    """A tripped arm's cooldown deadline as a host float32 value: the
+    caller's ``cooldown_at``, else ``t + cooldown`` rounded once (``t``
+    a host number or a 0-dim tensor)."""
+    if cooldown_at is not None:
+        return float(np.float32(cooldown_at))
+    if isinstance(t, torch.Tensor):
+        t = t.item()
+    return float(np.float32(t) + np.float32(cooldown))
+
+
 class RoundStepOut(NamedTuple):
     """Everything one fused round produces: the updated bandit tensors,
     the shared queue, and the per-request outputs the metric
@@ -328,12 +340,13 @@ def round_step_swrr(
     weights, cw, err, cooldown_until, in_pool, active,
     lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
     q, nc, z, rtt_t, s_m, served_per_round, t,
-    tau: float, err_thresh: int, cooldown: float,
+    tau: float, err_thresh: int, cooldown: float, cooldown_at=None,
 ) -> RoundStepOut:
     """All C SWRR rounds of one step (plain PyTorch); the arguments,
     shapes and dtypes of ``repro.kernels.ref.round_step_swrr``, with the
     lane axis above. The inputs are left untouched; every output is a
-    new tensor."""
+    new tensor. ``cooldown_at`` (a host number) is a tripped arm's
+    deadline, by default ``t + cooldown`` rounded to float32 once."""
     K, M, R = lat_buf.shape
     C = z.shape[0]
     dev = weights.device
@@ -341,6 +354,8 @@ def round_step_swrr(
     lane = lane_of(K, S, dev)
     act = lane_rows(active, K)
     kidx = torch.arange(K, device=dev)
+    t_cd = torch.as_tensor(cooldown_deadline(t, cooldown, cooldown_at),
+                           dtype=torch.float32, device=dev)
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     w, cw_c, err_c, cd, pool = weights, cw, err, cooldown_until, in_pool
     ch_r, lat_r, proc_r = [], [], []
@@ -368,7 +383,7 @@ def round_step_swrr(
             torch.where(mask, torch.where(trip, 0, new_err), old_err)
             .to(torch.int32))
         cd = cd.index_put(
-            (kidx, choice), torch.where(trip, t + cooldown, cd[kidx, choice]))
+            (kidx, choice), torch.where(trip, t_cd, cd[kidx, choice]))
         tripped = onehot & trip[:, None]
         pool = pool & ~tripped
         w2 = torch.where(tripped, 0.0, w)

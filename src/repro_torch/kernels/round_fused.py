@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ref import RoundStepOut
 
 _P = ctypes.c_void_p
@@ -136,7 +136,7 @@ def round_step_swrr(
     weights, cw, err, cooldown_until, in_pool, active,
     lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
     q, nc, z, rtt_t, s_m, served_per_round, t,
-    tau: float, err_thresh: int, cooldown: float,
+    tau: float, err_thresh: int, cooldown: float, cooldown_at=None,
 ) -> RoundStepOut:
     """CUDA round kernel; same contract as ``ref.round_step_swrr``.
 
@@ -175,6 +175,7 @@ def round_step_swrr(
         if t.is_cuda:
             raise ValueError("round_step_swrr: pass t as a host number")
         t = t.item()
+    t_cd = ref.cooldown_deadline(t, cooldown, cooldown_at)
     geo = geometry(K, M, C, dev, S)
     state = [torch.empty_like(x) for x in (weights, cw, err, cooldown_until,
                                            in_pool, lat_buf, ts_buf, ptr,
@@ -191,7 +192,7 @@ def round_step_swrr(
                       geo["grid"], geo["player_warps_per_cta"],
                       geo["smem_bytes"],
                       geo["players_per_warp"], float(t), float(tau),
-                      int(err_thresh), float(cooldown),
+                      int(err_thresh), t_cd,
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err_code, "round_step_launch")
     round_step_swrr.launches += 1

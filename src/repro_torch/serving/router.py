@@ -10,8 +10,8 @@ lengthen its batch queue), as in the paper's MP-MAB.
 The bandit state lives on the router's device and goes through the
 port's ``core.bandit``: on the card, ``maintenance`` runs the CUDA
 maintenance kernel. Every membership change lands in ``self.events``
-as ``(t_seconds, kind, entity, value)``. ``export_trace`` (needs the
-``obs`` layer) and ``mesh_resized`` (needs ``fault/elastic.py``) are not
+as ``(t_seconds, kind, entity, value)``, and ``export_trace`` writes it
+as a Chrome trace; ``mesh_resized`` (needs ``fault/elastic.py``) is not
 ported yet.
 """
 from __future__ import annotations
@@ -104,8 +104,30 @@ class QEdgeRouter:
                                   "which is not ported (ROADMAP A11)")
 
     def export_trace(self, path: str) -> dict:
-        raise NotImplementedError("export_trace needs the obs layer, which "
-                                  "is not ported (ROADMAP A9)")
+        """Write the membership log as a Chrome trace (one ``router``
+        process lane, one thread an event kind, instants at the log's
+        host wall time); it loads in Perfetto beside a simulator trace
+        of the same run."""
+        from repro_torch.obs import trace as obs_trace
+        pid, named, evs = 2, set(), []
+        kinds = []
+        for _, kind, _, _ in self.events:
+            if kind not in kinds:
+                kinds.append(kind)
+        for t, kind, entity, value in self.events:
+            tid = kinds.index(kind) + 1
+            if not named:
+                evs.append(obs_trace.meta_event(pid, 0, "process_name",
+                                                "router"))
+                named.add(None)
+            if kind not in named:
+                evs.append(obs_trace.meta_event(pid, tid, "thread_name",
+                                                kind))
+                named.add(kind)
+            evs.append({"ph": "i", "s": "t", "pid": pid, "tid": tid,
+                        "name": kind, "cat": "router", "ts": t * 1e6,
+                        "args": {"entity": entity, "value": value}})
+        return obs_trace.write_chrome_trace(path, evs)
 
     # -- introspection -------------------------------------------------
     @property

@@ -167,8 +167,6 @@ def test_router_hooks_of_unported_layers_raise():
     router = QEdgeRouter(2, 3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         router.mesh_resized(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        router.export_trace("unused.json")
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro_torch.continuum import simulator as ts
 from repro_torch.continuum import topology as ttopo
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
+from repro_torch.obs import RecorderConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 COUNTS = ("succ_kc", "n_kc", "arrivals_m", "choice_counts", "proc_hist",
@@ -287,20 +288,21 @@ def test_stagger_groups_exact(K):
     exact(want, got.numpy(), "groups")
 
 
-class _Recorder:
-    """A flight-recorder config that is on (the recorder is not ported)."""
-    enabled = True
-
-
 @pytest.mark.parametrize("change", [
-    dict(recorder=_Recorder()),
+    dict(recorder=RecorderConfig(capacity=8)),
     dict(tenancy=TenancyConfig(taus=(0.08, 0.2))),
     dict(max_retries=1)])
 def test_off_path_settings_raise(change, rtt30):
-    # the recorder and tenancy wait for ROADMAP A9, in either strategy
-    # family and in either mode; retries without a timeout are refused,
-    # as the reference refuses them
+    # tenancy waits for ROADMAP A9, in either strategy family and in
+    # either mode; retries without a timeout are refused, and the flight
+    # recorder in trace mode (it streams), as the reference refuses them
     cfg = ts.SimConfig(horizon=0.5, **change)
+    if "recorder" in change:
+        assert ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7,
+                                 device="cpu").rec is not None
+        with pytest.raises(ValueError, match="streaming-only"):
+            ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
+        return
     error, match = ((ValueError, "attempt_timeout") if "max_retries" in change
                     else (NotImplementedError, "ROADMAP A9"))
     with pytest.raises(error, match=match):
