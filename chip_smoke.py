@@ -26,7 +26,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
                 simulator kernels must launch once per step.
-   lifecycle_fleet -- the same fleet for 200 steps, the last 10 of its
+   lifecycle_fleet -- the same fleet for 150 steps, the last 10 of its
                 50 instances the controller's standby pool: (a) under
                 the control plane (autoscaler and admission), on the
                 fused round (round kernel and maintenance once a step)
@@ -65,7 +65,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 value exactly equal.
 7. suite     -- ``repro_torch.bench.figures.get_suite``: the paper's four
                 strategies on the 30x10 testbed, seeds 1-2 as the lanes
-                of one run per strategy, 60 s with a 20 s warm-up; each
+                of one run per strategy, 30 s with a 10 s warm-up; each
                 strategy's seconds, grid steps/s and launches, the Fig 3,
                 4, 5 and 8 headline numbers; every lane conserves
                 requests, qedgeproxy reaches 90% clients >= rho in each
@@ -81,12 +81,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 all lanes.
    scenarios -- ``repro_torch.bench.scenarios``: the whole scenario
                 library as the lanes of one run per strategy
-                (``qedgeproxy``, ``proxy_mity_1.0``), 60 s; each
+                (``qedgeproxy``, ``proxy_mity_1.0``), 30 s; each
                 scenario's row (clients >= rho, Jain, events, worst dip,
                 slowest recovery) and each strategy's grid steps/s.
    events    -- Figs 10-11 (``repro_torch.bench.figures``): the client
                 surge and the instance removal as the two lanes of one
-                run per strategy, all four, 60 s; ``qedgeproxy``'s
+                run per strategy, all four, 30 s; ``qedgeproxy``'s
                 post-event steady QoS >= 0.95 in both.
    degradation -- ``bench.scenarios``' graceful-degradation lane: the
                 smoke probe (``retry_storm``) under the five request-
@@ -95,11 +95,30 @@ Phases, one JSON line each; any failure exits non-zero:
                 ``bounded``'s, every readout finite and every cell's keys
                 the reference payload's.
    closed_loop -- the closed-loop lane: the smoke probes on the 30 x
-                (10 + 4) fleet under the eight control policies, 15 s;
+                (10 + 4) fleet under the eight control policies, 10 s;
                 ``prewarmed`` drops <= 1 % and >= 90 % clients reach rho
                 in each probe, ``static`` drops more; readouts finite,
                 keys the reference payload's (but ``max_recovery_s``,
                 which depends on a recovery inside the horizon).
+   multi_tenant -- the suite's multi-tenant lane (4 tenants sharing the
+                30x10 fleet, taus 80/110/110/150 ms, interference 0.3):
+                (a) the tenant library's four scenarios as the four lanes
+                of one 24 s run per policy (``qedgeproxy``,
+                ``proxy_mity_1.0``): ``tenant_requests`` of
+                ``mt_baseline`` and ``mt_tenant_surge`` equal the
+                reference's, ``qedgeproxy`` >= 90 % clients >= rho in
+                every ``mt_baseline`` tenant and above ``proxy_mity``'s,
+                ``jain_load`` 1.0 in ``mt_baseline``, maintenance 4 times
+                a step for all lanes and the round kernel never; (b)
+                ``mt_tenant_surge`` alone for 60 steps equal to its lane
+                of the 4-lane run at that horizon, and both smoke
+                scenarios under ``qedgeproxy`` alone for 3 s on the card
+                equal to the same runs on the CPU (final queues, every
+                tenant's accumulator, series, ``tenant_cell``), where
+                the CPU port equals the JAX package; (c) that run in
+                25-step chunks, and stopped at step 50 into a checkpoint
+                and resumed, equal to it. Each policy's grid steps/s,
+                peak memory; the phase's seconds (budget 120 s).
 8. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
                 published width behind the QEdgeProxy router (3 replicas,
                 one slow); every request answers with finite logits, the
@@ -127,9 +146,10 @@ Phases, one JSON line each; any failure exits non-zero:
 11. profile  -- with ``--profile``: torch.profiler over 20 fleet steps
                 (neutral, under control, under control and the
                 lifecycle), 20 steps of each suite strategy, 20 steps of
-                the lanes phase's four lanes and one prefill and one
-                decode call of each served model (``--profile-only``:
-                these alone, no checks).
+                the lanes phase's four lanes, 20 steps of the
+                multi-tenant lane's four lanes a policy and one prefill
+                and one decode call of each served model
+                (``--profile-only``: these alone, no checks).
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -154,31 +174,46 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data shee
 
 MAINT_TOL = 1e-5    # |mu| error: 64-term sums reassociated, CUDA erff/powf ULPs
 ROUND_RTOL = 0.0    # the round kernel rounds every float as its plain version
+# the tenant step on the card against the CPU: the oracle's true mu (a
+# normal CDF: CUDA's erff against the CPU's erf, a few ULPs apart) decides
+# no pick, so it and the sums over it (regret, variation budget) may part;
+# every other field must not
+ORACLE_FIELDS = ("prev_mu", "regret_k", "vb_k", "regret")
+ORACLE_MU_TOL = 1e-6
 # KDE alone: tests/test_kernels.py's bound (64-term sums reassociated, erff)
 KDE_TOL = dict(rtol=2e-5, atol=2e-6)
 
 TESTBED_HORIZON = 180.0                     # s: the paper's run
 FLEET = dict(K=1000, M=50, horizon=30.0)    # the anchor cell, 300 steps
 BASELINES = dict(horizon=5.0, key=7, warm=10)   # fused vs scan, 50 steps
-SUITE = dict(seeds=(1, 2), horizon=60.0)    # the paper suite, 600 steps
+SUITE = dict(seeds=(1, 2), horizon=30.0)    # the paper suite, 300 steps
 # four library scenarios as the lanes of one run, 300 steps at 30x10;
 # lane i: the scenario compiled at key 500 + i, topology seed i + 1, run
 # key 101 + i
 LANES = dict(scenarios=("cascade_failure", "surge", "partition_heal",
                         "rtt_drift"), horizon=30.0, warm=100)
-SCENARIO_HORIZON = 60.0                     # the library as lanes, 600 steps
-EVENTS = dict(horizon=60.0, min_post_steady=0.95)   # Figs 10-11, 600 steps
+SCENARIO_HORIZON = 30.0                     # the library as lanes, 300 steps
+EVENTS = dict(horizon=30.0, min_post_steady=0.95)   # Figs 10-11, 300 steps
 # the anchor fleet under the request lifecycle and the control plane:
-# 200 steps, the last 10 of the 50 instances the controller's standby
-LIFECYCLE = dict(horizon=20.0, managed=10, chunk_steps=50, stop_at=100)
+# 150 steps, the last 10 of the 50 instances the controller's standby
+LIFECYCLE = dict(horizon=15.0, managed=10, chunk_steps=50, stop_at=100)
 LIFECYCLE_CONTROL = dict(managed=10, warmup=1.0, up_queue=2.0, down_queue=0.5,
                          hold=0.4, action_cooldown=2.0, batch=2, admit=True,
                          target_queue=1.5)
 DEGRADE_HORIZON = 30.0       # the graceful-degradation lane, 300 steps
-# the closed-loop lane, 150 steps: cut from 30 s for the script's time
-# limit (its gates hold at 15 s; the degradation lane's retry gate does
-# not, so that lane keeps 30 s)
-CONTROL_HORIZON = 15.0
+# the closed-loop lane, 100 steps: cut from 30 s for the script's time
+# limit (its gates hold at 10 s; the degradation lane's retry gate does
+# not hold at 15 s, so that lane keeps 30 s)
+CONTROL_HORIZON = 10.0
+# the multi-tenant lane: the tenant library as 4 lanes of one 24 s run per
+# policy, then mt_tenant_surge alone, chunked and resumed, at 60 steps
+MULTI_TENANT = dict(horizon=24.0, alone_horizon=6.0, alone="mt_tenant_surge",
+                    chunk_steps=25, stop_at=50, budget_s=120.0,
+                    cpu_horizon=3.0)
+# the reference lane's tenant_requests on the CPU (24 s smoke run), both
+# policies: counts that the drivers alone decide
+MT_REQUESTS = {"mt_baseline": [4800.0] * 4,
+               "mt_tenant_surge": [8472.0, 4800.0, 4800.0, 4800.0]}
 PAYLOAD = "results/benchmarks/scenario_suite.json"   # the reference's lanes
 # the recorder phase: the fleet's ring, the obs smoke's horizon, two library
 # scenarios as lanes (lane i compiled at key 500 + i, topology i + 1, run
@@ -953,13 +988,20 @@ def sim_launches() -> dict:
 
 
 def check_identical(a, b, what: str) -> None:
-    """Every accumulator field, series value and control counter of two
-    streaming runs exactly equal."""
+    """Every accumulator field (each tenant's, in a tenant run), series
+    value and control counter of two streaming runs exactly equal."""
     import torch
+    from repro_torch.continuum.metrics import is_tenant_run
     if (a.ctrl is None) != (b.ctrl is None):
         raise AssertionError(f"{what}: one run has control counters")
-    for part in ("acc", "series", "ctrl"):
-        x, y = getattr(a, part), getattr(b, part)
+    tenants = is_tenant_run(a.acc)
+    if tenants and len(a.acc) != len(b.acc):
+        raise AssertionError(f"{what}: {len(a.acc)} and {len(b.acc)} tenants")
+    pairs = [(f"acc[{s}]", x, y) for s, (x, y) in enumerate(zip(a.acc, b.acc))
+             ] if tenants else [("acc", a.acc, b.acc)]
+    pairs += [(part, getattr(a, part), getattr(b, part))
+              for part in ("series", "ctrl")]
+    for part, x, y in pairs:
         for f in (x._fields if x is not None else ()):
             if not torch.equal(getattr(x, f), getattr(y, f)):
                 raise AssertionError(f"{what}: {part}.{f} differs")
@@ -1333,6 +1375,186 @@ def phase_closed_loop(dev) -> None:
             raise AssertionError(f"{name}: static drop rate "
                                  f"{static['drop_rate']} not above "
                                  f"prewarmed's {pre['drop_rate']}")
+
+
+def phase_multi_tenant(dev) -> None:
+    """The multi-tenant lane on the card: (a) the tenant library as the
+    lanes of one run per policy with the lane's gates, (b) one lane
+    alone against its lane, and the smoke lanes alone on the card
+    against the CPU, (c) that run chunked and resumed."""
+    import tempfile
+    import torch
+    from repro_torch.bench import scenarios as bs
+    from repro_torch.continuum import (lane, run_sim_grid, run_sim_stream,
+                                       stack_drivers)
+    from repro_torch.obs import registry
+    t0 = time.perf_counter()
+    NT = bs.MT_TENANTS
+    # (a) the four tenant scenarios as the lanes of one run per policy
+    base = memory_baseline(dev)
+    for fn in all_kernels():
+        fn.launches = 0
+    suite = bs.get_multi_tenant_suite(dev, horizon=MULTI_TENANT["horizon"])
+    torch.cuda.synchronize()
+    peak = peak_above(dev, base)
+    payload = bs.multi_tenant(suite)
+    T = suite["config"].cfg.num_steps
+    for label, timing in suite["timings"].items():
+        sim = {k: timing["launches"][k] for k in sim_launches()}
+        emit(phase="multi_tenant_policy", policy=label, lanes=timing["lanes"],
+             tenants=NT, steps=T, seconds=timing["seconds"],
+             grid_steps_per_s=timing["grid_steps_per_s"],
+             reference_smoke_floor=bs.MT_SMOKE_FLOOR, launches=sim)
+        n = NT * T if label == "qedgeproxy" else 0
+        if sim != dict(round_step_swrr=0, fused_maintenance=n):
+            raise AssertionError(f"multi_tenant {label}: launches {sim}, the "
+                                 f"path needs maintenance {n} times "
+                                 f"({NT} a step) and the round kernel never")
+    for (name, label), run in suite["runs"].items():
+        for acc in run.acc:
+            check_conservation(acc)
+    for name in suite["names"]:
+        emit(phase="multi_tenant_row", scenario=name, **payload[name])
+    for name, want in MT_REQUESTS.items():
+        for label, _ in bs.MT_POLICIES:
+            got = payload[name][label]["tenant_requests"]
+            if got != want:
+                raise AssertionError(f"multi_tenant {name} {label}: "
+                                     f"tenant_requests {got}, the "
+                                     f"reference's {want}")
+    row = payload["mt_baseline"]
+    qep, pm = row["qedgeproxy"], row["proxy_mity_1.0"]
+    for s in range(NT):
+        q, p = qep["tenant_qos_sat_pct"][s], pm["tenant_qos_sat_pct"][s]
+        if not (q >= 90.0 and q > p):
+            raise AssertionError(f"mt_baseline tenant {s}: qedgeproxy {q}% "
+                                 f"clients >= rho, proxy_mity {p}%")
+    for label, cell in row.items():
+        if cell["jain_load"] != 1.0:
+            raise AssertionError(f"mt_baseline {label}: jain_load "
+                                 f"{cell['jain_load']}")
+    a_s = time.perf_counter() - t0
+
+    # (b) one lane alone against its lane, at a shorter horizon
+    conf, cfg, names, rtts, keys, drivers = bs.mt_inputs(
+        dev, horizon=MULTI_TENANT["alone_horizon"])
+    i = names.index(MULTI_TENANT["alone"])
+    grid = run_sim_grid("qedgeproxy", rtts, cfg, keys,
+                        drivers=stack_drivers(drivers),
+                        warmup_steps=conf.warm, device=dev)
+    kw = dict(drivers=drivers[i], warmup_steps=conf.warm, device=dev)
+    alone = run_sim_stream("qedgeproxy", rtts[i], cfg, keys[i], **kw)
+    check_identical(lane(grid, i), alone,
+                           f"{names[i]} alone vs its lane")
+    # (c) the same run in chunks, and stopped into a checkpoint and resumed
+    chunked = run_sim_stream("qedgeproxy", rtts[i], cfg, keys[i],
+                             chunk_steps=MULTI_TENANT["chunk_steps"], **kw)
+    check_identical(chunked, alone, "chunked vs whole")
+    with tempfile.TemporaryDirectory() as d:
+        ck = dict(chunk_steps=MULTI_TENANT["chunk_steps"], checkpoint_dir=d)
+        part = run_sim_stream("qedgeproxy", rtts[i], cfg, keys[i],
+                              stop_at_step=MULTI_TENANT["stop_at"], **ck,
+                              **kw)
+        if part.series.succ.shape[0] != MULTI_TENANT["stop_at"]:
+            raise AssertionError(f"stopped run: {part.series.succ.shape[0]} "
+                                 f"steps")
+        resumed = run_sim_stream("qedgeproxy", rtts[i], cfg, keys[i],
+                                 resume=True, **ck, **kw)
+    check_identical(resumed, alone, "resumed vs whole")
+    # (b) also: the card's tenant step against the CPU's
+    vs_cpu = tenant_card_vs_cpu(dev)
+    emit(phase="multi_tenant_card_vs_cpu", horizon=MULTI_TENANT["cpu_horizon"],
+         oracle_mu_tol=ORACLE_MU_TOL, runs=vs_cpu)
+    for run, r in vs_cpu.items():
+        over = {f: e for f, e in r["oracle"].items() if not e[0] <= e[1]}
+        if r["differ"] or over:
+            raise AssertionError(f"{run}: the tenant step on the card differs "
+                                 f"from the CPU's in {r['differ']}, the "
+                                 f"oracle past its bound in {over}")
+    secs = time.perf_counter() - t0
+    emit(phase="multi_tenant", scenarios=suite["names"], tenants=NT,
+         steps=T, lane_seconds=a_s, alone_steps=cfg.num_steps,
+         alone_equals_lane=True, chunked_equals_whole=True,
+         resumed_equals_whole=True, peak_mem_bytes=peak, **base,
+         seconds=secs, budget_s=MULTI_TENANT["budget_s"],
+         card=nvidia_smi(), device=suite["device"])
+    cell = registry.tenant_cell(alone, rho=cfg.rho)
+    emit(phase="multi_tenant_alone", scenario=names[i], **cell)
+
+
+def tenant_alone(dev, horizon: float, name: str, label: str, kw: dict):
+    """The multi-tenant lane's scenario ``name`` alone under policy
+    ``label`` for ``horizon`` seconds on ``dev``: ``(queue, outputs,
+    cell)``, the queue the final carry's (NT, M) backlog, the cell its
+    ``obs.registry.tenant_cell``."""
+    from repro_torch.bench import figures as bf
+    from repro_torch.bench import scenarios as bs
+    from repro_torch.continuum import StreamOutputs, build_sim_chunks
+    from repro_torch.obs import registry
+    conf, cfg, names, rtts, keys, drivers = bs.mt_inputs(dev, smoke=True,
+                                                         horizon=horizon)
+    i = names.index(name)
+    init_fn, chunk_fn = build_sim_chunks(
+        bf.strategy_name(label), cfg, *rtts.shape[1:],
+        warmup_steps=conf.warm, **kw)
+    carry, ks = init_fn(rtts[i], drivers[i].active[0], keys[i])
+    carry, series = chunk_fn(rtts[i], carry, range(cfg.num_steps),
+                             drivers[i], ks)
+    outs = StreamOutputs(acc=carry[3], series=series)
+    return carry[1], outs, registry.tenant_cell(outs, rho=cfg.rho)
+
+
+def tenant_card_vs_cpu(dev) -> dict:
+    """The tenant step on the card against the same step on the CPU
+    (where the port equals the JAX package cell for cell at this
+    horizon): each smoke scenario alone under ``qedgeproxy`` (the
+    policy that also runs maintenance; the interference, drain and
+    oracle are the same under every policy) for
+    ``MULTI_TENANT["cpu_horizon"]`` seconds. The final queues, every
+    count and latency field of every tenant's accumulator, the series
+    but regret, and ``tenant_cell`` exactly equal; the oracle's fields
+    (``ORACLE_FIELDS``) within ``oracle_bound``. ``{"<name>/<label>":
+    {"differ": exact parts that differ, "oracle": {field: [max abs
+    error, least bound] over the tenants}}}``, so that a fault says
+    where it is."""
+    import torch
+    from repro_torch.bench import scenarios as bs
+    h = MULTI_TENANT["cpu_horizon"]
+    cpu, report = torch.device("cpu"), {}
+    label, kw = bs.MT_POLICIES[0]
+    for name in bs.SMOKE_MT_SCENARIOS:
+        q_d, d, cell_d = tenant_alone(dev, h, name, label, kw)
+        q_c, c, cell_c = tenant_alone(cpu, h, name, label, kw)
+        T, K = c.series.succ.shape[0], c.acc[0].regret_k.shape[0]
+        parts = [("queue", "queue", q_d, q_c)]
+        parts += [(f"acc[{t}].{f}", f, getattr(x, f), getattr(y, f))
+                  for t, (x, y) in enumerate(zip(d.acc, c.acc))
+                  for f in x._fields]
+        parts += [(f"series.{f}", f, getattr(d.series, f),
+                   getattr(c.series, f)) for f in d.series._fields]
+        differ, oracle = [], {}
+        for part, f, x, y in parts:
+            x = x.cpu()
+            if f in ORACLE_FIELDS:
+                err, bound = oracle.get(f, (0.0, float("inf")))
+                oracle[f] = [max(err, float((x - y).abs().max())),
+                             min(bound, oracle_bound(f, y, T, K))]
+            elif not torch.equal(x, y):
+                differ.append(part)
+        differ += [f"tenant_cell.{k}" for k in cell_d
+                   if cell_d[k] != cell_c.get(k)]
+        report[f"{name}/{label}"] = dict(differ=differ, oracle=oracle)
+    return report
+
+
+def oracle_bound(field: str, cpu_value, T: int, K: int) -> float:
+    """How far the card's oracle field may lie from the CPU's: its n
+    terms (``prev_mu`` one, a player's regret and variation budget one
+    a step, a step's regret one a player) each within 2 ``ORACLE_MU_TOL``
+    and one float32 spacing of the field's largest value."""
+    n = dict(prev_mu=1, regret_k=T, vb_k=T, regret=K)[field]
+    top = np.float32(float(cpu_value.abs().max()))
+    return n * (2 * ORACLE_MU_TOL + float(np.spacing(top)))
 
 
 def phase_baselines(dev) -> None:
@@ -1904,6 +2126,20 @@ def phase_profile(dev, trace_dir: Path) -> None:
     lanes()                                                      # warm
     profiled(lanes, "lanes", trace_dir, steps=lcfg.num_steps,
              lanes=len(drivers))
+    # the multi-tenant lane: its four tenant scenarios as lanes, each
+    # policy, 20 steps
+    from repro_torch.bench import scenarios as bs
+    conf, mcfg, names, rtts, keys, drivers = bs.mt_inputs(dev, horizon=2.0)
+    batch = stack_drivers(drivers)
+    for label, kw in bs.MT_POLICIES:
+        def tenants(label=label, kw=kw):
+            run_sim_grid(bf.strategy_name(label), rtts, mcfg, keys,
+                         drivers=batch, warmup_steps=conf.warm, device=dev,
+                         **kw)
+        tenants()                                                # warm
+        profiled(tenants, f"multi_tenant_{label}", trace_dir,
+                 steps=mcfg.num_steps, lanes=len(names),
+                 tenants=bs.MT_TENANTS)
 
     B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
     for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_")):
@@ -1930,8 +2166,8 @@ def main() -> int:
                          "steps and a prefill and decode call of each served "
                          "model, and write their Chrome traces to "
                          "DIR/{fleet,fleet_control,fleet_lifecycle,"
-                         "suite_<strategy>,lanes,prefill,decode,ssm_prefill,"
-                         "ssm_decode}_trace.json")
+                         "suite_<strategy>,lanes,multi_tenant_<policy>,"
+                         "prefill,decode,ssm_prefill,ssm_decode}_trace.json")
     ap.add_argument("--profile-only", action="store_true",
                     help="with --profile: build the kernels and run only the "
                          "profiler breakdowns, no checks")
@@ -1974,6 +2210,7 @@ def main() -> int:
     phase_events(dev)
     phase_degradation(dev)
     phase_closed_loop(dev)
+    phase_multi_tenant(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),

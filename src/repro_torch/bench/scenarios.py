@@ -23,15 +23,27 @@ key (11) for every lane so that scenarios share the noise stream:
   standby, three autoscalers, admission, both, migration, a pre-warmed
   fleet), every row on ``CONTROL_RES``'s bounded lifecycle at tau = 80
   ms; the cells add the drop rate, the per-player QoS spread and the
-  control counters' readouts.
+  control counters' readouts;
+* ``multi_tenant``: ``MT_TENANTS`` services on the one fleet
+  (``TenancyConfig(MT_TAUS, interference=MT_INTERFERENCE)``,
+  ``MT_BASE_CLIENTS`` clients per LB per tenant), the tenant library
+  (``get_tenant_library``; lane i compiled at ``800 + i``) as the lanes
+  of one run per ``MT_POLICIES`` entry; the cells are
+  ``obs.registry.tenant_cell``: per-tenant QoS columns, cross-tenant
+  fairness and partition indices.
 
 Each strategy or policy records its seconds and ``grid_steps_per_s``
 (lanes x steps / seconds).
 
     python -m repro_torch.bench.scenarios [--smoke] [--horizon S] [--device cpu]
 
-prints the payload as one JSON line, then the timings as another; smoke
-runs the reference's smoke scenario sets at the 24 s smoke horizon.
+prints the ``scenario_suite`` payload as one JSON line and the
+``multi_tenant`` payload as another (each stamped), then the timings
+as a third; smoke runs the reference's smoke scenario sets at the 24 s
+smoke horizon. The reference gates its smoke tenant grid on
+``MT_SMOKE_FLOOR`` grid steps/s (XLA's one compiled step); the port's
+step is bound by host dispatch, so its figure is printed beside that
+floor on standard error and not gated.
 """
 from __future__ import annotations
 
@@ -39,14 +51,16 @@ import argparse
 import dataclasses
 import json
 import math
+import sys
 import time
 
 import torch
 
 from repro_torch.bench import figures
-from repro_torch.continuum import (ControlConfig, compile_scenario,
-                                   get_library, lane, make_topology,
-                                   stack_drivers, with_standby)
+from repro_torch.continuum import (ControlConfig, TenancyConfig,
+                                   compile_scenario, compile_tenant_scenario,
+                                   get_library, get_tenant_library, lane,
+                                   make_topology, stack_drivers, with_standby)
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
 from repro_torch.obs import provenance, registry
@@ -110,6 +124,21 @@ CONTROL_POLICIES = (
     ("prewarmed", None),
 )
 CONTROL_KEY0 = 700
+
+# multi-tenant lane: MT_TENANTS services sharing one fleet over the
+# tenant library. Tenant 0 is the tight-deadline foreground (the paper's
+# tau = 80 ms), tenants 1-2 the mid class, tenant 3 the relaxed batch
+# class; base_clients is per tenant, so 4 tenants x 30 LBs x 1 client
+# keep the aggregate demand at the library baseline's 1200 req/s
+MT_TENANTS = 4
+MT_TAUS = (0.080, 0.110, 0.110, 0.150)
+MT_INTERFERENCE = 0.3
+MT_BASE_CLIENTS = 1
+MT_POLICIES = (("qedgeproxy", {}), ("proxy_mity_1.0", dict(alpha=1.0)))
+SMOKE_MT_SCENARIOS = ("mt_baseline", "mt_tenant_surge")
+MT_KEY0 = 800
+# the reference's smoke floor (grid steps/s), printed beside the port's
+MT_SMOKE_FLOOR = 60.0
 
 
 def get_scenario_suite(device=None, smoke: bool = False,
@@ -213,6 +242,67 @@ def get_control_suite(device=None, smoke: bool = False,
                          CONTROL_KEY0, base, conf, M + CONTROL_STANDBY, dev)
 
 
+def mt_config(base):
+    """``base`` with the multi-tenant lane's ``TenancyConfig``."""
+    return dataclasses.replace(base, tenancy=TenancyConfig(
+        taus=MT_TAUS, interference=MT_INTERFERENCE))
+
+
+def mt_inputs(device=None, smoke: bool = False, horizon: float | None = None):
+    """The multi-tenant lane's inputs: ``(conf, cfg, names, rtts, keys,
+    drivers)`` with ``cfg`` the tenant config, the tenant library's
+    names (smoke: ``SMOKE_MT_SCENARIOS``), topology 1's RTT and run key
+    11 for each lane, and lane i's drivers compiled at ``MT_KEY0 + i``."""
+    conf = _suite_config(smoke, horizon)
+    dev = resolve_device(device)
+    K, M = figures.N_LBS, figures.N_INSTANCES
+    cfg = mt_config(conf.cfg)
+    lib = get_tenant_library(cfg.horizon, K, M, n_tenants=MT_TENANTS,
+                             base_clients=MT_BASE_CLIENTS)
+    names = [n for n in lib if not smoke or n in SMOKE_MT_SCENARIOS]
+    rtts, keys = _lanes_inputs(len(names), K, M, dev)
+    drivers = [compile_tenant_scenario(lib[n], cfg, MT_KEY0 + i, device=dev)
+               for i, n in enumerate(names)]
+    return conf, cfg, names, rtts, keys, drivers
+
+
+def get_multi_tenant_suite(device=None, smoke: bool = False,
+                           horizon: float | None = None) -> dict:
+    """The multi-tenant lane: the tenant library (smoke:
+    ``SMOKE_MT_SCENARIOS``) as the lanes of one run per ``MT_POLICIES``
+    entry: ``{"names", "config", "runs": {(name, label):
+    StreamOutputs}, "timings", "device"}``, every run's ``acc`` the tuple
+    of its tenants' accumulators."""
+    dev = resolve_device(device)
+    conf, cfg, names, rtts, keys, drivers = mt_inputs(dev, smoke, horizon)
+    batch = stack_drivers(drivers)
+    runs, timings = {}, {}
+    for label, kw in MT_POLICIES:
+        out, timings[label] = figures.run_lanes(
+            label, kw, rtts, keys, batch, dataclasses.replace(conf, cfg=cfg),
+            dev)
+        for i, name in enumerate(names):
+            runs[(name, label)] = lane(out, i)
+    return dict(names=names, config=conf, runs=runs, timings=timings,
+                device=figures.device_name(dev))
+
+
+def multi_tenant(suite: dict) -> dict:
+    """The reference's ``multi_tenant`` payload: the lane's constants,
+    each policy's ``grid_steps_per_s`` and ``{scenario: {policy:
+    tenant_cell}}``."""
+    rho = suite["config"].cfg.rho
+    out = {"tenants": MT_TENANTS, "taus": list(MT_TAUS),
+           "interference": MT_INTERFERENCE,
+           "grid_steps_per_s": {label: t["grid_steps_per_s"]
+                                for label, t in suite["timings"].items()}}
+    for name in suite["names"]:
+        out[name] = {label: registry.tenant_cell(suite["runs"][(name, label)],
+                                                 rho=rho)
+                     for label, _ in MT_POLICIES}
+    return out
+
+
 def stream_cell(outs, rho: float, bucket_s: float) -> dict:
     """One open-loop scenario x strategy cell of one lane's run:
     ``obs.registry.stream_cell`` with ``jain`` and ``n_events``."""
@@ -253,6 +343,14 @@ def closed_loop(suite: dict) -> dict:
         for name in suite["names"]}
 
 
+def _stamp(payload: dict, name: str, suite: dict, dev, t0: float) -> dict:
+    conf = suite["config"]
+    return provenance.stamp(payload, conf.cfg, device=dev, extra={
+        "benchmark": name, "us_per_call": (time.perf_counter() - t0) * 1e6,
+        "device": suite["device"], "torch": torch.__version__,
+        "smoke": conf.smoke, "horizon_s": conf.cfg.horizon})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--smoke", action="store_true",
@@ -271,16 +369,22 @@ def main(argv=None) -> int:
     payload["graceful_degradation"] = graceful_degradation(degrade)
     control = get_control_suite(dev, **kw)
     payload["closed_loop"] = closed_loop(control)
-    conf = suite["config"]
-    provenance.stamp(payload, conf.cfg, device=dev, extra={
-        "benchmark": "scenario_suite",
-        "us_per_call": (time.perf_counter() - t0) * 1e6,
-        "device": suite["device"], "torch": torch.__version__,
-        "smoke": conf.smoke, "horizon_s": conf.cfg.horizon})
-    print(json.dumps(payload), flush=True)
+    print(json.dumps(_stamp(payload, "scenario_suite", suite, dev, t0)),
+          flush=True)
+    t0 = time.perf_counter()
+    mt = get_multi_tenant_suite(dev, **kw)
+    print(json.dumps(_stamp(multi_tenant(mt), "multi_tenant", mt, dev, t0)),
+          flush=True)
+    print("multi_tenant grid steps/s: " + ", ".join(
+        f"{label} {t['grid_steps_per_s']:.2f}"
+        for label, t in mt["timings"].items())
+        + f" (the reference's smoke floor: {MT_SMOKE_FLOOR:.0f}; not "
+        "gated: the port's step is bound by host dispatch)",
+        file=sys.stderr, flush=True)
     print(json.dumps({"timings": suite["timings"],
                       "graceful_degradation": degrade["timings"],
-                      "closed_loop": control["timings"]}), flush=True)
+                      "closed_loop": control["timings"],
+                      "multi_tenant": mt["timings"]}), flush=True)
     return 0
 
 

@@ -1,8 +1,8 @@
 """The named scenario library: every dynamic regime the paper (and its
 related work) argues about, as one ``Scenario`` each.
 
-Port of ``repro/continuum/library.py``'s single-service library (the
-tenant library waits for ROADMAP A9). Event times are fractions of the
+Port of ``repro/continuum/library.py``: the single-service library and
+the multi-tenant one (``get_tenant_library``). Event times are fractions of the
 horizon, so the same library runs at the 180 s evaluation horizon and
 at a seconds-long smoke horizon; instance and LB subsets are fractions
 of M and K, so the same entries drive the 30 x 10 testbed and larger
@@ -20,7 +20,7 @@ from repro_torch.continuum.scenarios import (Autoscale, ClientChurn,
                                              DiurnalWave, InstanceKill,
                                              InstanceRestore, LoadSurge,
                                              Partition, RttDrift, Scenario,
-                                             ServiceSlowdown)
+                                             ServiceSlowdown, TenantScenario)
 
 
 def _frac(n: int, frac: float, lo: int = 1) -> tuple[int, ...]:
@@ -129,3 +129,72 @@ def get_library(horizon: float, n_nodes: int = 30, n_instances: int = 10,
                         " overlapping", **kw),
     ]
     return {s.name: s for s in lib}
+
+
+def get_tenant_library(horizon: float, n_nodes: int = 30,
+                       n_instances: int = 10, n_tenants: int = 4,
+                       base_clients: int = 1) -> dict[str, TenantScenario]:
+    """The four named multi-tenant scenarios, one event schedule per
+    tenant over ONE shared fleet (``compile_tenant_scenario`` merges
+    them into tenant-axis drivers), in the reference's order.
+
+    Tenant 0 is the latency-sensitive foreground service (give it the
+    tightest tau), the last tenant the batch hog. ``base_clients`` is
+    per tenant: 4 tenants x 30 LBs x 1 client x 10 req/s = 1200 req/s,
+    the single-service library's baseline demand."""
+    hz, K, M, S = horizon, n_nodes, n_instances, n_tenants
+    if S < 2:
+        raise ValueError(f"tenant library needs >= 2 tenants, got {S}")
+    kw = dict(n_nodes=K, n_instances=M, base_clients=base_clients)
+
+    def quiet(s: int) -> Scenario:
+        return Scenario(f"tenant{s}_quiet", (), description="steady", **kw)
+
+    lib = [
+        TenantScenario(
+            "mt_baseline",
+            tuple(quiet(s) for s in range(S)),
+            description="S steady tenants sharing the fleet — do the"
+                        " independent bandit fleets co-exist without"
+                        " starving anyone?"),
+        TenantScenario(
+            "mt_tenant_surge",
+            (Scenario("tenant0_surge",
+                      (LoadSurge(start=0.45 * hz, stop=0.75 * hz, extra=3,
+                                 fraction=0.6, ramp=0.03 * hz),),
+                      description="foreground surge", **kw),)
+            + tuple(quiet(s) for s in range(1, S)),
+            description="one tenant surges 4x mid-run while the others"
+                        " stay steady: does the surge degrade the quiet"
+                        " tenants' QoS (fairness under surge)?"),
+        TenantScenario(
+            "mt_noisy_neighbor",
+            tuple(quiet(s) for s in range(S - 1))
+            + (Scenario(
+                f"tenant{S - 1}_hog",
+                (LoadSurge(start=0.35 * hz, extra=4, fraction=0.8,
+                           ramp=0.02 * hz),
+                 ServiceSlowdown(start=0.35 * hz, stop=0.8 * hz,
+                                 instances=_frac(M, 1 / 5), factor=2.5)),
+                description="background hog + the slowdown it causes",
+                **kw),),
+            description="the last tenant floods the fleet AND throttles"
+                        " a fifth of the instances (cache/IO pressure):"
+                        " can the foreground tenants route around the"
+                        " noisy neighbor?"),
+        TenantScenario(
+            "mt_priority_inversion",
+            (quiet(0),)
+            + tuple(Scenario(
+                f"tenant{s}_batch",
+                (LoadSurge(start=0.4 * hz, extra=3, fraction=1.0,
+                           ramp=0.05 * hz),),
+                description="batch wave", **kw)
+                for s in range(1, S)),
+            description="every background tenant surges past capacity"
+                        " at once while the tight-deadline tenant 0"
+                        " stays quiet: the priority-inversion probe —"
+                        " does tenant 0's QoS survive load it did not"
+                        " create?"),
+    ]
+    return {t.name: t for t in lib}

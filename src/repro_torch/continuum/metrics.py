@@ -1,9 +1,8 @@
-"""Metrics for the paper's §VII figures (single-service subset).
+"""Metrics for the paper's §VII figures and the multi-tenant readouts.
 
-Port of ``repro/continuum/metrics.py`` without the tenant readouts:
-the simulator's step loop carries an O(K·M)
-``MetricAccumulator`` on the device and fills O(T) scalar
-``StepSeries``; the ``*_stream`` readouts turn them into the Figs 3-9
+Port of ``repro/continuum/metrics.py``: the simulator's step loop
+carries an O(K·M) ``MetricAccumulator`` on the device and fills O(T)
+scalar ``StepSeries``; the ``*_stream`` readouts turn them into the Figs 3-9
 and regret statistics on the host. The per-instance latency quantile
 (Fig. 8) comes from a fixed geometric histogram sketch, as in the
 reference. The trace-mode readouts compute the same statistics from
@@ -17,7 +16,9 @@ Lanes: a lane-batched run carries one accumulator for S independent
 simulations, every field with a leading (S,) axis, and its series are
 (S, T); ``lane`` takes one lane's ``StreamOutputs`` out. The event
 readouts ``event_windows_from_series`` and ``event_recovery`` read the
-recovery windows of one lane.
+recovery windows of one lane. A tenant run carries a tuple of NT
+accumulators and (T, NT) series; the ``tenant_*`` readouts and the
+fairness indices read them.
 """
 from __future__ import annotations
 
@@ -84,6 +85,23 @@ class StreamOutputs(NamedTuple):
     series: StepSeries
     ctrl: object = None
     rec: object = None
+
+
+def is_tenant_run(x) -> bool:
+    """Whether ``x`` (``StreamOutputs.acc``, a carry's strategy or
+    accumulator slot) is a tenant run's: a plain tuple with one member
+    a tenant, where a single-service run holds one NamedTuple."""
+    return type(x) is tuple
+
+
+def each(x, f):
+    """``f(x)``, or the tuple of ``f`` of each tenant's member of a
+    tenant run's ``x``; None stays None."""
+    if x is None:
+        return None
+    if is_tenant_run(x):
+        return tuple(f(v) for v in x)
+    return f(x)
 
 
 def init_accumulator(K: int, M: int, C: int, bins: int = PROC_HIST_BINS, *,
@@ -473,6 +491,124 @@ def goodput_offered_series(series: StepSeries, dt: float,
 
 
 # ---------------------------------------------------------------------------
+# Multi-tenant fairness (NT services on one fleet).
+#
+# A tenant run (``SimConfig.tenancy`` with two or more tenants) returns a
+# TUPLE of NT accumulators in ``StreamOutputs.acc``, one per service,
+# and (T, NT) series. The readouts below take that tuple: per-tenant
+# QoS, how evenly the shared fleet serves the tenants (Gini, Jain,
+# Herfindahl over per-tenant outcomes), and whether the NT bandit fleets
+# partitioned the instances among themselves.
+# ---------------------------------------------------------------------------
+
+def gini_index(x) -> float:
+    """Gini coefficient of a non-negative allocation vector: 0 equal,
+    towards 1 concentrated, from the sorted-rank identity ``2 * sum(i *
+    x_(i)) / (n * sum(x)) - (n + 1) / n``. Empty or all-zero: 0.0."""
+    x = np.asarray(x, np.float64)
+    n = x.size
+    if n == 0:
+        return 0.0
+    s = x.sum()
+    if s <= 0.0:
+        return 0.0
+    xs = np.sort(x)
+    i = np.arange(1, n + 1, dtype=np.float64)
+    return float(2.0 * (i * xs).sum() / (n * s) - (n + 1.0) / n)
+
+
+def jain_index(x) -> float:
+    """Jain's fairness index ``(sum x)^2 / (n * sum x^2)``: 1 equal, 1/n
+    one-hot. Empty or all-zero: 1.0.
+
+    The vector is divided by its maximum first, so the squares cannot
+    underflow: on ``[5e-324]`` or ``[1e-310, 1e-310]`` the reference's
+    unscaled ``x * x`` flushes to 0 and leaves [1/n, 1]; this gives 1.0.
+    On other vectors the two agree to a few ULP."""
+    x = np.asarray(x, np.float64)
+    n = x.size
+    if n == 0:
+        return 1.0
+    if x.sum() <= 0.0:
+        return 1.0
+    y = x / x.max()
+    s = y.sum()
+    return float(s * s / (n * (y * y).sum()))
+
+
+def herfindahl_index(x) -> float:
+    """Herfindahl-Hirschman concentration ``sum (x_i / sum x)^2``: 1/n
+    spread, 1 one-hot; ``jain = 1 / (n * hhi)``. Empty: 0.0; all-zero:
+    the uniform 1/n."""
+    x = np.asarray(x, np.float64)
+    n = x.size
+    if n == 0:
+        return 0.0
+    s = x.sum()
+    if s <= 0.0:
+        return 1.0 / n
+    p = x / s
+    return float((p * p).sum())
+
+
+def tenant_qos_stream(accs) -> np.ndarray:
+    """(NT,) post-warmup QoS success ratio per tenant."""
+    return np.array([_np(a.succ_kc, np.float64).sum()
+                     / max(_np(a.n_kc, np.float64).sum(), 1.0)
+                     for a in accs])
+
+
+def tenant_qos_satisfaction_stream(accs, rho: float) -> np.ndarray:
+    """(NT,) per-tenant % of clients with success ratio >= rho (Fig. 3
+    within each tenant's clients)."""
+    return np.array([client_qos_satisfaction_stream(a, rho) for a in accs])
+
+
+def tenant_served_stream(accs) -> np.ndarray:
+    """(NT,) post-warmup issued requests per tenant: the load share the
+    fleet carried for each service."""
+    return np.array([_np(a.n_kc, np.float64).sum() for a in accs])
+
+
+def tenant_fairness_stream(accs) -> dict:
+    """Cross-tenant fairness over the QoS outcome each tenant got and
+    the load share each placed: ``gini_qos``/``jain_qos``/``hhi_qos``
+    over the per-tenant QoS ratios, ``gini_load``/``jain_load``/
+    ``hhi_load`` over the per-tenant served totals."""
+    qos = tenant_qos_stream(accs)
+    load = tenant_served_stream(accs)
+    return {
+        "gini_qos": gini_index(qos),
+        "jain_qos": jain_index(qos),
+        "hhi_qos": herfindahl_index(qos),
+        "gini_load": gini_index(load),
+        "jain_load": jain_index(load),
+        "hhi_load": herfindahl_index(load),
+    }
+
+
+def tenant_partition_stream(accs) -> dict:
+    """Did the tenants' bandit fleets partition the shared instances?
+    Each tenant's routing profile is its per-instance share of requests
+    (``choice_counts`` summed over players); the pairwise overlap
+    ``sum_m min(P_i[m], P_j[m])`` is 1 for identical spreads and 0 for
+    disjoint ones. ``mean_overlap`` is the mean over pairs (1.0 under
+    two tenants), ``partition_index`` its complement."""
+    profiles = []
+    for a in accs:
+        c = _np(a.choice_counts, np.float64).sum(0)
+        profiles.append(c / max(c.sum(), 1.0))
+    n = len(profiles)
+    if n < 2:
+        return {"mean_overlap": 1.0, "partition_index": 0.0}
+    overlaps = [np.minimum(profiles[i], profiles[j]).sum()
+                for i in range(n) for j in range(i + 1, n)]
+    mean_overlap = float(np.mean(overlaps))
+    return {"mean_overlap": mean_overlap,
+            "partition_index": 1.0 - mean_overlap}
+
+
+# ---------------------------------------------------------------------------
 # Lanes and event-relative recovery (scenario engine).
 # ---------------------------------------------------------------------------
 
@@ -480,12 +616,14 @@ def lane(outs, s: int):
     """Lane ``s`` of a lane-batched ``StreamOutputs`` or ``SimOutputs``:
     every tensor's leading (S,) axis indexed at ``s``; the recorder's
     ring becomes lane s's (cap,) ring with its (1,) ``ptr``, the layout
-    of a single run."""
+    of a single run. A tenant run's accumulator tuple becomes the tuple
+    of lane s's NT accumulators, its (S, T, NT) series (T, NT)."""
     def pick(x):
         if x is None:
             return None
         if isinstance(x, tuple):
-            return type(x)(*(pick(v) for v in x))
+            vals = [pick(v) for v in x]
+            return tuple(vals) if is_tenant_run(x) else type(x)(*vals)
         return x[s]
     return pick(outs)
 

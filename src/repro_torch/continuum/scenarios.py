@@ -1,7 +1,6 @@
 """Declarative non-stationarity: scenarios compile to driver arrays.
 
-Port of the single-service part of ``repro/continuum/scenarios.py``
-(the tenant scenarios wait for ROADMAP A9). A ``Scenario`` is a
+Port of ``repro/continuum/scenarios.py``. A ``Scenario`` is a
 topology spec plus an ordered tuple of typed timeline events;
 ``compile_scenario`` lowers the events on the host, in numpy, into
 dense per-step ``Drivers``: the engine's only view of a scenario. Per
@@ -12,7 +11,9 @@ LB by ``n_clients[t]`` and fires Alg 3/4 placement events when
 ``active[t]`` changes. ``marks`` are event-onset step indices
 (``-1``-padded to ``MAX_MARKS``) for the recovery windows of the
 accumulator. ``stack_drivers`` stacks compiled scenarios into the (S,
-·) batch that lane-batched runs take.
+·) batch that lane-batched runs take. A ``TenantScenario`` holds one
+timeline per tenant of a shared fleet; ``compile_tenant_scenario``
+merges them into drivers whose ``n_clients`` is (T, NT, K).
 
 Stochastic events draw from ``fold_in(key, event_index)`` through
 ``core.prand``, which replays ``jax.random``: the same key compiles the
@@ -90,7 +91,8 @@ def neutral_drivers(cfg, K: int, M: int,
 
 
 def stack_drivers(drivers: Sequence[Drivers]) -> Drivers:
-    """Stack compiled scenarios into an (S, ·) lane batch."""
+    """Stack compiled scenarios into an (S, ·) lane batch (tenant
+    drivers' (T, NT, K) schedules into (S, T, NT, K))."""
     return Drivers(*(torch.stack(xs) for xs in zip(*drivers)))
 
 
@@ -424,3 +426,135 @@ def compile_scenario(scn: Scenario, cfg, key, device=None) -> Drivers:
         s_m=put(np.maximum(arrs["s_m"], MIN_SERVICE_TIME), np.float32),
         marks=put(marks_arr, np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant scenarios: NT per-tenant timelines merged onto ONE fleet.
+#
+# The tenant engine takes the same Drivers with one change: ``n_clients``
+# gains a tenant axis, (T, NT, K), one client schedule per service. The
+# shared-infrastructure fields stay (T, ·): tenants ride the same
+# instances, links and hardware, so each timeline's infra events merge
+# pessimally (any tenant's kill, slowdown or partition hits the shared
+# fleet) while its load events stay scoped to that tenant's clients.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TenantScenario:
+    """One :class:`Scenario` timeline per tenant over one shared fleet.
+    Every timeline targets the same (n_nodes, n_instances); each
+    tenant's ``base_clients`` and load events shape its own
+    ``n_clients[:, s, :]``, and infra events from any tenant apply
+    fleet-wide (``tenant_drivers``' merge rules)."""
+    name: str
+    tenants: tuple[Scenario, ...]
+    description: str = ""
+
+
+def broadcast_tenants(drv: Drivers, S: int) -> Drivers:
+    """Give all S tenants one shared (T, K) client schedule: the
+    single-tenant drivers with ``n_clients`` broadcast to (T, S, K).
+    Demand multiplies by S."""
+    if drv.n_clients.dim() != 2:
+        raise ValueError(
+            f"broadcast_tenants expects single-tenant (T, K) n_clients, "
+            f"got {tuple(drv.n_clients.shape)}")
+    T, K = drv.n_clients.shape
+    return drv._replace(n_clients=drv.n_clients[:, None, :].expand(
+        T, S, K).contiguous())
+
+
+def tenant_neutral_drivers(cfg, S: int, K: int, M: int,
+                           base_clients: int = 1,
+                           service_time: float | None = None,
+                           device=None) -> Drivers:
+    """Neutral multi-tenant drivers: every tenant runs ``base_clients``
+    constant clients per LB on an undisturbed fleet (total demand S x
+    base_clients x K x 1/dt req/s)."""
+    return broadcast_tenants(
+        neutral_drivers(cfg, K, M, base_clients=base_clients,
+                        service_time=service_time, device=device), S)
+
+
+def tenant_drivers(per_tenant: Sequence[Drivers]) -> Drivers:
+    """Merge single-tenant driver sets onto one shared fleet, on the
+    host in numpy:
+
+    * ``n_clients`` stacks into (T, NT, K): load stays tenant-scoped;
+    * ``active`` ANDs: an instance any timeline kills is dead for all;
+    * ``rtt_scale``, ``rtt_cut_k``, ``rtt_cut_m`` and ``s_m`` take the
+      elementwise max: the worst modulation any timeline applies;
+    * ``marks`` union, sorted and -1-padded to ``MAX_MARKS``.
+
+    The result lives on the first drivers' device."""
+    S = len(per_tenant)
+    if S < 1:
+        raise ValueError("tenant_drivers needs at least one tenant")
+    shapes = {tuple(d.n_clients.shape) for d in per_tenant}
+    if len(shapes) != 1 or per_tenant[0].n_clients.dim() != 2:
+        raise ValueError(
+            f"per-tenant drivers must share one (T, K) n_clients "
+            f"shape, got {sorted(shapes)}")
+    if len({tuple(d.active.shape) for d in per_tenant}) != 1:
+        raise ValueError("per-tenant drivers must share one fleet shape")
+    dev = per_tenant[0].active.device
+
+    def npf(x):
+        return x.cpu().numpy()
+
+    active = np.logical_and.reduce([npf(d.active) for d in per_tenant])
+    if not active.any(axis=1).all():
+        dead = int(np.argmin(active.any(axis=1)))
+        raise ValueError(
+            f"merged tenant timelines leave no instance alive at step "
+            f"{dead}: fix the kill/restore timelines")
+    mk = np.concatenate([npf(d.marks) for d in per_tenant])
+    mk = np.unique(mk[mk >= 0])
+    if len(mk) > MAX_MARKS:
+        warnings.warn(
+            f"merged tenant timelines carry {len(mk)} event marks; "
+            f"recovery windows only cover the first {MAX_MARKS}",
+            stacklevel=2)
+        mk = mk[:MAX_MARKS]
+    marks_arr = np.full((MAX_MARKS,), -1, np.int64)
+    marks_arr[:len(mk)] = mk
+
+    def put(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+
+    def worst(field):
+        return put(np.maximum.reduce([npf(getattr(d, field))
+                                      for d in per_tenant]), np.float32)
+
+    return Drivers(
+        n_clients=torch.stack([d.n_clients.to(dev) for d in per_tenant],
+                              dim=1),
+        active=put(active, np.bool_),
+        rtt_scale=worst("rtt_scale"),
+        rtt_cut_k=worst("rtt_cut_k"),
+        rtt_cut_m=worst("rtt_cut_m"),
+        s_m=worst("s_m"),
+        marks=put(marks_arr, np.int32),
+    )
+
+
+def compile_tenant_scenario(tscn: TenantScenario, cfg, key,
+                            device=None) -> Drivers:
+    """Compile each tenant's timeline and merge them onto the shared
+    fleet. Tenant i compiles under ``fold_in(key, i)`` (``key`` a (2,)
+    key tensor or an integer seed), so its stochastic events are
+    independent across tenants and stable when other tenants'
+    timelines change."""
+    base = tscn.tenants[0]
+    for s in tscn.tenants[1:]:
+        if (s.n_nodes, s.n_instances) != (base.n_nodes, base.n_instances):
+            raise ValueError(
+                f"tenant scenario {tscn.name!r}: every tenant timeline "
+                f"must target the same shared fleet (got "
+                f"{(s.n_nodes, s.n_instances)} vs "
+                f"{(base.n_nodes, base.n_instances)})")
+    key = (prand.prng_key(key) if isinstance(key, int)
+           else torch.as_tensor(key, dtype=torch.int64).cpu())
+    return tenant_drivers([
+        compile_scenario(s, cfg, prand.fold_in(key, i), device=device)
+        for i, s in enumerate(tscn.tenants)])

@@ -1,9 +1,9 @@
 """Discrete-time CC simulator (paper §VII testbed) on the card.
 
-Port of the single-service path of ``repro/continuum/simulator.py``:
-strategies ``qedgeproxy``, ``proxy_mity`` (any alpha) and
-``dec_sarsa``, drivers as compiled, unsharded, tenancy off, the fused
-round or the round scan, streaming metrics
+Port of ``repro/continuum/simulator.py`` on one device: strategies
+``qedgeproxy``, ``proxy_mity`` (any alpha) and ``dec_sarsa``, drivers as
+compiled, unsharded, one service or several, the fused round or the
+round scan, streaming metrics
 (``run_sim_stream``) or full trajectories (``run_sim``), one
 simulation or S of them as lanes of one run (``run_sim_batch``,
 ``run_sim_grid``), chunked horizons with checkpoint and resume. The
@@ -51,6 +51,12 @@ marks, control actions, breaker trips and resets, retry exhaustions,
 sheds, QoS-miss spikes) to a fixed ring in the carry, one ring a lane,
 without a host sync; ``StreamOutputs.rec`` returns it.
 
+**Tenants** (``tenancy=continuum.tenancy.TenancyConfig(...)`` with two
+or more tenants, streaming only): NT services share the fleet, each
+with its own bandit fleet, deadline and client schedule; the queues are
+shared (``_tenant_lane_parts``). The tenant step is the round scan; the
+fused round kernel is single-service.
+
 **Lanes.** ``jax.vmap`` over the reference's run becomes a leading lane
 axis carried through the step: S simulations (each its own base RTT,
 drivers and key) advance together, one launch of each kernel a step for
@@ -65,6 +71,8 @@ Features the reference has beyond this path raise
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -74,6 +82,7 @@ import torch
 from repro_torch.continuum import control as qc
 from repro_torch.continuum import metrics as qm
 from repro_torch.continuum import scenarios as qs
+from repro_torch.continuum import tenancy as qt
 from repro_torch.continuum.metrics import StepSeries, StreamOutputs
 from repro_torch.continuum.scenarios import Drivers
 from repro_torch.core import bandit as qb
@@ -89,8 +98,7 @@ from repro_torch.obs import recorder as obr
 
 @dataclass(frozen=True)
 class SimConfig:
-    """Every field of the reference ``SimConfig``; the tenancy field
-    must stay neutral.
+    """Every field of the reference ``SimConfig``.
 
     Request lifecycle (off by default): an attempt past
     ``attempt_timeout`` seconds is abandoned by the client and observed
@@ -101,7 +109,9 @@ class SimConfig:
     consecutive timeouts on one (player, arm) open a breaker for
     ``breaker_cooldown`` seconds. ``control`` takes a
     ``continuum.control.ControlConfig``, ``recorder`` an
-    ``obs.recorder.RecorderConfig`` (streaming only)."""
+    ``obs.recorder.RecorderConfig`` (streaming only), ``tenancy`` a
+    ``continuum.tenancy.TenancyConfig`` (two or more tenants: the
+    multi-tenant engine, streaming only)."""
     dt: float = 0.1                  # step length [s] = client period
     horizon: float = 300.0           # simulated seconds
     maint_every: int = 10            # QEdgeProxy decision interval H_d [steps]
@@ -133,7 +143,7 @@ class SimConfig:
 
     @property
     def tenancy_on(self) -> bool:
-        return self.tenancy is not None and self.tenancy.enabled
+        return qt.tenancy_enabled(self)
 
     @property
     def resilience_on(self) -> bool:
@@ -165,8 +175,6 @@ def _check_main_path(cfg: SimConfig, pshard) -> None:
             raise ValueError("S=1 TenancyConfig needs a neutral "
                              "service_scale: the single-tenant path reads "
                              "drivers.s_m unscaled")
-    if cfg.tenancy_on:
-        raise _not_ported("the multi-tenant engine", "A9")
     if pshard is not None:
         raise _not_ported("player sharding", "A10")
 
@@ -463,6 +471,27 @@ def _stagger_groups(k_phase, K_global: int, n_phases: int, width: int,
     return torch.where(ok, local, K_local).transpose(-1, -2).to(torch.int32)
 
 
+def _lane_groups(k_phase, K: int, S: int, n_phases: int) -> torch.Tensor:
+    """(n_phases, S·ceil(K/n_phases)) stagger table of S lanes from (S,
+    2) keys: each lane's table, its players numbered across the lanes
+    (lane s's player k is s·K + k), the sentinel S·K."""
+    n_blocks = -(-K // n_phases)
+    g = _stagger_groups(k_phase, K, n_phases, n_blocks, 0, K).long()
+    lane = torch.arange(S, device=k_phase.device)[:, None, None]
+    g = torch.where(g < K, g + lane * K, S * K)
+    return g.transpose(0, 1).reshape(n_phases, S * n_blocks).to(torch.int32)
+
+
+def _t_plus(t_idx: int, dt32):
+    """``t_plus(c)``: ``t + c`` at step ``t_idx`` as the reference's
+    compiler rounds it, one FMA of ``t_idx * dt + c``."""
+    def t_plus(c: float) -> float:
+        return float(np.float32(np.float64(np.float32(t_idx))
+                                * np.float64(dt32)
+                                + np.float64(np.float32(c))))
+    return t_plus
+
+
 def _row(drawn, r: int):
     """Round ``r``'s row of a ``draw`` result (a tensor, a tuple, None)."""
     if drawn is None:
@@ -490,8 +519,12 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     sentinel ``S·K``); ``changed`` an (S,) numpy bool array; the queue
     and liveness (S, M), the accumulator and ``ys`` with a leading (S,)
     axis; the breaker (S·K, M) and the control carry in the lane layout
-    of ``continuum.control``."""
+    of ``continuum.control``. A tenant config dispatches to
+    ``_tenant_lane_parts``."""
     _check_main_path(cfg, pshard)
+    if cfg.tenancy_on:
+        return _tenant_lane_parts(strategy_name, cfg, K, M, S, fused, trace,
+                                  warmup_steps, **strategy_kw)
     res_on = cfg.attempt_timeout > 0.0
     if not res_on and (cfg.max_retries or cfg.breaker_threshold):
         raise ValueError(
@@ -525,7 +558,6 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                       and "fused_round" in strat)
     feed = strat["record_feedback"] if batched_record else strat["record"]
     n_phases = max(cfg.maint_every, 1)
-    n_blocks = -(-K // n_phases)
     ev_pre_steps = max(1, int(round(cfg.ev_pre / cfg.dt)))
     ev_bucket_steps = max(1, int(round(cfg.ev_bucket / cfg.dt)))
     dt32 = np.float32(cfg.dt)
@@ -537,13 +569,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         k_init, k_phase, k_scan = prand.split(key, 3).unbind(-2)
         s0 = strat["init"](rtt.reshape(SK, M), active0, k_init, pids)
         q0 = torch.zeros(S, M, dtype=torch.float32, device=dev)
-        # each lane's table, its players numbered across the lanes; the
-        # sentinel becomes S·K
-        g = _stagger_groups(k_phase, K, n_phases, n_blocks, 0, K).long()
-        lane = torch.arange(S, device=dev)[:, None, None]
-        g = torch.where(g < K, g + lane * K, SK)
-        groups = g.transpose(0, 1).reshape(n_phases, S * n_blocks).to(
-            torch.int32)
+        groups = _lane_groups(k_phase, K, S, n_phases)
         acc = None if trace else qm.init_accumulator(
             K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
             device=dev, lanes=S)
@@ -719,13 +745,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
         t_host = float(np.float32(t_idx) * dt32)
         t = torch.full((), t_host, dtype=torch.float32, device=dev)
         nc = nc.reshape(SK)
-
-        def t_plus(c: float) -> float:
-            # ``t + c`` as the reference's compiler rounds it: one FMA
-            # of t_idx * dt + c
-            return float(np.float32(np.float64(np.float32(t_idx))
-                                    * np.float64(dt32)
-                                    + np.float64(np.float32(c))))
+        t_plus = _t_plus(t_idx, dt32)
 
         # control plane: the effective drivers for everything downstream;
         # ``nc`` becomes the admitted slots, ``nc_sched`` the demand
@@ -862,6 +882,254 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     return init_fn, step_fn
 
 
+# PRNG salt separating tenant round-key folds from every other fold off
+# the round key: tenant s's draws are a pure function of (step key,
+# round, tenant, player id), whatever the tenant count.
+_TENANT_SALT = 7001
+
+
+def _interference(other, xi: float):
+    """``1 + xi * other`` as the reference's compiler rounds it: one
+    FMA."""
+    return fmath.fma(other, xi, 1.0)
+
+
+def _backlog_work(b, s_eff):
+    """(S, M) seconds of work outstanding, ``sum_i b[:, i] * s_eff[:,
+    i]`` over the tenants as the reference's compiler sums it: an FMA
+    chain, ``fma(b_3, s_3, fma(b_2, s_2, fma(b_1, s_1, b_0 * s_0)))``."""
+    work = b[:, 0] * s_eff[:, 0]
+    for i in range(1, b.shape[1]):
+        work = fmath.fma(b[:, i], s_eff[:, i], work)
+    return work
+
+
+def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
+                       S: int, fused: bool, trace: bool, warmup_steps: int,
+                       **strategy_kw):
+    """The multi-tenant engine: NT services on one shared fleet, S lanes
+    of it. The reference's ``_build_tenant_parts`` in the lane layout.
+
+    The same ``(init_fn, step_fn)`` contract and 9-slot carry as
+    ``_lane_parts``: the strategy-state and accumulator slots hold
+    NT-tuples (tenant i's bandit fleet over the S·K players of every
+    lane, built with tau = taus[i]; its lane-batched accumulator), the
+    queue is the shared (S, NT, M) per-tenant backlog, and ``ys`` is a
+    ``StepSeries`` of (S, NT) rows; the breaker, control and recorder
+    slots stay None. ``xs``'s ``n_clients`` is (S, NT, K).
+
+    A request's position in line is the TOTAL backlog (a sum over
+    tenants) at its instance; its service time is the tenant's
+    effective row (``tenancy.TenancyConfig``: demand scale times the
+    interference of the backlog other tenants hold); each round's drain
+    is work-conserving processor sharing: the round's ``dt / C`` seconds
+    retire the same fraction ``min(1, (dt / C) / work)`` of every
+    tenant's backlog, ``work`` the seconds outstanding. Round r of
+    tenant i draws from ``fold_in(fold_in(k_step, r), _TENANT_SALT +
+    i)``, split into the selection and noise keys; every round's draws
+    are made before the loop. The C rounds run as a scan (the fused
+    round kernel is single-service and never launches here); with
+    ``fused`` the rings are written once a step and maintenance runs
+    on the due players, one maintenance launch per tenant a step for
+    all lanes."""
+    tn = cfg.tenancy
+    NT = tn.S
+    if trace:
+        raise ValueError(
+            "the multi-tenant engine is streaming-only: per-tenant "
+            "trajectories are O(S*T*K*...) (set trace=False)")
+    if cfg.resilience_on or cfg.max_retries or cfg.breaker_threshold:
+        raise ValueError(
+            "tenancy does not compose with the resilience layer yet: "
+            "run multi-tenant configs with attempt_timeout=0, "
+            "max_retries=0, breaker_threshold=0")
+    if qc.control_enabled(cfg):
+        raise ValueError(
+            "tenancy does not compose with the control plane yet: "
+            "run multi-tenant configs with control=None")
+    if obr.recorder_enabled(cfg):
+        raise ValueError(
+            "tenancy does not compose with the flight recorder yet: "
+            "run multi-tenant configs with recorder=None")
+    if "params" in strategy_kw:
+        raise ValueError(
+            "explicit params= would share one tau across tenants; "
+            "per-tenant params are derived from TenancyConfig.taus")
+    T, C, SK = cfg.num_steps, cfg.max_clients, S * K
+    taus = tuple(float(x) for x in tn.taus)
+    xi = float(tn.interference)
+    strats = tuple(make_strategy(strategy_name,
+                                 dataclasses.replace(cfg, tau=taus[i]), SK, M,
+                                 **strategy_kw) for i in range(NT))
+    batched_record = fused and "record_rings" in strats[0]
+    subset_maint = fused and "maintain_subset" in strats[0]
+    feeds = tuple(st["record_feedback"] if batched_record else st["record"]
+                  for st in strats)
+    n_phases = max(cfg.maint_every, 1)
+    ev_pre_steps = max(1, int(round(cfg.ev_pre / cfg.dt)))
+    ev_bucket_steps = max(1, int(round(cfg.ev_bucket / cfg.dt)))
+    dt32 = np.float32(cfg.dt)
+
+    def total(q):
+        """(S, M) backlog summed over tenants, in tenant order."""
+        out = q[:, 0]
+        for i in range(1, NT):
+            out = out + q[:, i]
+        return out
+
+    @functools.cache
+    def scales(device):
+        # (1, NT, 1), uploaded once per device: no copy in the step
+        return torch.tensor(tn.scales, dtype=torch.float32,
+                            device=device)[None, :, None]
+
+    def eff_service(q, q_tot, s_m):
+        """(S, NT, M) effective service rows at the (S, NT, M) backlog:
+        the tenant's demand scale, times ``1 + xi * other`` with
+        ``other`` the share of the backlog other tenants hold (one FMA,
+        as the reference's compiler rounds it)."""
+        base = s_m[:, None, :] * scales(q.device)
+        if xi == 0.0:
+            return base
+        other = (q_tot[:, None, :] - q) / (1.0 + q_tot[:, None, :])
+        return base * _interference(other, xi)
+
+    def init_fn(rtt, active0, key, pids=None):
+        dev = rtt.device
+        if pids is None:
+            pids = torch.arange(K, dtype=torch.int32, device=dev)
+        k_init, k_phase, k_scan = prand.split(key, 3).unbind(-2)
+        s0 = tuple(strats[i]["init"](rtt.reshape(SK, M), active0,
+                                     prand.fold_in(k_init, i), pids)
+                   for i in range(NT))
+        q0 = torch.zeros(S, NT, M, dtype=torch.float32, device=dev)
+        accs = tuple(qm.init_accumulator(
+            K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
+            device=dev, lanes=S) for _ in range(NT))
+        keys = prand.split(k_scan, T)
+        return (s0, q0, active0, accs, _lane_groups(k_phase, K, S, n_phases),
+                pids, None, None, None), keys
+
+    def step_fn(rtt, marks, carry, xs, changed):
+        states, q, prev_active, accs, groups, pids, _b, _c, _r = carry
+        t_idx, nc, act, rtt_scale, cut_k, cut_m, s_m, k_step, group = xs
+        dev = rtt.device
+        t_host = float(np.float32(t_idx) * dt32)
+        t = torch.full((), t_host, dtype=torch.float32, device=dev)
+        t_plus = _t_plus(t_idx, dt32)
+        rtt_t = (rtt * rtt_scale[:, None, :] + torch.minimum(
+            cut_k[:, :, None], cut_m[:, None, :])).reshape(SK, M)
+
+        # placement events, in every tenant's fleet, for the lanes whose
+        # liveness changed
+        if changed.any():
+            moved = torch.as_tensor(changed, device=dev)
+            states = tuple(strats[i]["on_activity"](states[i], act, rtt_t, t,
+                                                    moved)
+                           for i in range(NT))
+        if subset_maint:
+            states = tuple(strats[i]["maintain_subset"](states[i], rtt_t, t,
+                                                        group)
+                           for i in range(NT))
+        else:
+            lb_mask = torch.zeros(SK + 1, dtype=torch.bool, device=dev)
+            lb_mask[group.to(torch.int64)] = True       # sentinel SK: dropped
+            states = tuple(strats[i]["maintain"](states[i], rtt_t, t,
+                                                 lb_mask[:SK])
+                           for i in range(NT))
+
+        # the oracle and regret per tenant at step start, against the
+        # total backlog and the tenant's effective row
+        q_tot = total(q)
+        s_eff = eff_service(q, q_tot, s_m)
+        q_rows = lane_rows(q_tot, SK)
+        mu = tuple(_true_mu_tau(rtt_t, q_rows, taus[i], cfg.proc_sigma,
+                                lane_rows(s_eff[:, i], SK))
+                   for i in range(NT))
+        reg = tuple(step_regret(strats[i]["weights"](states[i]), mu[i], act)
+                    for i in range(NT))
+        cols = torch.arange(C, device=dev)[None, :]
+        masks = tuple(cols < nc[:, i].reshape(SK)[:, None]
+                      for i in range(NT))
+
+        # every round's keys and draws, tenant-minor: row r·NT + i
+        k_r = prand.fold_in(k_step[..., None, :], torch.arange(C, device=dev))
+        k_t = prand.fold_in(k_r[..., None, :],
+                            _TENANT_SALT + torch.arange(NT, device=dev))
+        ks = prand.split(k_t).reshape(S, C * NT, 2, 2)
+        z = _noise(cfg, ks[..., 1, :], pids)                # (C·NT, S·K)
+        drawn = _by_round(strats[0]["draw"](ks[..., 0, :], pids))
+        kidx = torch.arange(SK, device=dev)
+        lane = lane_of(SK, S, dev)
+        arrivals = torch.zeros(S, NT, M, dtype=torch.float32, device=dev)
+        rows = [([], [], []) for _ in range(NT)]
+        states = list(states)
+        drain = torch.full((S, M), cfg.dt / C, dtype=torch.float32,
+                           device=dev)
+        for r in range(C):
+            if r:
+                q_tot = total(q)
+                s_eff = eff_service(q, q_tot, s_m)
+            arr = torch.zeros(S * NT * M, dtype=torch.float32, device=dev)
+            for i in range(NT):
+                row = r * NT + i
+                choice, st = strats[i]["select"](states[i], _row(drawn, row),
+                                                 t, act, pids)
+                # position in line is the TOTAL backlog; only the
+                # service time is the tenant's
+                q1s = (q_tot[lane, choice] + 1.0) * s_eff[lane, i, choice]
+                proc = q1s * z[row]
+                lat = fmath.fma(q1s, z[row], rtt_t[kidx, choice])
+                mask = masks[i][:, r]
+                states[i] = feeds[i](st, choice, lat, t, mask, t_plus)
+                arr.index_add_(0, (lane * NT + i) * M + choice,
+                               mask.to(torch.float32))
+                for buf, y in zip(rows[i], (choice, lat, proc)):
+                    buf.append(y)
+            arr = arr.reshape(S, NT, M)
+            # processor sharing: the round's dt/C seconds retire the same
+            # fraction of every tenant's backlog
+            b = q + arr
+            f = torch.clamp_max(
+                drain / torch.clamp_min(_backlog_work(b, s_eff), 1e-9), 1.0)
+            q = b * (1.0 - f[:, None, :])
+            arrivals = arrivals + arr            # integer-valued: order-free
+
+        new_accs, succ, iss, regs = [], [], [], []
+        for i in range(NT):
+            ch, lat, proc = (torch.stack(x, dim=1) for x in rows[i])
+            ch = ch.to(torch.int32)
+            if batched_record:
+                states[i] = strats[i]["record_rings"](states[i], ch, lat, t,
+                                                      masks[i])
+            rewards = (lat <= taus[i]).to(torch.float32).reshape(S, K, C)
+            issued = masks[i].reshape(S, K, C)
+            issf = issued.to(torch.float32)
+            r_k = reg[i].reshape(S, K)
+            new_accs.append(qm.update_accumulator(
+                accs[i], rewards=rewards, issued=issued,
+                choices=ch.reshape(S, K, C), procs=proc.reshape(S, K, C),
+                arrivals=arrivals[:, i], regret=r_k,
+                mu=mu[i].reshape(S, K, M), t_idx=t_idx,
+                warmup_steps=warmup_steps, marks=marks,
+                ev_pre_steps=ev_pre_steps, ev_bucket_steps=ev_bucket_steps,
+                attempts=issued.to(torch.int32),
+                dropped=torch.zeros_like(issued), brk_open=None,
+                served=None))
+            succ.append((rewards * issf).sum((1, 2)))
+            iss.append(issf.sum((1, 2)))
+            regs.append(r_k.sum(-1))
+        # one value per tenant: the series come out (S, T, NT)
+        ys = StepSeries(succ=torch.stack(succ, -1),
+                        issued=torch.stack(iss, -1),
+                        regret=torch.stack(regs, -1),
+                        attempts=torch.stack(iss, -1))
+        return (tuple(states), q, act, tuple(new_accs), groups, pids, None,
+                None, None), ys
+
+    return init_fn, step_fn
+
+
 def _with_active(state, f):
     """``state`` with ``f`` applied to its ``active`` field, if any."""
     if "active" in getattr(state, "_fields", ()):
@@ -901,21 +1169,23 @@ def build_sim_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
                                warmup_steps, pshard, **strategy_kw)
 
     def one(x):
-        return None if x is None else type(x)(*(v[None] for v in x))
+        return qm.each(x, lambda v: type(v)(*(a[None] for a in v)))
 
     def first(x):
-        return None if x is None else type(x)(*(v[0] for v in x))
+        return qm.each(x, lambda v: type(v)(*(a[0] for a in v)))
 
     def to_lanes(carry):
         state, q, prev, acc, groups, pids, brk, ctl, rec = carry
-        return (_with_active(state, lambda a: a[None]), q[None], prev[None],
-                one(acc), groups, pids, brk,
+        return (qm.each(state,
+                        lambda st: _with_active(st, lambda a: a[None])),
+                q[None], prev[None], one(acc), groups, pids, brk,
                 None if ctl is None else qc.with_lane_axis(ctl), one(rec))
 
     def from_lanes(carry):
         state, q, prev, acc, groups, pids, brk, ctl, rec = carry
-        return (_with_active(state, lambda a: a[0]), q[0], prev[0],
-                first(acc), groups, pids, brk,
+        return (qm.each(state,
+                        lambda st: _with_active(st, lambda a: a[0])),
+                q[0], prev[0], first(acc), groups, pids, brk,
                 None if ctl is None else qc.without_lane_axis(ctl),
                 first(rec))
 
@@ -967,6 +1237,7 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
     def run(rtts, drivers: Drivers, keys, service_time=None, pids=None):
         dev = rtts.device
         drivers = _lane_drivers(drivers, S)
+        _check_tenant_drivers(cfg, drivers.n_clients, 4)
         if service_time is not None:
             drivers = drivers._replace(
                 s_m=torch.full_like(drivers.s_m, service_time))
@@ -995,6 +1266,18 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
                              ctrl=_lane_counters(carry[7], S), rec=carry[8])
 
     return run
+
+
+def _check_tenant_drivers(cfg: SimConfig, n_clients, dims: int) -> None:
+    """A tenant run's ``n_clients`` must carry the tenant axis before K
+    (``dims`` axes in all, lanes included)."""
+    NT = qt.tenancy_size(cfg)
+    if NT and (n_clients.dim() != dims or n_clients.shape[-2] != NT):
+        raise ValueError(
+            f"multi-tenant run needs a (T, S={NT}, K) n_clients schedule "
+            f"(got {tuple(n_clients.shape)}): compile with "
+            "scenarios.compile_tenant_scenario / tenant_neutral_drivers / "
+            "broadcast_tenants")
 
 
 def _lane_counters(ctl, S: int):
@@ -1033,8 +1316,13 @@ def _resolve_drivers(cfg, K, M, drivers, n_clients, active, device):
             raise ValueError("pass either drivers= or n_clients=/active=, "
                              "not both")
         return Drivers(*(x.to(device) for x in drivers))
-    return qs.neutral_drivers(cfg, K, M, n_clients=n_clients, active=active,
-                              device=device)
+    drv = qs.neutral_drivers(cfg, K, M, n_clients=n_clients, active=active,
+                             device=device)
+    if cfg.tenancy_on:
+        # schedules built here serve every tenant; drivers passed in must
+        # carry the tenant axis already (the run checks)
+        drv = qs.broadcast_tenants(drv, cfg.tenancy.S)
+    return drv
 
 
 def _inputs(rtt, key, device):
@@ -1186,6 +1474,7 @@ def build_sim_chunks(strategy_name: str, cfg: SimConfig, K: int, M: int,
 
     def chunk_fn(rtt, carry, t_idx, drivers: Drivers, keys,
                  service_time=None):
+        _check_tenant_drivers(cfg, drivers.n_clients, 3)
         if service_time is not None:
             drivers = drivers._replace(
                 s_m=torch.full_like(drivers.s_m, service_time))

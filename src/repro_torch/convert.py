@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.continuum.control import (ControlCarry, ControlCounters,
                                            ControlState)
-from repro_torch.continuum.metrics import MetricAccumulator
+from repro_torch.continuum.metrics import MetricAccumulator, each
 from repro_torch.continuum.scenarios import Drivers
 from repro_torch.continuum.simulator import DSState, PMState
 from repro_torch.core.bandit import BanditState, BreakerState
@@ -107,8 +107,10 @@ def strategy_state_to_torch(s, device=None):
     return _tuple_to_torch(_TUPLES[fields], s, device)
 
 
-def accumulator_to_torch(acc, device=None) -> MetricAccumulator:
-    return _tuple_to_torch(MetricAccumulator, acc, device)
+def accumulator_to_torch(acc, device=None):
+    """A ``MetricAccumulator``, or a tenant run's tuple of them."""
+    return each(acc, lambda a: _tuple_to_torch(MetricAccumulator, a,
+                                               device))
 
 
 def drivers_to_torch(drv, device=None) -> Drivers:
@@ -145,14 +147,16 @@ def carry_to_torch(carry, device=None) -> tuple:
     """The 9-slot step carry ``(state, queue, prev_active, acc, groups,
     pids, breaker, control, recorder)`` of any strategy, streaming
     (``acc`` set) or trace mode (``acc`` None), with or without the
-    breaker, control and recorder slots."""
+    breaker, control and recorder slots. A tenant carry's state and
+    accumulator slots are tuples, one member a tenant, and its queue
+    is (NT, M)."""
     if len(carry) != len(CARRY_SLOTS):
         raise ValueError(f"a step carry has {len(CARRY_SLOTS)} slots")
     state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
-    return (strategy_state_to_torch(state, device),
+    return (each(state, lambda s: strategy_state_to_torch(s, device)),
             array_to_torch(q, device),
             array_to_torch(prev_active, device),
-            None if acc is None else accumulator_to_torch(acc, device),
+            accumulator_to_torch(acc, device),
             array_to_torch(groups, device), array_to_torch(pids, device),
             None if brk is None else breaker_to_torch(brk, device),
             None if ctl is None else control_to_torch(ctl, device),
@@ -162,13 +166,11 @@ def carry_to_torch(carry, device=None) -> tuple:
 def carry_to_numpy(carry) -> tuple:
     """The port's step carry as numpy arrays, in the same 9 slots."""
     state, q, prev_active, acc, groups, pids, brk, ctl, rec = carry
-
-    def tup(x):
-        return None if x is None else _tuple_to_numpy(x)
-
-    return (_tuple_to_numpy(state), array_to_numpy(q),
-            array_to_numpy(prev_active), tup(acc), array_to_numpy(groups),
-            array_to_numpy(pids), tup(brk), tup(ctl), tup(rec))
+    return (each(state, _tuple_to_numpy), array_to_numpy(q),
+            array_to_numpy(prev_active), each(acc, _tuple_to_numpy),
+            array_to_numpy(groups), array_to_numpy(pids),
+            each(brk, _tuple_to_numpy), each(ctl, _tuple_to_numpy),
+            each(rec, _tuple_to_numpy))
 
 
 def _flatten(tree, prefix: str = ""):

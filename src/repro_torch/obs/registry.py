@@ -11,7 +11,9 @@ streaming outputs. Port of ``repro/obs/registry.py``.
   (accumulator statistics, resilience and control counters, the flight
   recorder's counts, one labelled record per scenario event);
 * :func:`stream_cell`: the benchmark-cell dict the scenario suite's
-  lanes report.
+  lanes report;
+* :func:`collect_tenants` and :func:`tenant_cell`: the same for a tenant
+  run (``StreamOutputs.acc`` a tuple of per-tenant accumulators).
 
 The documents are the reference's, schema tag and version included, so
 either package's validators accept the other's. This module imports
@@ -331,6 +333,57 @@ def stream_cell(outs, *, rho: float, bucket_s: float,
     cell.update(recovery_summary(recs, max_recovery=max_recovery))
     if control and outs.ctrl is not None:
         cell.update(control_stats_stream(acc, outs.ctrl))
+    return cell
+
+
+# ---------------------------------------------------------------------------
+# Multi-tenant collectors (StreamOutputs.acc a tuple of NT accumulators).
+# ---------------------------------------------------------------------------
+
+def collect_tenants(outs, *, rho: float) -> MetricSet:
+    """Per-tenant QoS and cross-tenant fairness from one tenant run
+    (``SimConfig.tenancy`` with two or more tenants)."""
+    accs = outs.acc
+    if not qm.is_tenant_run(accs):
+        raise TypeError("collect_tenants expects a tenant run "
+                        "(StreamOutputs.acc must be a tuple of per-"
+                        "tenant MetricAccumulators)")
+    ms = MetricSet()
+    sat = qm.tenant_qos_satisfaction_stream(accs, rho)
+    qos = qm.tenant_qos_stream(accs)
+    served = qm.tenant_served_stream(accs)
+    for s in range(len(accs)):
+        ms.add("repro_tenant_qos_satisfaction_pct", float(sat[s]),
+               help="tenant clients with success ratio >= rho, %",
+               tenant=s)
+        ms.add("repro_tenant_qos_ratio", float(qos[s]),
+               help="tenant overall QoS success ratio", tenant=s)
+        ms.add("repro_tenant_requests", float(served[s]), "counter",
+               help="tenant post-warmup issued requests", tenant=s)
+    for k, v in qm.tenant_fairness_stream(accs).items():
+        ms.add(f"repro_fairness_{k}", v,
+               help=f"cross-tenant fairness index: {k.replace('_', ' ')}")
+    part = qm.tenant_partition_stream(accs)
+    ms.add("repro_tenant_partition_index", part["partition_index"],
+           help="1 - mean pairwise routing overlap between tenants")
+    ms.add("repro_tenant_mean_overlap", part["mean_overlap"],
+           help="mean pairwise min-overlap of tenant routing profiles")
+    return ms
+
+
+def tenant_cell(outs, *, rho: float) -> dict:
+    """One multi-tenant benchmark-cell dict, the ``multi_tenant`` lane's
+    schema: per-tenant QoS columns (index = tenant id) plus the
+    cross-tenant fairness and partition scalars."""
+    accs = outs.acc
+    cell = {
+        "tenant_qos_sat_pct": [
+            float(v) for v in qm.tenant_qos_satisfaction_stream(accs, rho)],
+        "tenant_qos_ratio": [float(v) for v in qm.tenant_qos_stream(accs)],
+        "tenant_requests": [float(v) for v in qm.tenant_served_stream(accs)],
+    }
+    cell.update(qm.tenant_fairness_stream(accs))
+    cell.update(qm.tenant_partition_stream(accs))
     return cell
 
 

@@ -12,6 +12,10 @@
 * A run stopped at ``stop_at_step`` and resumed from its checkpoints
   equals the uninterrupted run, its series as long as the horizon; an
   empty directory resumes as a cold start.
+* A multi-tenant run (two tenants, the tuple of strategy states and of
+  accumulators and the (NT, M) queue in the carry): chunked equals
+  unchunked, and a run stopped at step 80 and resumed under another
+  chunk length equals the uninterrupted one, bit for bit.
 """
 import dataclasses
 import json
@@ -32,6 +36,7 @@ from repro_torch.continuum import scenarios as tscn
 from repro_torch.continuum import simulator as ts
 from repro_torch.continuum import topology as ttopo
 from repro_torch.continuum.control import ControlConfig
+from repro_torch.continuum.tenancy import TenancyConfig
 
 K, M, STANDBY = 12, 4, 2
 CFG = ts.SimConfig(max_clients=4, ring=16, horizon=4.0, **tsuite.CONTROL_RES,
@@ -209,3 +214,35 @@ def test_empty_directory_is_a_cold_start(run_inputs, whole, tmp_path):
     assert Checkpointer(str(tmp_path / "new")).all_steps() == [20]
     with pytest.raises(ValueError, match="chunked"):
         run(run_inputs, checkpoint_dir=str(tmp_path / "x"))
+
+
+def assert_same_tenant_run(a, b):
+    assert isinstance(a.acc, tuple) and len(a.acc) == len(b.acc)
+    for s, (x, y) in enumerate(zip(a.acc, b.acc)):
+        for f in x._fields:
+            assert torch.equal(getattr(x, f), getattr(y, f)), (s, f)
+    for f in a.series._fields:
+        assert torch.equal(getattr(a.series, f), getattr(b.series, f)), f
+
+
+def test_tenant_chunks_and_resume(tmp_path):
+    """Chunked = unchunked; stopped at step 80 and resumed under another
+    chunk length = uninterrupted, the tenant carry in the checkpoint."""
+    cfg = ts.SimConfig(horizon=12.0, tenancy=TenancyConfig(
+        taus=(0.080, 0.150), interference=0.3))
+    rtt = ttopo.make_topology(2, 10, 4, device="cpu").lb_instance_rtt()
+    drv = tscn.tenant_neutral_drivers(cfg, 2, 10, 4, base_clients=1,
+                                      device="cpu")
+    kw = dict(drivers=drv, warmup_steps=30, device="cpu")
+    full = ts.run_sim_stream("qedgeproxy", rtt, cfg, 5, **kw)
+    assert tuple(full.series.succ.shape) == (120, 2)
+    assert_same_tenant_run(full, ts.run_sim_stream(
+        "qedgeproxy", rtt, cfg, 5, chunk_steps=40, **kw))
+    d = str(tmp_path / "ck")
+    part = ts.run_sim_stream("qedgeproxy", rtt, cfg, 5, chunk_steps=40,
+                             checkpoint_dir=d, stop_at_step=80, **kw)
+    assert tuple(part.series.succ.shape) == (80, 2)
+    assert Checkpointer(d).latest_step() == 80
+    res = ts.run_sim_stream("qedgeproxy", rtt, cfg, 5, chunk_steps=25,
+                            checkpoint_dir=d, resume=True, **kw)
+    assert_same_tenant_run(full, res)

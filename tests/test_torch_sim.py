@@ -293,9 +293,9 @@ def test_stagger_groups_exact(K):
     dict(tenancy=TenancyConfig(taus=(0.08, 0.2))),
     dict(max_retries=1)])
 def test_off_path_settings_raise(change, rtt30):
-    # tenancy waits for ROADMAP A9, in either strategy family and in
-    # either mode; retries without a timeout are refused, and the flight
-    # recorder in trace mode (it streams), as the reference refuses them
+    # the flight recorder and tenancy stream and refuse trace mode (a
+    # tenant run returns one accumulator a tenant); retries without a
+    # timeout are refused in either mode, as the reference refuses them
     cfg = ts.SimConfig(horizon=0.5, **change)
     if "recorder" in change:
         assert ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7,
@@ -303,11 +303,16 @@ def test_off_path_settings_raise(change, rtt30):
         with pytest.raises(ValueError, match="streaming-only"):
             ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
         return
-    error, match = ((ValueError, "attempt_timeout") if "max_retries" in change
-                    else (NotImplementedError, "ROADMAP A9"))
-    with pytest.raises(error, match=match):
+    if "tenancy" in change:
+        out = ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")
+        assert isinstance(out.acc, tuple) and len(out.acc) == 2
+        assert tuple(out.series.succ.shape) == (cfg.num_steps, 2)
+        with pytest.raises(ValueError, match="streaming-only"):
+            ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
+        return
+    with pytest.raises(ValueError, match="attempt_timeout"):
         ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="attempt_timeout"):
         ts.run_sim("dec_sarsa", rtt30, cfg, 7, device="cpu")
 
 
