@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # the check: one card, minutes
     python3 chip_smoke.py --profile build/prof  # also profiler breakdowns
+    python3 chip_smoke.py --fleet-only 3 [--profile DIR]  # the fleet alone
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -119,6 +120,25 @@ Phases, one JSON line each; any failure exits non-zero:
                 25-step chunks, and stopped at step 50 into a checkpoint
                 and resumed, equal to it. Each policy's grid steps/s,
                 peak memory; the phase's seconds (budget 120 s).
+   players   -- player sharding and the sharded grid, two ranks of a gloo
+                process group on the one card (``launch.mesh.spawn``):
+                (a) the K=1000 x M=50 anchor fleet under ``qedgeproxy``
+                for 100 steps on a 2-rank players mesh
+                (``run_sim_players``) against the same run unsharded on
+                the card: every count and per-player field exactly
+                equal, the regret series within 1e-4; maintenance once a
+                step on each rank, the round kernel never (a sharded
+                step runs the round scan); steps/s and each rank's peak
+                memory above its baseline; (b) the lanes phase's four
+                library scenarios at 30x10 for 100 steps on a 2 data x 1
+                players mesh (``run_sim_grid(mesh=)``, two lanes a rank,
+                each simulator kernel once a step on each rank): every
+                lane equal to the same lane unsharded bit for bit. Each
+                rank runs both for 5 steps first (the same shapes), and
+                counts its all-reduces in the timed runs; then one
+                round's (1, M) all-reduce alone, 200 times, gives the
+                collective's ms a call and its share of the sharded
+                run. The phase's seconds (budget 60 s).
 8. serve     -- ``repro_torch.launch.serve`` with qwen3-4b at its
                 published width behind the QEdgeProxy router (3 replicas,
                 one slow); every request answers with finite logits, the
@@ -175,9 +195,9 @@ BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data shee
 MAINT_TOL = 1e-5    # |mu| error: 64-term sums reassociated, CUDA erff/powf ULPs
 ROUND_RTOL = 0.0    # the round kernel rounds every float as its plain version
 # the tenant step on the card against the CPU: the oracle's true mu (a
-# normal CDF: CUDA's erff against the CPU's erf, a few ULPs apart) decides
-# no pick, so it and the sums over it (regret, variation budget) may part;
-# every other field must not
+# normal CDF of a logarithm; a few float32 ULPs apart between the two
+# devices) decides no pick, so it and the sums over it (regret, variation
+# budget) may part; every other field must not
 ORACLE_FIELDS = ("prev_mu", "regret_k", "vb_k", "regret")
 ORACLE_MU_TOL = 1e-6
 # KDE alone: tests/test_kernels.py's bound (64-term sums reassociated, erff)
@@ -212,6 +232,11 @@ MULTI_TENANT = dict(horizon=24.0, alone_horizon=6.0, alone="mt_tenant_surge",
                     cpu_horizon=3.0)
 # the reference lane's tenant_requests on the CPU (24 s smoke run), both
 # policies: counts that the drivers alone decide
+# The players phase: the anchor fleet sharded over 2 ranks for 100 steps,
+# and the lanes phase's scenarios as a 2-rank grid for 100 steps, each
+# after a 5-step warm-up at the same shapes.
+PLAYERS = dict(ranks=2, horizon=10.0, lanes_horizon=10.0, warm_horizon=0.5,
+               regret_rtol=1e-4, budget_s=60.0)
 MT_REQUESTS = {"mt_baseline": [4800.0] * 4,
                "mt_tenant_surge": [8472.0, 4800.0, 4800.0, 4800.0]}
 PAYLOAD = "results/benchmarks/scenario_suite.json"   # the reference's lanes
@@ -1482,6 +1507,165 @@ def phase_multi_tenant(dev) -> None:
     emit(phase="multi_tenant_alone", scenario=names[i], **cell)
 
 
+def players_rank(fleet: tuple, grid: tuple, warm_fleet: tuple,
+                 warm_grid: tuple) -> dict:
+    """One rank of the players phase: (a) the fleet on a players mesh of
+    every rank, (b) the lanes on a data mesh of every rank; each first
+    run short (``warm_*``: the same shapes, a few steps) to load the
+    kernels and warm the allocator, then timed with this rank's kernel
+    launches, all-reduces, seconds and peak memory above what the rank
+    held before it. Then one round's (1, M) arrivals all-reduced alone
+    over the players axis, 200 times: the collective's milliseconds a
+    call."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.continuum import run_sim_grid, run_sim_players
+    from repro_torch.launch.mesh import (all_reduce, make_continuum_mesh,
+                                         make_grid_mesh)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fmesh, gmesh = make_continuum_mesh(), make_grid_mesh()
+
+    def run(part, args):
+        if part == "fleet":
+            return run_sim_players(*args, mesh=fmesh, device=dev)
+        return run_sim_grid(*args[:4], drivers=args[4], warmup_steps=args[5],
+                            mesh=gmesh, device=dev)
+
+    calls = [0]
+    reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return reduce(*a, **k)
+
+    out = {}
+    for part, args, short in (("fleet", fleet, warm_fleet),
+                              ("grid", grid, warm_grid)):
+        run(part, short)
+        base = memory_baseline(dev)
+        for k in all_kernels():
+            k.launches = 0
+        calls[0] = 0
+        dist.all_reduce = counted
+        try:
+            t0 = time.perf_counter()
+            res = run(part, args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            dist.all_reduce = reduce
+        out[part] = dict(result=res, seconds=secs, launches=sim_launches(),
+                         all_reduces=calls[0],
+                         peak_mem_bytes=peak_above(dev, base))
+    group = fmesh.axis("players").group
+    x = torch.ones(1, fleet[1].shape[1], device=dev)
+    for _ in range(10):
+        all_reduce(x, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        all_reduce(x, group)
+    torch.cuda.synchronize()
+    out["all_reduce_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    return out
+
+
+def phase_players(dev) -> None:
+    """Player sharding and the sharded grid on two gloo ranks of the one
+    card, each against the same run unsharded on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.continuum import (lane, run_sim_grid, run_sim_stream,
+                                       slice_drivers, stack_drivers)
+    from repro_torch.launch.mesh import spawn, to_host
+    t0 = time.perf_counter()
+    D = PLAYERS["ranks"]
+    cfg, rtt = fleet_inputs(dev, PLAYERS["horizon"])
+    T = cfg.num_steps
+    # the lanes phase's scenarios, their first lanes_horizon seconds
+    lcfg, rtts, keys, drivers = lanes_inputs(dev)
+    lcfg = type(lcfg)(horizon=PLAYERS["lanes_horizon"])
+    stacked = stack_drivers([slice_drivers(d, 0, lcfg.num_steps)
+                             for d in drivers])
+    # the warm-up: both runs cut to warm_horizon, the same shapes
+    wcfg = dataclasses.replace(cfg, horizon=PLAYERS["warm_horizon"])
+    wlcfg = type(lcfg)(horizon=PLAYERS["warm_horizon"])
+    wstacked = stack_drivers([slice_drivers(d, 0, wlcfg.num_steps)
+                              for d in drivers])
+    ranks = spawn(players_rank, D,
+                  ("qedgeproxy", rtt.cpu(), cfg, 7),
+                  ("qedgeproxy", rtts.cpu(), lcfg, keys.cpu(),
+                   to_host(stacked), LANES["warm"]),
+                  ("qedgeproxy", rtt.cpu(), wcfg, 7),
+                  ("qedgeproxy", rtts.cpu(), wlcfg, keys.cpu(),
+                   to_host(wstacked), 0),
+                  every_rank=True, timeout=PLAYERS["budget_s"] * 4)
+    spawn_s = time.perf_counter() - t0
+    # (a) against the fleet unsharded, on the fused round
+    t1 = time.perf_counter()
+    plain = run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    got = ranks[0]["fleet"]["result"]
+    for r, rk in enumerate(ranks):
+        need = dict(round_step_swrr=0, fused_maintenance=T)
+        if rk["fleet"]["launches"] != need:
+            raise AssertionError(f"players (a) rank {r}: launches "
+                                 f"{rk['fleet']['launches']}, the sharded "
+                                 f"path needs {need}")
+        n = lcfg.num_steps
+        if rk["grid"]["launches"] != dict(round_step_swrr=n,
+                                          fused_maintenance=n):
+            raise AssertionError(f"players (b) rank {r}: launches "
+                                 f"{rk['grid']['launches']} in {n} steps")
+    for f in plain.acc._fields:
+        if not torch.equal(getattr(got.acc, f), getattr(plain.acc, f).cpu()):
+            raise AssertionError(f"players (a): acc.{f} differs from the "
+                                 f"unsharded run")
+    for f in ("succ", "issued", "attempts"):
+        if not torch.equal(getattr(got.series, f), getattr(plain.series, f)):
+            raise AssertionError(f"players (a): series.{f} differs")
+    a, b = got.series.regret.double(), plain.series.regret.double()
+    regret_err = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    if not bool(((a - b).abs() <= PLAYERS["regret_rtol"] * b.abs()).all()):
+        raise AssertionError(f"players (a): regret series apart by "
+                             f"{regret_err} (rtol {PLAYERS['regret_rtol']})")
+    check_conservation(got.acc)
+    # (b) each lane against the same lane unsharded
+    grid_plain = run_sim_grid("qedgeproxy", rtts, lcfg, keys,
+                              drivers=stacked, warmup_steps=LANES["warm"],
+                              device=dev)
+    grid = ranks[0]["grid"]["result"]
+    for s in range(len(drivers)):
+        check_identical(lane(grid, s), to_host(lane(grid_plain, s)),
+                        f"players (b) lane {s} vs the lane unsharded")
+    secs = time.perf_counter() - t0
+    step_ms = ranks[0]["fleet"]["seconds"] / T * 1e3
+    reduces = ranks[0]["fleet"]["all_reduces"]
+    emit(phase="players", ranks=D, K=FLEET["K"], M=FLEET["M"], steps=T,
+         sharded_seconds=ranks[0]["fleet"]["seconds"],
+         sharded_steps_per_s=T / ranks[0]["fleet"]["seconds"],
+         unsharded_steps_per_s=T / plain_s,
+         rank_all_reduces=[rk["fleet"]["all_reduces"] for rk in ranks],
+         all_reduce_ms=[rk["all_reduce_ms"] for rk in ranks],
+         all_reduce_share_of_run=reduces * ranks[0]["all_reduce_ms"]
+         / T / step_ms,
+         rank_peak_mem_bytes=[rk["fleet"]["peak_mem_bytes"] for rk in ranks],
+         rank_launches=[rk["fleet"]["launches"] for rk in ranks],
+         regret_series_max_rel_err=regret_err, counts_exact=True,
+         grid_lanes=len(drivers), grid_steps=lcfg.num_steps,
+         grid_mesh=dict(data=D, players=1),
+         grid_seconds=ranks[0]["grid"]["seconds"],
+         grid_steps_per_s=len(drivers) * lcfg.num_steps
+         / ranks[0]["grid"]["seconds"],
+         grid_rank_launches=[rk["grid"]["launches"] for rk in ranks],
+         grid_rank_peak_mem_bytes=[rk["grid"]["peak_mem_bytes"]
+                                   for rk in ranks],
+         every_lane_identical=True, spawn_seconds=spawn_s, seconds=secs,
+         budget_s=PLAYERS["budget_s"], within_budget=secs <= PLAYERS[
+             "budget_s"], card=nvidia_smi())
+
+
 def tenant_alone(dev, horizon: float, name: str, label: str, kw: dict):
     """The multi-tenant lane's scenario ``name`` alone under policy
     ``label`` for ``horizon`` seconds on ``dev``: ``(queue, outputs,
@@ -2080,6 +2264,28 @@ def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
     prof.export_chrome_trace(str(trace_dir / f"{name}_trace.json"))
 
 
+def profile_fleet(dev, trace_dir: Path) -> None:
+    """The profiler breakdown of 20 fleet steps, after 20 unprofiled."""
+    from repro_torch.continuum import run_sim_stream
+    cfg, rtt = fleet_inputs(dev, 2.0)
+    run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
+    profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
+             "fleet", trace_dir, steps=cfg.num_steps)
+
+
+def phase_fleet_only(dev, repeats: int, trace_dir: Path | None) -> None:
+    """The fleet phase alone, ``repeats`` times after a 20-step warm-up,
+    then (``trace_dir``) its profile: the harness that compares two
+    trees' step on one card (run it from each tree's root)."""
+    from repro_torch.continuum import run_sim_stream
+    cfg, rtt = fleet_inputs(dev, 2.0)
+    run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
+    for _ in range(repeats):
+        phase_fleet(dev)
+    if trace_dir is not None:
+        profile_fleet(dev, trace_dir)
+
+
 def phase_profile(dev, trace_dir: Path) -> None:
     """Profiler breakdowns: 20 fleet steps; 20 steps of each suite
     strategy on the 30x10 testbed (seed 1); one prefill and one decode
@@ -2090,10 +2296,8 @@ def phase_profile(dev, trace_dir: Path) -> None:
     from repro_torch.configs import get_config
     from repro_torch.continuum import make_topology, run_sim_stream
     from repro_torch.models import build_model
+    profile_fleet(dev, trace_dir)
     cfg, rtt = fleet_inputs(dev, 2.0)
-    run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev)      # warm
-    profiled(lambda: run_sim_stream("qedgeproxy", rtt, cfg, 7, device=dev),
-             "fleet", trace_dir, steps=cfg.num_steps)
     # the fleet under the control plane (a), then also the lifecycle (b)
     import dataclasses
     from repro_torch.bench.scenarios import CONTROL_RES
@@ -2171,6 +2375,11 @@ def main() -> int:
     ap.add_argument("--profile-only", action="store_true",
                     help="with --profile: build the kernels and run only the "
                          "profiler breakdowns, no checks")
+    ap.add_argument("--fleet-only", type=int, default=0, metavar="N",
+                    help="build the kernels if missing or stale and time only "
+                         "the fleet phase, N times after a warm-up (with "
+                         "--profile DIR, also its profile): to compare two "
+                         "trees on one card")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -2185,6 +2394,10 @@ def main() -> int:
     emit(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    if args.fleet_only:
+        _build.load()
+        phase_fleet_only(dev, args.fleet_only, args.profile)
+        return 0
     build_s = _build.build()
     ptxas = ptxas_report((_build.BUILD_DIR / "build.log").read_text())
     emit(phase="build", seconds=build_s,
@@ -2211,6 +2424,7 @@ def main() -> int:
     phase_degradation(dev)
     phase_closed_loop(dev)
     phase_multi_tenant(dev)
+    phase_players(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
     served = phase_serve(dev, "serve", "qwen3-4b",
                          (flash_attention.flash_attention,),

@@ -1,12 +1,13 @@
 """Discrete-time CC simulator (paper §VII testbed) on the card.
 
-Port of ``repro/continuum/simulator.py`` on one device: strategies
-``qedgeproxy``, ``proxy_mity`` (any alpha) and ``dec_sarsa``, drivers as
-compiled, unsharded, one service or several, the fused round or the
-round scan, streaming metrics
-(``run_sim_stream``) or full trajectories (``run_sim``), one
+Port of ``repro/continuum/simulator.py``: strategies ``qedgeproxy``,
+``proxy_mity`` (any alpha) and ``dec_sarsa``, drivers as compiled, one
+service or several, the fused round or the round scan, streaming
+metrics (``run_sim_stream``) or full trajectories (``run_sim``), one
 simulation or S of them as lanes of one run (``run_sim_batch``,
-``run_sim_grid``), chunked horizons with checkpoint and resume. The
+``run_sim_grid``), chunked horizons with checkpoint and resume, and
+the players and the lanes split over ranks (``run_sim_players``,
+``run_sim_grid(mesh=)``). The
 instance model and the step are the reference's: every step of ``dt``
 issues up to ``max_clients`` rounds of requests per load balancer; a
 request that finds q requests queued at instance m sees ``rtt + (q +
@@ -66,8 +67,24 @@ and drain rows are (S, M); every reduction over players or instances
 stays within a lane, and a lane computes exactly what it computes
 alone. A single run is the one-lane case.
 
-Features the reference has beyond this path raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+**Player sharding** (``PlayerSharding``; ``run_sim_players`` on a
+``launch.mesh.make_continuum_mesh``): the reference's ``shard_map``
+over the ``players`` axis becomes D ranks of ``torch.distributed``,
+each running the program on its K/D players (global ids ``pids``; every
+draw is keyed by global id, so the shards draw what the whole run
+draws). The one cross-player coupling, the shared (M,) queues, takes
+one all-reduce SUM of the round's (S, M) arrivals before the drain
+(retries and tenants fold into the same one); the control plane sums
+its step observation, Dec-SARSA takes its lane RTT maximum as an
+all-reduce MAX, and the recorder writes fleet events on the shard
+holding player 0 only. The fused round kernel is off (a collective
+cannot sit inside it: the reference's rule), so a sharded step runs the
+round scan. After the run every rank assembles the full-K outputs:
+per-player fields concatenated (an all-reduce SUM of zero-filled
+full-size buffers, each rank writing its slice), the fleet fields and
+series summed, the recorder rings side by side. Arrivals are whole
+numbers in float32, so their sums are exact in any order; the regret
+series is the one sum reassociated.
 """
 from __future__ import annotations
 
@@ -92,8 +109,10 @@ from repro_torch.core.kde import normal_cdf
 from repro_torch.core.oracle import step_regret
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import lane_of, lane_rows
+from repro_torch.kernels.ref import _xla_row_sum, lane_of, lane_rows
+from repro_torch.launch.mesh import MeshAxis, all_reduce, tree_map
 from repro_torch.obs import recorder as obr
+from repro_torch.sharding import logical_to_spec
 
 
 @dataclass(frozen=True)
@@ -158,13 +177,27 @@ class SimConfig:
         return obr.recorder_enabled(self)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+class PlayerSharding(NamedTuple):
+    """Split the (K,) player axis over ``shards`` ranks: ``group`` is
+    the players axis' process group (``launch.mesh.Mesh.axis``) and
+    ``index`` this rank's place on it, which owns the global players
+    [index·K/shards, (index+1)·K/shards). ``build_sim_players_fn`` and
+    ``build_sim_grid_fn`` make it; a run given one takes the full
+    inputs on every rank and returns the full-K outputs."""
+    group: object
+    shards: int
+    index: int = 0
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group, "sum")
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group, "max")
 
 
-def _check_main_path(cfg: SimConfig, pshard) -> None:
-    """Raise for every setting that leaves the ported path."""
+def _check_main_path(cfg: SimConfig) -> None:
+    """Raise for a degenerate tenancy config that disagrees with the
+    single-service knobs it runs on."""
     tn = cfg.tenancy
     if tn is not None and not tn.enabled:
         if abs(tn.taus[0] - cfg.tau) > 1e-12:
@@ -175,8 +208,22 @@ def _check_main_path(cfg: SimConfig, pshard) -> None:
             raise ValueError("S=1 TenancyConfig needs a neutral "
                              "service_scale: the single-tenant path reads "
                              "drivers.s_m unscaled")
-    if pshard is not None:
-        raise _not_ported("player sharding", "A10")
+
+
+def _local_width(K: int, pshard, trace: bool = False) -> int:
+    """This shard's player count; the reference's errors for a
+    sharding that cannot split ``K`` or a trace-mode run."""
+    if pshard is None or pshard.shards == 1:
+        return K
+    if trace:
+        raise ValueError(
+            "player sharding is streaming-only: trajectories are "
+            "O(T*K*...) — the memory the sharding exists to split")
+    if K % pshard.shards:
+        raise ValueError(
+            f"K={K} players must be a multiple of the {pshard.shards}-way "
+            f"'players' axis of the mesh (pad K or reshape the mesh)")
+    return K // pshard.shards
 
 
 class SimOutputs(NamedTuple):
@@ -380,13 +427,14 @@ class DSState(NamedTuple):
 
 def dec_sarsa_strategy(params: bl.DecSarsaParams, cfg: SimConfig, K: int,
                        M: int, pshard=None):
-    if pshard is not None:
-        raise _not_ported("Dec-SARSA under player sharding", "A10")
-
     def init(rtt, active, key, pids):
-        # the proximity-normalized Q divides by each lane's RTT maximum
+        # the proximity-normalized Q divides by each lane's RTT maximum,
+        # over the shards a MAX: the baseline's one cross-player reduction
         lanes = active.shape[0]
-        rtt_max = lane_rows(rtt.reshape(lanes, -1).amax(-1)[:, None], K)
+        lane_max = rtt.reshape(lanes, -1).amax(-1)
+        if pshard is not None:
+            lane_max = pshard.max(lane_max)
+        rtt_max = lane_rows(lane_max[:, None], K)
         return DSState(bl.decsarsa_init(K, M, rtt, params, rtt_max), active,
                        torch.zeros(K, dtype=torch.int32, device=rtt.device))
 
@@ -420,7 +468,7 @@ def dec_sarsa_strategy(params: bl.DecSarsaParams, cfg: SimConfig, K: int,
         actf = act.to(torch.float32)
         uni = actf / torch.clamp_min(actf.sum(-1, keepdim=True), 1.0)
         e = state.inner.eps[:, None]
-        return (1 - e) * greedy + e * uni
+        return fmath.fma(e, uni, (1 - e) * greedy)
 
     def eps(state):
         return state.inner.eps
@@ -471,15 +519,24 @@ def _stagger_groups(k_phase, K_global: int, n_phases: int, width: int,
     return torch.where(ok, local, K_local).transpose(-1, -2).to(torch.int32)
 
 
-def _lane_groups(k_phase, K: int, S: int, n_phases: int) -> torch.Tensor:
-    """(n_phases, S·ceil(K/n_phases)) stagger table of S lanes from (S,
-    2) keys: each lane's table, its players numbered across the lanes
-    (lane s's player k is s·K + k), the sentinel S·K."""
-    n_blocks = -(-K // n_phases)
-    g = _stagger_groups(k_phase, K, n_phases, n_blocks, 0, K).long()
+def _lane_groups(k_phase, K_glob: int, pids, S: int,
+                 n_phases: int) -> torch.Tensor:
+    """(n_phases, S·width) stagger table of S lanes from (S, 2) keys,
+    for the K players ``pids`` (a contiguous block) of a K_glob-player
+    fleet: each lane's table, its players numbered across the lanes
+    (lane s's local player k is s·K + k), the sentinel S·K. Unsharded
+    the width is ceil(K/n_phases); a shard touches at most
+    ceil(K/n_phases) + 1 blocks (one straddled at each edge), the
+    reference's width."""
+    K = pids.shape[0]
+    n_blocks = -(-K_glob // n_phases)
+    width = (n_blocks if K == K_glob
+             else min(n_blocks, -(-K // n_phases) + 1))
+    lo = 0 if K == K_glob else int(pids[0])
+    g = _stagger_groups(k_phase, K_glob, n_phases, width, lo, K).long()
     lane = torch.arange(S, device=k_phase.device)[:, None, None]
     g = torch.where(g < K, g + lane * K, S * K)
-    return g.transpose(0, 1).reshape(n_phases, S * n_blocks).to(torch.int32)
+    return g.transpose(0, 1).reshape(n_phases, S * width).to(torch.int32)
 
 
 def _t_plus(t_idx: int, dt32):
@@ -508,6 +565,18 @@ def _by_attempt(drawn):
         C, A1, S * K, *drawn.shape[4:])
 
 
+def _sum_shards(x: torch.Tensor, pshard) -> torch.Tensor:
+    """``x`` summed over the player shards (the identity unsharded)."""
+    return x if pshard is None else pshard.sum(x)
+
+
+def _shard_pids(K: int, pshard, device) -> torch.Tensor:
+    """(K,) int32 global ids of this shard's K players: its contiguous
+    block of the fleet."""
+    lo = 0 if pshard is None else pshard.index * K
+    return torch.arange(lo, lo + K, dtype=torch.int32, device=device)
+
+
 def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 fused: bool, trace: bool, warmup_steps: int, pshard,
                 **strategy_kw):
@@ -520,11 +589,20 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     and liveness (S, M), the accumulator and ``ys`` with a leading (S,)
     axis; the breaker (S·K, M) and the control carry in the lane layout
     of ``continuum.control``. A tenant config dispatches to
-    ``_tenant_lane_parts``."""
-    _check_main_path(cfg, pshard)
+    ``_tenant_lane_parts``.
+
+    With ``pshard`` the halves are one shard's program: K stays the
+    global count, every (K,) axis below is this shard's K/shards
+    players, ``init_fn``'s ``pids`` are their global ids (by default
+    the shard's contiguous block), and the accumulator's fleet fields
+    and the series hold this shard's share (``_build_lanes_fn`` sums
+    them once after the run)."""
+    _check_main_path(cfg)
     if cfg.tenancy_on:
         return _tenant_lane_parts(strategy_name, cfg, K, M, S, fused, trace,
-                                  warmup_steps, **strategy_kw)
+                                  warmup_steps, pshard, **strategy_kw)
+    K_glob = K
+    K = _local_width(K, pshard, trace)
     res_on = cfg.attempt_timeout > 0.0
     if not res_on and (cfg.max_retries or cfg.breaker_threshold):
         raise ValueError(
@@ -551,11 +629,14 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     censor = (qb.censored_latency(cfg.attempt_timeout, cfg.tau)
               if res_on else 0.0)
     T, C, SK = cfg.num_steps, cfg.max_clients, S * K
-    strat = make_strategy(strategy_name, cfg, SK, M, **strategy_kw)
+    strat = make_strategy(strategy_name, cfg, SK, M, pshard=pshard,
+                          **strategy_kw)
     batched_record = fused and "record_rings" in strat
     subset_maint = fused and "maintain_subset" in strat
+    # the round kernel holds all C rounds, so player sharding, which
+    # sums each round's arrivals over the shards, runs the round scan
     fused_round_on = (cfg.fused_round and batched_record and not res_on
-                      and "fused_round" in strat)
+                      and pshard is None and "fused_round" in strat)
     feed = strat["record_feedback"] if batched_record else strat["record"]
     n_phases = max(cfg.maint_every, 1)
     ev_pre_steps = max(1, int(round(cfg.ev_pre / cfg.dt)))
@@ -565,11 +646,11 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
     def init_fn(rtt, active0, key, pids=None):
         dev = rtt.device
         if pids is None:
-            pids = torch.arange(K, dtype=torch.int32, device=dev)
+            pids = _shard_pids(K, pshard, dev)
         k_init, k_phase, k_scan = prand.split(key, 3).unbind(-2)
         s0 = strat["init"](rtt.reshape(SK, M), active0, k_init, pids)
         q0 = torch.zeros(S, M, dtype=torch.float32, device=dev)
-        groups = _lane_groups(k_phase, K, S, n_phases)
+        groups = _lane_groups(k_phase, K_glob, pids, S, n_phases)
         acc = None if trace else qm.init_accumulator(
             K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
             device=dev, lanes=S)
@@ -607,7 +688,9 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             arr_r = torch.zeros(S * M, dtype=torch.float32,
                                 device=dev).index_add_(
                 0, lane * M + choice, mask.to(torch.float32)).reshape(S, M)
-            q = torch.clamp_min(q + arr_r - served, 0.0)
+            # every shard's requests of the round land on the shared
+            # queues; ``arrivals`` keeps this shard's share
+            q = torch.clamp_min(q + _sum_shards(arr_r, pshard) - served, 0.0)
             arrivals = arrivals + arr_r          # integer-valued: order-free
             ch_r.append(choice)
             lat_r.append(lat)
@@ -718,7 +801,8 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             # completed, the censor sentinel (> tau) when it dropped
             lat_out = torch.where(completed, elapsed, censor)
             att_n = sum(m.to(torch.int32) for m in att_m)
-            q = torch.clamp_min(q + arr - served, 0.0)
+            # one sum over the shards a round, the retries folded in
+            q = torch.clamp_min(q + _sum_shards(arr, pshard) - served, 0.0)
             arrivals = arrivals + arr            # integer-valued: order-free
             for buf, y in zip(rows, (choice_f, lat_out, proc_f, att_n,
                                      mask & ~completed, torch.stack(att_ch),
@@ -857,7 +941,7 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
                 attempts=att_kc, dropped=dropped, brk_open=brk_open,
                 served=served_kc)
             ys = StepSeries(succ=(rewards * issf).sum((1, 2)),
-                            issued=issf.sum((1, 2)), regret=reg.sum(-1),
+                            issued=issf.sum((1, 2)), regret=_xla_row_sum(reg),
                             attempts=att_kc.to(torch.float32).sum((1, 2)))
         if ctl_on:
             # step-end feedback: the fleet's QoS and timeout totals
@@ -866,7 +950,9 @@ def _lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int, S: int,
             obs = torch.stack([(rewards * issf).sum((1, 2)), issf.sum((1, 2)),
                                (attf - compl).sum((1, 2)), attf.sum((1, 2))],
                               -1)
-            ctl = qc.control_observe(ccfg, ctl, obs, cfg.dt)
+            # the whole fleet's, so the replicated controller agrees
+            ctl = qc.control_observe(ccfg, ctl, _sum_shards(obs, pshard),
+                                     cfg.dt)
         if rec_on:
             # the step's events, from what the step computed; every
             # lane appends to its own ring
@@ -906,7 +992,7 @@ def _backlog_work(b, s_eff):
 
 def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
                        S: int, fused: bool, trace: bool, warmup_steps: int,
-                       **strategy_kw):
+                       pshard=None, **strategy_kw):
     """The multi-tenant engine: NT services on one shared fleet, S lanes
     of it. The reference's ``_build_tenant_parts`` in the lane layout.
 
@@ -931,7 +1017,9 @@ def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
     round kernel is single-service and never launches here); with
     ``fused`` the rings are written once a step and maintenance runs
     on the due players, one maintenance launch per tenant a step for
-    all lanes."""
+    all lanes. Under ``pshard`` (one shard's program, as in
+    ``_lane_parts``) the round's (S, NT, M) arrivals are summed over the
+    shards in one all-reduce before the drain."""
     tn = cfg.tenancy
     NT = tn.S
     if trace:
@@ -955,12 +1043,15 @@ def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
         raise ValueError(
             "explicit params= would share one tau across tenants; "
             "per-tenant params are derived from TenancyConfig.taus")
+    K_glob = K
+    K = _local_width(K, pshard)
     T, C, SK = cfg.num_steps, cfg.max_clients, S * K
     taus = tuple(float(x) for x in tn.taus)
     xi = float(tn.interference)
     strats = tuple(make_strategy(strategy_name,
                                  dataclasses.replace(cfg, tau=taus[i]), SK, M,
-                                 **strategy_kw) for i in range(NT))
+                                 pshard=pshard, **strategy_kw)
+                   for i in range(NT))
     batched_record = fused and "record_rings" in strats[0]
     subset_maint = fused and "maintain_subset" in strats[0]
     feeds = tuple(st["record_feedback"] if batched_record else st["record"]
@@ -997,7 +1088,7 @@ def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
     def init_fn(rtt, active0, key, pids=None):
         dev = rtt.device
         if pids is None:
-            pids = torch.arange(K, dtype=torch.int32, device=dev)
+            pids = _shard_pids(K, pshard, dev)
         k_init, k_phase, k_scan = prand.split(key, 3).unbind(-2)
         s0 = tuple(strats[i]["init"](rtt.reshape(SK, M), active0,
                                      prand.fold_in(k_init, i), pids)
@@ -1007,8 +1098,8 @@ def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
             K, M, C, n_marks=qs.MAX_MARKS, ev_buckets=cfg.ev_buckets,
             device=dev, lanes=S) for _ in range(NT))
         keys = prand.split(k_scan, T)
-        return (s0, q0, active0, accs, _lane_groups(k_phase, K, S, n_phases),
-                pids, None, None, None), keys
+        groups = _lane_groups(k_phase, K_glob, pids, S, n_phases)
+        return (s0, q0, active0, accs, groups, pids, None, None, None), keys
 
     def step_fn(rtt, marks, carry, xs, changed):
         states, q, prev_active, accs, groups, pids, _b, _c, _r = carry
@@ -1088,8 +1179,9 @@ def _tenant_lane_parts(strategy_name: str, cfg: SimConfig, K: int, M: int,
                     buf.append(y)
             arr = arr.reshape(S, NT, M)
             # processor sharing: the round's dt/C seconds retire the same
-            # fraction of every tenant's backlog
-            b = q + arr
+            # fraction of every tenant's backlog; one sum over the
+            # shards carries every tenant's arrivals
+            b = q + _sum_shards(arr, pshard)
             f = torch.clamp_max(
                 drain / torch.clamp_min(_backlog_work(b, s_eff), 1e-9), 1.0)
             q = b * (1.0 - f[:, None, :])
@@ -1228,7 +1320,9 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
                     S: int, fused: bool, trace: bool, warmup_steps: int,
                     pshard, **strategy_kw):
     """``run(rtts, drivers, keys, service_time=None, pids=None)`` of S
-    lanes; outputs with a leading (S,) axis."""
+    lanes; outputs with a leading (S,) axis. Under ``pshard`` every
+    rank passes the full inputs, runs its shard's players and returns
+    the full-K outputs (``_assemble_players``)."""
     T = cfg.num_steps
     init_fn, step_fn = _lane_parts(
         strategy_name, cfg, K, M, S, fused=fused, trace=trace,
@@ -1238,6 +1332,9 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
         dev = rtts.device
         drivers = _lane_drivers(drivers, S)
         _check_tenant_drivers(cfg, drivers.n_clients, 4)
+        if pshard is not None:
+            rtts, drivers = _player_slice(rtts, drivers, K // pshard.shards,
+                                          pshard.index)
         if service_time is not None:
             drivers = drivers._replace(
                 s_m=torch.full_like(drivers.s_m, service_time))
@@ -1262,10 +1359,67 @@ def _build_lanes_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
         host = [buf.cpu().movedim(0, 1).contiguous() for buf in rows]
         if trace:
             return SimOutputs(*host)
-        return StreamOutputs(acc=carry[3], series=StepSeries(*host),
-                             ctrl=_lane_counters(carry[7], S), rec=carry[8])
+        out = StreamOutputs(acc=carry[3], series=StepSeries(*host),
+                            ctrl=_lane_counters(carry[7], S), rec=carry[8])
+        return out if pshard is None else _assemble_players(out, pshard)
 
     return run
+
+
+def _player_slice(rtts, drivers: Drivers, K: int, index: int):
+    """Shard ``index``'s K players of lane-batched inputs: the rows of
+    ``rtts`` (S, K·D, M) and the player axis (last) of ``n_clients`` and
+    ``rtt_cut_k``."""
+    sl = slice(index * K, (index + 1) * K)
+    return rtts[:, sl], drivers._replace(
+        n_clients=drivers.n_clients[..., sl],
+        rtt_cut_k=drivers.rtt_cut_k[..., sl])
+
+
+def _concat(x: torch.Tensor, axis: int, group, size: int,
+            index: int) -> torch.Tensor:
+    """The ranks' ``x`` side by side along ``axis``, on every rank of
+    ``group``: a zero-filled full-size buffer that each rank writes its
+    slice of, summed over the group (x + 0 is x)."""
+    n = x.shape[axis]
+    if n == 0:
+        return x
+    y = x.to(torch.int32) if x.dtype == torch.bool else x
+    shape = list(y.shape)
+    shape[axis] = n * size
+    full = y.new_zeros(shape)
+    full.narrow(axis, index * n, n).copy_(y)
+    return all_reduce(full, group).to(x.dtype)
+
+
+# Per-player accumulator fields (concatenated over the player shards)
+# and fleet fields (summed); steps_measured is the same on every shard.
+_PLAYER_FIELDS = ("succ_kc", "n_kc", "choice_counts", "regret_k", "vb_k",
+                  "prev_mu", "att_k", "timeout_k", "drop_k", "open_km")
+_FLEET_FIELDS = ("arrivals_m", "proc_hist", "ev_succ", "ev_n")
+
+
+def _assemble_players(out: StreamOutputs, pshard) -> StreamOutputs:
+    """One shard's lane-batched ``StreamOutputs`` as the whole fleet's,
+    on every rank, laid out as the reference's ``_stream_specs`` (the
+    player axis is axis 1 behind the lanes): per-player fields and the
+    control plane's ``shed_k`` concatenated to full K, the fleet fields
+    and the series summed, the recorder's rings side by side ((S,
+    D·cap) with (S, D) pointers, which ``obs.recorder_events`` splits)."""
+    def cat(x):
+        return _concat(x, 1, pshard.group, pshard.shards, pshard.index)
+
+    def acc_of(a):
+        return a._replace(**{f: cat(getattr(a, f)) for f in _PLAYER_FIELDS},
+                          **{f: pshard.sum(getattr(a, f))
+                             for f in _FLEET_FIELDS})
+
+    return StreamOutputs(
+        acc=qm.each(out.acc, acc_of),
+        series=StepSeries(*(pshard.sum(y) for y in out.series)),
+        ctrl=(None if out.ctrl is None
+              else out.ctrl._replace(shed_k=cat(out.ctrl.shed_k))),
+        rec=tree_map(cat, out.rec))
 
 
 def _check_tenant_drivers(cfg: SimConfig, n_clients, dims: int) -> None:
@@ -1299,7 +1453,10 @@ def build_sim_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
     ``trace=False`` returns ``StreamOutputs`` (the accumulator on the
     device, the O(T) series on the host). ``warmup_steps`` gates the
     accumulator and is ignored in trace mode. The run is the one-lane
-    case of the lane-batched run."""
+    case of the lane-batched run. With ``pshard`` (streaming only) it is
+    one rank's part of a player-sharded run: every rank of the players
+    group calls it with the full inputs and gets the full-K outputs, the
+    recorder's rings side by side ((D·cap,) with a (D,) ``ptr``)."""
     run1 = _build_lanes_fn(strategy_name, cfg, K, M, 1, fused, trace,
                            warmup_steps, pshard, **strategy_kw)
 
@@ -1398,15 +1555,39 @@ def run_sim_batch(
                            **strategy_kw)(rtts, drv, keys)
 
 
-def _check_one_device(mesh) -> None:
-    """A grid mesh of one device runs the plain lanes; more waits for
-    the sharded grid."""
-    if mesh is None:
-        return
-    size = getattr(mesh, "size", None)
-    n = size() if callable(size) else None
-    if n != 1:
-        raise _not_ported("grid lanes over more than one device", "A10")
+def _split_axis(mesh, logical: str) -> str | None:
+    """The mesh axis that the partitioning rules split the logical
+    ``grid`` (lanes) or ``players`` axis over (``sharding
+    .logical_to_spec``), None where they split it over none."""
+    spec = dict(zip(("grid", "players"),
+                    logical_to_spec(("grid", "players"), mesh)))
+    name = spec[logical]
+    if isinstance(name, tuple):
+        raise ValueError(f"the {logical!r} rule splits over {name}: the "
+                         "simulator splits a logical axis over one mesh axis")
+    return name
+
+
+def _split_size(mesh, logical: str) -> int:
+    name = _split_axis(mesh, logical)
+    return 1 if name is None else mesh.axis_size(name)
+
+
+def _mesh_axis(mesh, logical: str) -> MeshAxis:
+    """This rank's place on the mesh axis that splits ``logical`` (an
+    axis of one where none does); makes the mesh's groups on first
+    use."""
+    name = _split_axis(mesh, logical)
+    return MeshAxis(None, 1, 0) if name is None else mesh.axis(name)
+
+
+def _mesh_sharding(mesh) -> PlayerSharding | None:
+    """This rank's ``PlayerSharding`` on ``mesh`` (None where the
+    players split over no axis of more than one rank): the one place a
+    1-way split becomes the plain program."""
+    ax = _mesh_axis(mesh, "players")
+    return None if ax.size == 1 else PlayerSharding(ax.group, ax.size,
+                                                    ax.index)
 
 
 def build_sim_grid_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
@@ -1415,15 +1596,51 @@ def build_sim_grid_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
     """``(run_grid, mesh)``: ``run_grid(rtts, drivers, keys)`` streams S
     lanes (``rtts`` (S, K, M), ``drivers`` an (S, ·) batch or shared,
     ``keys`` (S, 2)) and returns ``StreamOutputs`` with a leading (S,)
-    axis, as the reference's single-device grid (its plain vmap) does.
-    A mesh of more than one device is not ported (ROADMAP A10)."""
-    _check_one_device(mesh)
+    axis on every rank.
+
+    ``mesh`` (default ``launch.mesh.make_grid_mesh()``, every rank on
+    ``data``) spreads the lanes over the axis that the partitioning
+    rules give the logical ``grid`` axis (``data``), each rank running
+    its S/D lanes; a 2-D (``data``, ``players``) mesh also splits every
+    lane's players over the ``players`` rule's axis (``players``,
+    ``PlayerSharding``). A rule that splits nothing leaves that axis'
+    ranks running the same lanes whole.
+    Lanes that do not fill the data axis are padded with copies of the
+    last lane, sliced off the outputs. A mesh of one rank runs the plain
+    lanes. Lanes are independent, so each equals its run alone: the
+    counts exactly, and the floats too but the regret series, which a
+    players axis reassociates."""
+    from repro_torch.launch.mesh import make_grid_mesh
+
+    mesh = make_grid_mesh() if mesh is None else mesh
+    _local_width(K, PlayerSharding(None, _split_size(mesh, "players")))
+
+    def lanes(S, pshard):
+        return _build_lanes_fn(strategy_name, cfg, K, M, S, fused, False,
+                               warmup_steps, pshard, **strategy_kw)
 
     def run_grid(rtts, drivers: Drivers, keys):
         S = rtts.shape[0]
-        return _build_lanes_fn(strategy_name, cfg, K, M, S, fused, False,
-                               warmup_steps, None, **strategy_kw)(
-            rtts, drivers, keys)
+        if mesh.size() == 1:
+            return lanes(S, None)(rtts, drivers, keys)
+        pshard = _mesh_sharding(mesh)
+        dax = _mesh_axis(mesh, "grid")
+        drivers = _lane_drivers(drivers, S)
+        pad = (-S) % dax.size
+        if pad:
+            def padded(x):
+                return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+            rtts, keys = padded(rtts), padded(keys)
+            drivers = Drivers(*(padded(x) for x in drivers))
+        n = (S + pad) // dax.size
+        mine = slice(dax.index * n, (dax.index + 1) * n)
+        out = lanes(n, pshard)(rtts[mine],
+                               Drivers(*(x[mine] for x in drivers)),
+                               keys[mine])
+        if dax.size > 1:
+            out = tree_map(lambda x: _concat(x, 0, dax.group, dax.size,
+                                             dax.index), out)
+        return tree_map(lambda x: x[:S], out) if pad else out
 
     return run_grid, mesh
 
@@ -1444,14 +1661,70 @@ def run_sim_grid(
     """Streaming lanes: ``run_sim_batch``'s semantics, ``StreamOutputs``
     with a leading (S,) axis (``metrics.lane`` takes one out). Lane s
     equals ``run_sim_stream`` on its rtt, drivers and key, bit for
-    bit; each step launches each kernel once for all lanes."""
-    _check_one_device(mesh)
+    bit; each step launches each kernel once for all lanes. ``mesh``
+    spreads the lanes over ranks (``build_sim_grid_fn``); every rank
+    calls this with the same inputs and gets every lane."""
     dev, rtts, keys = _lane_inputs(rtts, keys, device)
     S, K, M = rtts.shape
     drv = _resolve_drivers(cfg, K, M, drivers, n_clients, active, dev)
     run_grid, _ = build_sim_grid_fn(strategy_name, cfg, K, M, mesh=mesh,
                                     warmup_steps=warmup_steps, **strategy_kw)
     return run_grid(rtts, drv, keys)
+
+
+def build_sim_players_fn(strategy_name: str, cfg: SimConfig, K: int, M: int,
+                         mesh=None, warmup_steps: int = 0, fused: bool = True,
+                         **strategy_kw):
+    """``(run, mesh)``: ``run(rtt, drivers, key)`` is one streaming
+    simulation whose K players split over the mesh axis that the
+    partitioning rules give the logical ``players`` axis (``players``)
+    of ``mesh`` (default ``launch.mesh.make_continuum_mesh()``, every
+    rank on it). Each rank holds K/D players' bandit state and runs their
+    selection, feedback and maintenance; one all-reduce of the round's
+    (M,) arrivals keeps the shared queues equal on every rank. Every
+    rank calls ``run`` with the full inputs and gets the full-K
+    ``StreamOutputs``, equal to the unsharded run: the counts exactly,
+    the per-player floats exactly, the summed regret series to float32
+    reassociation. A players axis of one gives the plain streaming
+    program."""
+    from repro_torch.launch.mesh import make_continuum_mesh
+
+    mesh = make_continuum_mesh() if mesh is None else mesh
+    _local_width(K, PlayerSharding(None, _split_size(mesh, "players")))
+
+    def run(rtt, drivers: Drivers, key):
+        return build_sim_fn(strategy_name, cfg, K, M, fused=fused,
+                            trace=False, warmup_steps=warmup_steps,
+                            pshard=_mesh_sharding(mesh), **strategy_kw)(
+            rtt, drivers, key)
+
+    return run, mesh
+
+
+def run_sim_players(
+    strategy_name: str,
+    rtt,                          # (K, M) base LB->instance RTT [s]
+    cfg: SimConfig,
+    key,                          # (2,) key tensor, or an integer seed
+    n_clients: torch.Tensor | None = None,   # (T, K)
+    active: torch.Tensor | None = None,      # (T, M)
+    drivers: Drivers | None = None,
+    warmup_steps: int = 0,
+    mesh=None,
+    device=None,
+    **strategy_kw,
+) -> StreamOutputs:
+    """Player-sharded streaming run: ``run_sim_stream``'s semantics, the
+    K load balancers of one simulation split over the ranks of
+    ``mesh``'s players axis (``build_sim_players_fn``). The giant-fleet
+    mode: the K·M·R bandit state splits D ways. Every rank calls it
+    with the same inputs; a 1-way players axis is the plain program."""
+    dev, rtt, key = _inputs(rtt, key, device)
+    K, M = rtt.shape
+    drv = _resolve_drivers(cfg, K, M, drivers, n_clients, active, dev)
+    run, _ = build_sim_players_fn(strategy_name, cfg, K, M, mesh=mesh,
+                                  warmup_steps=warmup_steps, **strategy_kw)
+    return run(rtt, drv, key)
 
 
 def build_sim_chunks(strategy_name: str, cfg: SimConfig, K: int, M: int,
@@ -1531,10 +1804,21 @@ def run_sim_stream(
     empty directory is a cold start) and equals the uninterrupted run
     exactly. ``stop_at_step`` halts at the first chunk boundary at or
     past that step and returns the partial result. All three need
-    ``chunk_steps`` < the horizon. Player meshes are not ported.
+    ``chunk_steps`` < the horizon.
+
+    ``mesh`` with a players axis of more than one rank routes to
+    ``run_sim_players`` (every rank calls this with the same inputs),
+    which does not compose with ``chunk_steps``.
     """
-    if mesh is not None:
-        raise _not_ported("player meshes", "A10")
+    if mesh is not None and _split_size(mesh, "players") > 1:
+        if chunk_steps is not None:
+            raise ValueError(
+                "player sharding and chunk_steps do not compose yet: "
+                "the chunked carry holds shard-local maintenance groups")
+        return run_sim_players(
+            strategy_name, rtt, cfg, key, n_clients=n_clients,
+            active=active, drivers=drivers, warmup_steps=warmup_steps,
+            mesh=mesh, device=device, **strategy_kw)
     dev, rtt, key = _inputs(rtt, key, device)
     K, M = rtt.shape
     T = cfg.num_steps

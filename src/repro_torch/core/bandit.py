@@ -39,6 +39,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import kde as kde_mod
@@ -46,7 +47,8 @@ from repro_torch.core import fmath, prand
 from repro_torch.core.swrr import swrr_select
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.ref import _ring_scatter, _row_sum, lane_rows
+from repro_torch.kernels.ref import (_ring_scatter, _row_sum, _xla_row_sum,
+                                     lane_rows)
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -99,6 +101,11 @@ class BanditState(NamedTuple):
 
 NEG_INF = -1e30
 _F32_MAX = torch.finfo(_F32).max
+
+
+def _folded(a: float, b: float) -> float:
+    """``a + b`` as a compiler folds two float32 constants."""
+    return float(np.float32(a) + np.float32(b))
 
 
 def init_state(
@@ -481,10 +488,12 @@ def maintenance(state: BanditState, params: BanditParams,
 
     # --- budgets & scores (lines 20-22) ---
     eps = state.eps
-    s_e = torch.where(exploit, (mu - params.rho) + params.eta, 0.0)
+    # the reference's compiler folds the two constants of ``(mu - rho)
+    # + eta`` into one, ``mu + (eta - rho)``, rounded in float32
+    s_e = torch.where(exploit, mu + _folded(-params.rho, params.eta), 0.0)
     s_x = torch.where(explore, mu + params.eta, 0.0)
-    sum_e = s_e.sum(-1, keepdim=True)
-    sum_x = s_x.sum(-1, keepdim=True)
+    # the arms' sums in the reference compiler's order, both at once
+    sum_e, sum_x = _xla_row_sum(torch.stack([s_e, s_x]))[..., None]
     has_e = sum_e[..., 0] > 0
     has_x = sum_x[..., 0] > 0
     w_e_budget = torch.where(has_x, 1.0 - eps, 1.0) * has_e
@@ -644,7 +653,7 @@ def sync_active(state: BanditState, params: BanditParams,
     add_r, rem_r = lane_rows(added, K), lane_rows(removed, K)
     changed = add_r | rem_r
     w = torch.where(rem_r, 0.0, state.weights)
-    wsum = w.sum(-1, keepdim=True)
+    wsum = _xla_row_sum(w)[:, None]
     unif = lane_rows(new_active, K).to(_F32)
     unif = unif / torch.clamp_min(unif.sum(-1, keepdim=True), 1.0)
     weights = torch.where(wsum > 0, w / torch.clamp_min(wsum, 1e-30), unif)
@@ -676,7 +685,7 @@ def instance_removed(state: BanditState, m_rem,
     row = lane_rows(onehot, K)
     ring = row[..., None]
     w = torch.where(row, 0.0, state.weights)
-    wsum = w.sum(-1, keepdim=True)
+    wsum = _xla_row_sum(w)[:, None]
     unif = lane_rows(state.active & ~onehot, K).to(_F32)
     unif = unif / torch.clamp_min(unif.sum(-1, keepdim=True), 1.0)
     weights = torch.where(wsum > 0, w / torch.clamp_min(wsum, 1e-30), unif)

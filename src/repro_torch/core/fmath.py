@@ -3,12 +3,13 @@
 The reference draws its noise on XLA:CPU, which lowers ``exp``,
 ``log``, ``log1p`` and ``erf_inv`` to fixed polynomial approximations
 (Cephes' ``expf``/``logf``, a rational ``log1p`` for small arguments,
-Giles' ``erfinv``) and, on an x86 host with FMA, contracts each
-``a * b + c`` of them into one fused multiply-add. It also runs with
-denormals flushed to zero. ``torch.exp``/``torch.log`` use other
-algorithms and land a few ULP away, enough to move a latency across a
-histogram edge. The functions here replay XLA's operation sequence,
-FMA for FMA, so a draw made from the same bits is the same float.
+Giles' ``erfinv``, a rational ``erf``) and, on an x86 host with FMA,
+contracts each ``a * b + c`` of them into one fused multiply-add. It
+also runs with denormals flushed to zero. ``torch.exp``/``torch.log``
+use other algorithms and land a few ULP away, enough to move a latency
+across a histogram edge. The functions here replay XLA's operation
+sequence, FMA for FMA, so a draw made from the same bits is the same
+float.
 
 ``fma`` is emulated in float64: the product of two float32 values is
 exact there, so only the sum is rounded twice (to float64, then to
@@ -34,6 +35,14 @@ def fma(a, b, c) -> torch.Tensor:
         return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
     out = f64(a) * f64(b) + f64(c)
     return out.float()
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded as the reference's is:
+    through float64, whose root rounds to the nearest float32. torch's
+    own float32 ``sqrt`` on the CPU takes a vectorised path for most
+    elements of a tensor that lands an ULP away for some inputs."""
+    return torch.sqrt(x.double()).float()
 
 
 def _ftz(x: torch.Tensor) -> torch.Tensor:
@@ -124,8 +133,33 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     """Giles' single-precision ``erfinv`` (two polynomial branches)."""
     w = -log1p(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt(w) - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = fma(p, w, torch.where(lt, a, b))
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_ERF_CLAMP = _c(3.7439211627767994)
+_ERF_P = tuple(map(_c, (2.2905065861350646e-4, 3.4082910107109506e-3,
+                        5.0955695062380861e-2, 1.8520832239976145e-1,
+                        1.128379143519084)))
+_ERF_Q = tuple(map(_c, (-1.1791602954361697e-7, 2.3547966471313185e-5,
+                        1.0179625278914885e-3, 1.4070470171167667e-2,
+                        1.1098505178285362e-1, 4.9746925110067538e-1,
+                        1.0)))
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf``: ``x * p(x^2) / q(x^2)`` on x clamped to
+    +-3.7439, where the quotient reaches 1.0f; each polynomial an FMA
+    Horner chain in ``x^2``."""
+    x = _ftz(x).clamp(-_ERF_CLAMP, _ERF_CLAMP)
+    x2 = (x * x).double()
+    p = torch.full_like(x, _ERF_P[0])
+    for c in _ERF_P[1:]:
+        torch.add(p * x2, c, out=p)      # fma(p, x2, c), stored in float32
+    q = torch.full_like(x, _ERF_Q[0])
+    for c in _ERF_Q[1:]:
+        torch.add(q * x2, c, out=q)
+    return x * p / q

@@ -12,11 +12,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import fmath
+
 _INV_SQRT2 = 0.7071067811865476
 
 
 def normal_cdf(x: torch.Tensor) -> torch.Tensor:
-    return 0.5 * (1.0 + torch.erf(x * _INV_SQRT2))
+    """Standard normal CDF through the reference's float32 ``erf``
+    (``fmath.erf``), on every device."""
+    return 0.5 * (1.0 + fmath.erf(x * _INV_SQRT2))
 
 
 def silverman_bandwidth(lat: torch.Tensor, mask: torch.Tensor,
@@ -30,7 +34,7 @@ def silverman_bandwidth(lat: torch.Tensor, mask: torch.Tensor,
     n = torch.clamp_min(m.sum(-1), 1.0)
     mean = (lat * m).sum(-1) / n
     var = ((lat - mean[..., None]) ** 2 * m).sum(-1) / n
-    sigma = torch.sqrt(torch.clamp_min(var, 0.0))
+    sigma = fmath.sqrt(torch.clamp_min(var, 0.0))
     h = 1.06 * sigma * n ** (-0.2)
     return torch.clamp_min(h, min_bandwidth)
 

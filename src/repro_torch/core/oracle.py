@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import lane_rows
+from repro_torch.kernels.ref import _xla_row_dot, lane_rows
 
 
 def oracle_weights(mu: torch.Tensor,
@@ -26,7 +26,8 @@ def step_regret(weights: torch.Tensor, mu: torch.Tensor,
     mu_eff = (torch.where(lane_rows(active, mu.shape[0]), mu, -torch.inf)
               if active is not None else mu)
     best = mu_eff.max(-1).values
-    got = (weights * torch.where(torch.isfinite(mu_eff), mu, 0.0)).sum(-1)
+    # the reference's compiler sums the products as an FMA chain
+    got = _xla_row_dot(weights, torch.where(torch.isfinite(mu_eff), mu, 0.0))
     return torch.clamp_min(best - got, 0.0)
 
 

@@ -14,6 +14,9 @@ the reference gives: ``core -> kernels -> core`` would cycle.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -144,18 +147,125 @@ def kde_success_prob(
     tau: float,
     bandwidth: torch.Tensor,    # (rows,)
 ) -> torch.Tensor:
-    """Masked mean Gaussian CDF at tau per row, 0 for an empty row."""
+    """Masked mean Gaussian CDF at tau per row, 0 for an empty row
+    (``erf`` and the row sums as ``bandit_maintenance_stats`` takes
+    them)."""
+    from repro_torch.core import fmath      # see the top: import cycle
     m = mask.to(torch.float32)
     n = m.sum(-1)
     z = (tau - lat.to(torch.float32)) / bandwidth[:, None]
-    cdf = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2))
-    s = (cdf * m).sum(-1)
+    cdf = 0.5 * (1.0 + fmath.erf(z * _INV_SQRT2))
+    s = _xla_kde_sum(cdf * m)
     return torch.where(n > 0, s / torch.clamp_min(n, 1.0), 0.0)
 
 
 # ---------------------------------------------------------------------------
 # Fused Alg-1 maintenance statistics (kernels/kde.py::fused_maintenance).
+#
+# Rounded as XLA:CPU rounds the reference, so that ``mu`` and ``q`` are
+# its bits on the CPU: the row sums in XLA's order (``_xla_row_sum``,
+# ``_xla_kde_sum``),
+# ``n ** -0.2`` as glibc's ``powf`` (``_pow_neg_fifth``), the square
+# root correctly rounded and ``erf`` as ``core.fmath.erf``. Each is
+# elementwise or row-local, so a row's statistics do not depend on the
+# rows around it (lanes, subsets).
 # ---------------------------------------------------------------------------
+
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    """(..., R) as (..., ceil(R/32), min(R, 32)): blocks of 32 columns,
+    the last padded with zeros (a sum plus +0.0 is the sum)."""
+    R = x.shape[-1]
+    if R <= 32:
+        return x[..., None, :]
+    x = torch.nn.functional.pad(x, (0, (-R) % 32))
+    return x.reshape(*x.shape[:-1], -1, 32)
+
+
+def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in XLA:CPU's order for a float32 row:
+    blocks of 32 columns, each added left to right, then the block sums
+    in order (a row of at most 32 is one block)."""
+    cols = _blocks(x).unbind(-1)
+    acc = cols[0]
+    for c in cols[1:]:                   # every block at once, in order
+        acc = acc + c
+    parts = acc.unbind(-1)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _xla_kde_sum(x: torch.Tensor) -> torch.Tensor:
+    """The KDE's sum of a row's masked CDFs in XLA:CPU's order inside
+    the maintenance program. A row of more than 32 or at most 10 takes
+    ``_xla_row_sum``'s order. Between, the loop is vectorised by eight:
+    eight accumulators, column j into ``j % 8``, then halved three times
+    (``a[:4] + a[4:]``, ...). At R = 11..16 the tail rides in the
+    vector, padded with zeros (a sum plus +0.0 is the sum); at R =
+    17..32 the whole eights are vectorised and the rest added left to
+    right after them. The maintenance's ``mu`` equals the reference's
+    bits at R = 1..19, 24..32, 64, 96 and 128; at R = 20..23 and 33..63
+    XLA takes orders this does not replay (``mu`` a few ULPs away)."""
+    R = x.shape[-1]
+    if R <= 10 or R > 32:
+        return _xla_row_sum(x)
+    if R <= 16:
+        x, rest = torch.nn.functional.pad(x, (0, 16 - R)), ()
+    else:
+        cut = R - R % 8
+        x, rest = x[..., :cut], x[..., cut:].unbind(-1)
+    cols = x.split(8, -1)
+    acc = cols[0]
+    for c in cols[1:]:
+        acc = acc + c
+    while acc.shape[-1] > 1:             # 8 -> 4 -> 2 -> 1
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    total = acc[..., 0]
+    for c in rest:
+        total = total + c
+    return total
+
+
+def _xla_row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(a * b).sum(-1)`` as XLA:CPU fuses it: in ``_xla_row_sum``'s
+    blocks, each an FMA chain ``acc = fma(a_j, b_j, acc)`` (a float32
+    product is exact in float64, so one rounding to float64 and one to
+    float32 replay the FMA: the add runs in float64 and stores into the
+    float32 ``acc``, one launch a column), then the block sums in
+    order."""
+    prods = (_blocks(a).double() * _blocks(b)).unbind(-1)
+    acc = prods[0].float()
+    for p in prods[1:]:
+        torch.add(p, acc, out=acc)
+    parts = acc.unbind(-1)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+@functools.cache
+def _powf_table(R: int) -> np.ndarray:
+    """(R + 1,) float32: glibc's ``powf(n, -0.2)`` for n = 0..R, the
+    reference compiler's float32 pow, built once on the host."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = (ctypes.c_float, ctypes.c_float)
+    return np.array([libm.powf(float(n), -0.2) for n in range(R + 1)],
+                    np.float32)
+
+
+@functools.cache
+def _powf_on(R: int, device) -> torch.Tensor:
+    return torch.from_numpy(_powf_table(R)).to(device)
+
+
+def _pow_neg_fifth(nc: torch.Tensor, R: int) -> torch.Tensor:
+    """``nc ** -0.2`` for whole numbers ``nc`` in [1, R], by table."""
+    return _powf_on(R, nc.device)[nc.to(torch.int64)]
+
 
 def bandit_maintenance_stats(
     lat: torch.Tensor,          # (rows, R) latency windows
@@ -174,30 +284,26 @@ def bandit_maintenance_stats(
     ``int(rho * (n - 1))`` is taken in float32, as the reference and
     the kernel take it, so ``q`` selects the same sample bit for bit.
     """
+    from repro_torch.core import fmath      # see the top: import cycle
     latf = lat.to(torch.float32)
     m = mask.to(torch.float32)
+    R = lat.shape[-1]
 
-    nc = torch.clamp_min(m.sum(-1), 1.0)
-    mean = (latf * m).sum(-1) / nc
+    n = m.sum(-1)                            # whole numbers: order-free
+    nc = torch.clamp_min(n, 1.0)
+    mean = _xla_row_sum(latf * m) / nc
     d = latf - mean[..., None]
-    var = (d * d * m).sum(-1) / nc
-    sigma = torch.sqrt(torch.clamp_min(var, 0.0))
-    # n ** -0.2 rounded once from float64: torch's float32 pow takes a
-    # vector or a scalar path on the CPU by where an element sits in the
-    # tensor, and the two differ in the last bit, so a row's bandwidth
-    # would depend on the batch around it (lanes, subsets)
-    h = torch.clamp_min(1.06 * sigma * (nc.double() ** -0.2).float(),
-                        min_bandwidth)
+    var = _xla_row_sum(d * d * m) / nc
+    sigma = fmath.sqrt(torch.clamp_min(var, 0.0))
+    h = torch.clamp_min(1.06 * sigma * _pow_neg_fifth(nc, R), min_bandwidth)
 
-    n = m.sum(-1)
     z = (tau - latf) / h[..., None]
-    cdf = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2))
-    contrib = (cdf * m).sum(-1)
+    cdf = 0.5 * (1.0 + fmath.erf(z * _INV_SQRT2))
+    contrib = _xla_kde_sum(cdf * m)
     mu = torch.where(n > 0, contrib / torch.clamp_min(n, 1.0), 0.0)
 
     proc = torch.clamp_min(latf - rtt[..., None], 0.0)
     xs = torch.sort(torch.where(mask, proc, _F32_MAX), dim=-1)[0]
-    R = lat.shape[-1]
     idx = torch.clamp((rho * (n - 1.0)).to(torch.int64), 0, R - 1)
     val = torch.gather(xs, -1, idx[..., None])[..., 0]
     q = torch.where(n > 0, val, _F32_MAX)
@@ -286,9 +392,10 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
     """(K, M) -> (K, 1): columns added left to right."""
-    s = x[:, 0]
-    for m in range(1, x.shape[1]):
-        s = s + x[:, m]
+    cols = x.unbind(1)
+    s = cols[0]
+    for c in cols[1:]:
+        s = s + c
     return s[:, None]
 def _ring_scatter(lat_buf, ts_buf, ptr, r_buf, rts_buf, rptr,
                   choices, lats, t, mask, tau):

@@ -38,6 +38,7 @@ from repro_torch.continuum import simulator as ts
 from repro_torch.continuum import topology as ttopo
 from repro_torch.core import prand
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_continuum_mesh
 from repro_torch.obs import RecorderConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -318,11 +319,18 @@ def test_off_path_settings_raise(change, rtt30):
 
 def test_other_entry_options_raise(rtt30, tmp_path):
     cfg = ts.SimConfig(horizon=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ts.run_sim_stream("proxy_mity", rtt30, cfg, 7, mesh=object(),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ts.build_sim_parts("dec_sarsa", cfg, 30, 10, pshard=("players", 2))
+    # a player mesh does not compose with chunks; player sharding is
+    # streaming-only and needs K to split evenly (the reference's errors)
+    mesh = make_continuum_mesh(players=2, devices=2)
+    with pytest.raises(ValueError, match="chunk_steps"):
+        ts.run_sim_stream("proxy_mity", rtt30, cfg, 7, mesh=mesh,
+                          chunk_steps=2, device="cpu")
+    with pytest.raises(ValueError, match="streaming"):
+        ts.build_sim_parts("dec_sarsa", cfg, 30, 10,
+                           pshard=ts.PlayerSharding(None, 2))
+    with pytest.raises(ValueError, match="multiple"):
+        ts.build_sim_parts("dec_sarsa", cfg, 30, 10, trace=False,
+                           pshard=ts.PlayerSharding(None, 4))
     # chunks run (tests/test_torch_checkpoint.py holds them against whole
     # runs); checkpoints need the chunked loop
     whole = ts.run_sim_stream("qedgeproxy", rtt30, cfg, 7, device="cpu")

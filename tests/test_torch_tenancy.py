@@ -282,9 +282,9 @@ def test_tenant_refusals():
     with pytest.raises(ValueError, match="params"):
         ts.build_sim_fn("qedgeproxy", cfg, K, M, trace=False,
                         params=BanditParams(tau=cfg.tau))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(ValueError, match="multiple"):
         ts.build_sim_parts("qedgeproxy", cfg, K, M, trace=False,
-                           pshard=("players", 2))
+                           pshard=ts.PlayerSharding(None, K + 1))
     # tenant configs need tenant-axis drivers, whole and chunked
     single = tscn.neutral_drivers(cfg, K, M, device="cpu")
     for chunk in (None, 40):
