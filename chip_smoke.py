@@ -12,7 +12,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 each kernel's registers, spills and stack frame; a kernel
                 of ``NO_SPILL`` that spills fails.
 3. kernels   -- each CUDA kernel against its plain PyTorch version on the
-                card, at the main paths' shapes and at small ones; the
+                card, at the main paths' shapes (the decoder families'
+                attention and SSD too) and at small ones; the
                 round kernel also at K past a wave of resident warps, M
                 above 64 and one arm taking every request, each case with
                 its inputs unchanged and a second call bit-identical, and
@@ -150,13 +151,31 @@ Phases, one JSON line each; any failure exits non-zero:
                 ``serve_ssm``) against the same step run eagerly, two
                 microbatches in turn: logits and caches exactly equal, the
                 kernel launches counted through the replays; and the device
-                time of a replayed decode call.
+                time of a replayed decode call (null where the host cannot
+                enqueue ahead of the card).
    serve_ssm -- the same cell with mamba2-1.3b at its published width: the
                 SSD kernel launches once per layer per prefill, maintenance
                 once per router maintenance, the same gates.
+   families  -- the hybrid, gemma3 local/global and MoE decoders at their
+                published widths (hymba-1.5b, gemma3-1b, qwen3-moe-30b-a3b;
+                random weights from seed 0), one at a time: (a) served as
+                in ``serve`` but 10 rounds (``families_serve``): finite
+                logits, every request counted, ``flash_attention`` and
+                ``decode_attention`` once per layer per prefill and decode
+                call, ``ssd`` once per layer per prefill (hymba),
+                maintenance once per router maintenance; (b)
+                ``decode_graph`` past the window (hymba at a prompt of
+                1,100 > its 1,024-slot ring, gemma3 at 1,000 > its 512);
+                (c) a MoE decode call, eager and replayed, under
+                ``torch.cuda.set_sync_debug_mode("error")``. Then
+                qwen3-moe-235b-a22b reduced (its bf16 experts, ~454 GB,
+                fit on no one card): ``decode_graph``'s two microbatches
+                of four decode calls each, equal to eager. The phase's
+                seconds.
 10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
-                bound, at the main paths' shapes, by CUDA events (kernel and
+                bound, at the main paths' shapes (``times``) and at the
+                families' (``times_families``), by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
                 enqueue rate does not enter), the maintenance kernels also
                 at one row (the launch and one row's chain); then
@@ -179,6 +198,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import gc
 import io
 import json
 import subprocess
@@ -267,6 +287,9 @@ ROUND_CASES = ((5003, 50, False), (64, 130, False), (40, 2000, False),
 # cache ends mid-tile in decode.
 SERVE = dict(replicas=3, frontends=4, requests=30, batch=4, prompt_len=1000,
              decode_steps=16, tau=1.0, slow_replica=2)
+# the decoder families' serve runs: the serve cell with fewer rounds (the
+# script's clock)
+FAMILY_REQUESTS = 10
 HEADS = dict(Hq=32, Hkv=8, D=128)                  # qwen3-4b attention
 # Attention against its plain version: float32 to max |kernel - plain| <=
 # 1e-5 at unit-scale inputs (sums reassociated, CUDA's expf); bfloat16
@@ -277,10 +300,17 @@ HEADS = dict(Hq=32, Hkv=8, D=128)                  # qwen3-4b attention
 # near 0
 ATTN_TOL = {"float32": dict(rtol=0.0, atol=1e-5),
             "bfloat16": dict(rtol=2.0 ** -6, atol=2e-3)}
+# The decoder families' attention at published width, (Hq, Hkv), S, D,
+# window: hymba-1.5b (a group of 5, a window of 1,024 at the decode graph's
+# prompt of 1,100: the prefill masks), gemma3-1b's local and global layers
+# (a group of 4 at D = 256), qwen3-moe-30b-a3b (a group of 8)
+FAMILY_FLASH = (((25, 5), 1100, 64, 1024), ((4, 1), 1000, 256, 512),
+                ((4, 1), 1000, 256, None), ((32, 4), 1000, 128, None))
 # (B, Hq, Hkv, S, D, dtype, causal, window, q_mul): the serve prefill
 # first, then the same with q x 4 (peaked rows: the online softmax rescales
 # at large logits); a window of 48 at D=64, non-causal with a group of 4
-# at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S
+# at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S;
+# then ``FAMILY_FLASH`` at the serve cell's batch
 FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                 HEADS["D"], "bfloat16", True, None, 1.0),
                (SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
@@ -290,12 +320,24 @@ FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                                                ((2, 4, 1, 130, 32), False, None),
                                                ((1, 4, 4, 40, 16), False, 8))
                  for dtype in ("float32", "bfloat16")),
-               (1, 2, 1, 300, 256, "bfloat16", True, None, 1.0))
+               (1, 2, 1, 300, 256, "bfloat16", True, None, 1.0),
+               *((SERVE["batch"], *heads, S, D, "bfloat16", True, window, 1.0)
+                 for heads, S, D, window in FAMILY_FLASH))
+_C = 64                                            # decode_attention.CHUNK
+# The decoder families' decode caches, (Hq, Hkv), slots, D, lengths:
+# hymba-1.5b's 1,024-slot ring (G 5, D 64), gemma3-1b's 512-slot ring and
+# its full 1,016-slot cache (G 4, D 256), qwen3-moe-30b-a3b's full cache
+# (G 8, D 128)
+FAMILY_DECODE = (((25, 5), 1024, 64, (1, _C, _C + 1, 1024)),
+                 ((4, 1), 512, 256, (0, 1, 512, 512)),
+                 ((4, 1), 1016, 256, (0, 1, 512, 1016)),
+                 ((HEADS["Hq"], 4), SERVE["prompt_len"] + SERVE["decode_steps"],
+                  HEADS["D"], (0, 1, _C + 1, 1016)))
 # (B, Hq, Hkv, S, D, dtype, lengths): the serve decode cache first, at
 # lengths 1, one split (64), one past it and the whole cache, then with a
 # row of length 0 (exactly zero, where the plain version gives the mean of
-# V); then small float32 caches
-_C = 64                                            # decode_attention.CHUNK
+# V); then small float32 caches; then ``FAMILY_DECODE`` at the serve
+# cell's batch
 DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                  SERVE["prompt_len"] + SERVE["decode_steps"], HEADS["D"],
                  "bfloat16", (1, _C, _C + 1, 1016)),
@@ -303,7 +345,9 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                  SERVE["prompt_len"] + SERVE["decode_steps"], HEADS["D"],
                  "bfloat16", (0, 512, 513, 1016)),
                 (2, 8, 2, 100, 64, "float32", (1, 64)),
-                (2, 4, 1, 40, 16, "float32", (40, 17)))
+                (2, 4, 1, 40, 16, "float32", (40, 17)),
+                *((SERVE["batch"], *heads, S, D, "bfloat16", lengths)
+                  for heads, S, D, lengths in FAMILY_DECODE))
 # SSD, element by element (|out - plain| <= atol + rtol |plain|): float32
 # to tests/test_kernels.py's rtol = atol = 1e-3 (the chunked form
 # reassociates the decays); a bfloat16 output to one bfloat16 step of
@@ -328,7 +372,10 @@ SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
              (1, 77, 3, 32, 16, 64, "float32", True),
              (2, 300, 4, 64, 16, 64, "bfloat16", True),
              (2, 130, 4, 16, 8, 16, "bfloat16", False),
-             (1, 520, 3, 32, 128, 256, "bfloat16", False))
+             (1, 520, 3, 32, 128, 256, "bfloat16", False),
+             # hymba-1.5b's SSD heads at the decode graph's prompt: H = 25
+             # leaves the last group of 8 heads one
+             (SERVE["batch"], 1100, 25, 64, 16, 128, "bfloat16", True))
 # (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
 KDE_SIZES = ((65536, 64), (300, 64))
 # R of the adversarial maintenance and KDE rows: one sample (a lane a row),
@@ -408,6 +455,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = True) -> float:
             return start.elapsed_time(end) / iters
     raise AssertionError(f"the host did not get {iters} calls ahead of the "
                          f"card")
+
+
+def share(part: float | None, whole: float) -> float | None:
+    """``part / whole``; None where ``part`` was not measured."""
+    return None if part is None else part / whole
 
 
 def nbytes(*tensors) -> int:
@@ -1955,18 +2007,21 @@ def phase_events(dev) -> None:
 
 
 def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
-                per_decode: tuple) -> dict:
+                per_decode: tuple, requests: int = SERVE["requests"],
+                slow_gate: bool = True) -> dict:
     """The serving cell through the launcher a user runs, with ``arch``
-    at its published width; the launches prove the path: each kernel of
-    ``per_prefill`` (``per_decode``) once per layer per prefill (decode
-    call), maintenance once per router maintenance. Returns the launch
-    counts and the per-call medians."""
+    at its published width and ``requests`` rounds; the launches prove
+    the path: each kernel of ``per_prefill`` (``per_decode``) once per
+    layer per prefill (decode call), maintenance once per router
+    maintenance; ``slow_gate``: every front-end weighs the slow replica
+    below each fast one. Returns the launch counts and the per-call
+    medians."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import kde
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--device", "cuda"]
-    for key, val in SERVE.items():
+    for key, val in {**SERVE, "requests": requests}.items():
         argv += [f"--{key.replace('_', '-')}", str(val)]
     cfg = get_config(arch)
     base = memory_baseline(dev)
@@ -2004,7 +2059,7 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
         raise AssertionError(f"served {rep['arch']}, not {cfg.name}")
     if not rep["logits_finite"]:
         raise AssertionError("non-finite logits in a served request")
-    want = SERVE["requests"] * SERVE["frontends"]
+    want = requests * SERVE["frontends"]
     if rep["microbatches"] != want or rep["prefills"] != want:
         raise AssertionError(f"{rep['prefills']} prefills, {want} requests")
     needs = [(fn.__name__, cfg.num_layers * rep["prefills"])
@@ -2017,48 +2072,63 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"the path needs {n}")
-    if not all(w[k, slow] < w[k, m] for k in range(len(w)) for m in fast):
+    if slow_gate and not all(w[k, slow] < w[k, m] for k in range(len(w))
+                             for m in fast):
         raise AssertionError(f"slow replica {slow} not avoided: {w}")
     return dict(launches=launches, layers=cfg.num_layers,
                 prefill_ms=prefill_ms, decode_ms=decode_ms)
 
 
-def phase_decode_graph(dev, arch: str, steps: int = 4) -> float:
+def phase_decode_graph(dev, arch: str, steps: int = 4,
+                       prompt: int = SERVE["prompt_len"], reduced: bool = False,
+                       sync_check: bool = False) -> float | None:
     """The decode step replayed as a CUDA graph against the same step run
-    eagerly, at the serve cell's batch, prompt and cache slots: two
+    eagerly, at the serve cell's batch and cache slots after a prompt of
+    ``prompt`` (past a window, the prefill masks and the ring wraps): two
     microbatches decode in turn (A0 A1 B0 B1 A2 B2 ...), so the graph
     copies a cache in when the other one was its last and replays on the
-    one it holds otherwise. Both modes run the same kernels on the same
-    inputs, so logits and caches must agree exactly, and the kernel
-    wrappers' counts must read one launch per layer per decode call in
-    both. Times a replayed call on the card (queued, ``cuda_ms``) and on
-    the host's clock (each call synchronised, as the serving engine times
-    it). Returns the device time of one replayed decode call (ms)."""
+    one it holds otherwise. Both modes
+    run the same kernels on the same inputs, so logits and every cache
+    tensor must agree exactly, and the kernel wrappers' counts must read
+    one launch per attention layer per decode call in both. Times a
+    replayed call on the card (queued, ``cuda_ms``), on the host's clock
+    (each call synchronised, as the serving engine times it), and the
+    host's enqueue alone. When the host takes half a call's synchronised
+    time or more to enqueue it (``host_bound``), the card cannot be got
+    ahead of: the calls back to back are timed unqueued
+    (``graph_call_wall_ms``, the slower of host and card) and the device
+    fields are null.
+    ``sync_check``: then one eager and one replayed decode call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises).
+    ``reduced``: the config's ``reduced()`` variant. Returns the device
+    time of one replayed decode call (ms), None when host-bound."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import SSM as SSM_FAMILY
     from repro_torch.kernels import decode_attention
     from repro_torch.models import build_model
-    cfg = get_config(arch)
+    from repro_torch.models.transformer import cache_layout
+    cfg = get_config(arch, reduced=reduced)
     model = build_model(cfg, device=dev)
-    B, S = SERVE["batch"], SERVE["prompt_len"]
+    B, S = SERVE["batch"], prompt
     slots = S + SERVE["decode_steps"]
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = [torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                             device=dev) for _ in range(2)]
     caches = [model.prefill({"tokens": t[:, :S]}, max_len=slots)[1]
               for t in tokens]
-    order = [(m, j) for i in range(0, steps, 2) for m in (0, 1)
+    order = [(m, j) for i in range(0, steps, 2) for m in range(2)
              for j in (i, i + 1) if j < steps]
     per_call = cfg.num_layers if cfg.family != SSM_FAMILY else 0
+    layout = cache_layout(cfg)
     results = {}
     for mode in (False, True):
         model.decode_graphs = mode
         for fn in all_kernels():
             fn.launches = 0
-        cs = [{"layers": tuple(t.clone() for t in c["layers"])}
+        cs = [{key: tuple(t.clone() for t in c[key]) for key in layout}
               for c in caches]
-        out = [[], []]
+        out = [[] for _ in tokens]
         for m, i in order:
             tok = tokens[m][:, S + i:S + i + 1].to(torch.int32)
             logits, cs[m] = model.decode(cs[m], {"token": tok, "pos": S + i})
@@ -2071,34 +2141,103 @@ def phase_decode_graph(dev, arch: str, steps: int = 4) -> float:
                                  f"(graphs {mode}), the path needs "
                                  f"{per_call * len(order)}")
         results[mode] = [torch.stack(o) for o in out] + [
-            t for c in cs for t in c["layers"]]
+            t for c in cs for key in layout for t in c[key]]
     errs = [(a.float() - b.float()).abs().max().item()
             for a, b in zip(results[False], results[True])]
-    names = ("logits_a", "logits_b",
-             *(f"{t}_{m}" for m in "ab" for t in (
-                 ("k_cache", "v_cache") if per_call else
-                 ("conv_state", "ssm_state"))))
+    names = (*(f"logits_{m}" for m in "ab"),
+             *(f"{key}.{i}_{m}" for m in "ab"
+               for key in layout for i in range(len(layout[key]))))
     token = tokens[0][:, :1].to(torch.int32)
     c = cs[0]
-    call = lambda: model.decode(c, {"token": token, "pos": S + steps})
-    graph_ms = cuda_ms(call, 10)
+    synced = {}
+    if sync_check:
+        for mode in (False, True):
+            model.decode_graphs = mode
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                model.decode(c, {"token": token, "pos": S + steps})
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            synced["graph" if mode else "eager"] = "no host sync"
+    call = lambda: model.decode(c, {"token": token, "pos": S + steps + 1})
     host_ms = []
     for _ in range(10):                  # as the serving engine times a call
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    emit(phase="decode_graph", arch=arch, batch=B, prompt=S, cache_slots=slots,
+    t0 = time.perf_counter()             # the host's side alone: 10 calls
+    for _ in range(10):
+        call()
+    enqueue_ms = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    # queued behind a sleep when the host enqueues a call in under half its
+    # synchronised time; else the host holds the card back, and the time of
+    # 10 calls back to back is the host's
+    host_bound = enqueue_ms >= 0.5 * float(np.median(host_ms))
+    # 3 calls of 20 ms or more: ten of qwen3-moe-30b-a3b's (~4,500
+    # kernels each) queued behind the sleep block the host, which then
+    # never gets ahead of the card
+    iters = 10 if float(np.median(host_ms)) < 20.0 else 3
+    timed_ms = cuda_ms(call, iters, queued=not host_bound)
+    graph_ms = None if host_bound else timed_ms
+    emit(phase="decode_graph", arch=cfg.name, family=cfg.family,
+         layers=cfg.num_layers, params=cfg.param_count(), batch=B, prompt=S,
+         cache_slots=slots, cache_shapes={key: [list(t.shape) for t in c[key]]
+                                         for key in layout},
          steps=steps, calls=order, graphs=len(model._graphs),
          decode_attention_launches=launched,
          max_abs_err=dict(zip(names, errs)), graph_call_device_ms=graph_ms,
+         graph_call_wall_ms=timed_ms if host_bound else None,
+         graph_call_enqueue_ms=enqueue_ms, host_bound=host_bound,
+         timed_calls=iters,
          graph_call_host_ms_median=float(np.median(host_ms)),
-         graph_call_device_share=graph_ms / float(np.median(host_ms)))
+         graph_call_device_share=share(graph_ms, float(np.median(host_ms))),
+         **({"sync_debug_error": synced} if sync_check else {}))
     if not all(e == 0.0 for e in errs):
         raise AssertionError(f"graph decode differs from eager: "
                              f"{dict(zip(names, errs))}")
     del model, caches, results, cs, c
     return graph_ms
+
+
+def phase_families(dev) -> dict:
+    """The hybrid, gemma3 local/global and MoE decoders at published
+    width (random weights from seed 0), each in turn and freed before the
+    next: (a) served through the launcher (``phase_serve`` at the serve
+    cell, ``FAMILY_REQUESTS`` rounds; the slow-replica gate stays on
+    qwen3-4b's ``serve``): ``flash_attention`` and ``decode_attention``
+    once per attention layer per prefill and decode call, ``ssd`` once
+    per layer per prefill for hymba; (b) the decode graph against eager
+    past the window (``phase_decode_graph``); (c) for the MoE, a decode
+    call under the sync debug mode's "error". Then qwen3-moe-235b-a22b,
+    whose experts fit on no one card (94 x 128 x 3 x 4096 x 1536 bf16
+    weights, ~454 GB), reduced, through the same decode-graph check.
+    Returns each family's serve results."""
+    import torch
+    from repro_torch.kernels import decode_attention, flash_attention, ssd
+    t0 = time.perf_counter()
+    attn = ((flash_attention.flash_attention,),
+            (decode_attention.decode_attention,))
+    served = {}
+    for arch, prompt, per_prefill, moe in (
+            ("hymba-1.5b", 1100, (*attn[0], ssd.ssd), False),
+            ("gemma3-1b", 1000, attn[0], False),
+            ("qwen3-moe-30b-a3b", SERVE["prompt_len"], attn[0], True)):
+        served[arch] = phase_serve(dev, "families_serve", arch, per_prefill,
+                                   attn[1], requests=FAMILY_REQUESTS,
+                                   slow_gate=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[arch]["decode_graph_ms"] = phase_decode_graph(
+            dev, arch, prompt=prompt, sync_check=moe)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_decode_graph(dev, "qwen3-moe-235b-a22b", reduced=True)
+    emit(phase="families", seconds=time.perf_counter() - t0,
+         requests=FAMILY_REQUESTS, archs=list(served))
+    return served
 
 
 def all_kernels() -> tuple:
@@ -2107,11 +2246,59 @@ def all_kernels() -> tuple:
     return ops.WRAPPERS
 
 
+def attention_work(q, k, v, window=None) -> tuple:
+    """(bytes, operations) of causal prefill attention: q, k and v read
+    once, the output (q's size) written once; 4 D operations a (query,
+    key) pair that the causal mask and the window keep."""
+    B, Hq, S, D = q.shape
+    pairs = sum(min(t + 1, window or S) for t in range(S))
+    return 2 * nbytes(q) + nbytes(k, v), 4 * B * Hq * D * pairs
+
+
+def decode_work(q, k, v, length) -> tuple:
+    """(bytes, operations) of one decode query against the cache: q and
+    the cache read once, the output written once (the lengths are the
+    caches' whole; 4 D operations a live slot)."""
+    _, Hq, D = q.shape
+    return (2 * nbytes(q) + nbytes(k, v, length),
+            4 * Hq * D * int(length.sum()))
+
+
+def ssd_work(x, dt, A, Bm, Cm, tile: int = SSD_WORK_TILE) -> tuple:
+    """(bytes, operations) of the SSD scan: the inputs read once, y (x's
+    size) written once; the work, whatever implements it, is the chunked
+    algorithm at ``tile``-row tiles, per tile and head the scores
+    (2T^2 N), the intra term (2T^2 P), C.h and the state update (2TNP
+    each). At 32-row tiles bytes bound it; the TPU kernel's chunk of 256
+    needs ~3x as many, and the tensor-core passes issue their own count
+    (padding and split terms included)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    return (nbytes(x, dt, A, Bm, Cm) + nbytes(x),
+            B * H * -(-S // tile) * (2 * tile * tile * (N + P)
+                                    + 4 * tile * N * P))
+
+
+def time_row(kernel, plain, library, work: tuple, iters: int) -> dict:
+    """``kernel``'s, its plain version's (unqueued, a tenth as many calls)
+    and the library call's times by ``cuda_ms``, and the bound: the
+    larger of ``work``'s bytes over the memory rate and its operations
+    over the bf16 tensor-core rate."""
+    by, ops = work
+    bytes_ms = by / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    return dict(ms=cuda_ms(kernel, iters),
+                plain_ms=cuda_ms(plain, max(iters // 10, 3), queued=False),
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None if library is None else cuda_ms(library,
+                                                                iters))
+
+
 def phase_times(dev, launches: dict, errs: dict) -> list:
-    """Kernel, plain version, library call and bound at the main paths'
-    shapes. The bound is the larger of the bytes the call must move
-    (each input read once, each output written once) over the memory
-    rate and its operations over the bf16 tensor-core rate."""
+    """Kernel, plain version, library call and bound (``time_row``) at
+    the main paths' shapes; then the round kernel with a lane axis.
+    Returns the kernels line's rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import (decode_attention, flash_attention, kde,
@@ -2129,89 +2316,69 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
 
     B, Hq, Hkv, S, D, dtype, _, _, _ = FLASH_CASES[0]
     fq, fk, fv = attention_inputs(B, Hq, Hkv, S, D, dtype, 30, dev)
-    f_bytes = 2 * nbytes(fq) + nbytes(fk, fv)            # out is q's size
-    f_flops = 4 * B * Hq * D * S * (S + 1) // 2          # causal pairs
     Sc = DECODE_CASES[0][3]                              # last decode step
     dq, dk, dv, dlen = decode_inputs(B, Hq, Hkv, Sc, D, dtype, [Sc] * B, 31,
                                      dev)
-    d_bytes = 2 * nbytes(dq) + nbytes(dk, dv) + nbytes(dlen)
-    d_flops = 4 * Hq * D * Sc * B
     live = (torch.arange(Sc, device=dev)[None, :] < dlen[:, None])
     d_mask = live[:, None, None, :]
 
     B, S, H, P, N, chunk, dtype, model = SSD_CASES[0]
     s_args = ssd_inputs(B, S, H, P, N, dtype, model, 32, dev)
-    s_bytes = nbytes(*s_args) + nbytes(s_args[0])        # y is x's size
-    # the work, whatever implements it: the chunked algorithm at 32-row
-    # tiles, per tile and head the scores (2T^2 N), the intra term
-    # (2T^2 P), C.h and the state update (2TNP each); bytes bound it. The
-    # TPU kernel's chunk of 256 needs ~3x as many, and the tensor-core
-    # passes issue their own count (padding and split terms included)
-    s_flops = B * H * -(-S // SSD_WORK_TILE) * (
-        2 * SSD_WORK_TILE * SSD_WORK_TILE * (N + P)
-        + 4 * SSD_WORK_TILE * N * P)
-    s_flops_256 = B * H * -(-S // chunk) * (2 * chunk * chunk * (N + P)
-                                           + 4 * chunk * N * P)
-    s_mma_flops = ssd._mma_flops(B, S, H, N, P)
     k_rows, k_R = KDE_SIZES[0]
     k_lat, k_mask, k_bw = kde_inputs(k_rows, k_R, 33, dev)
     k_args = (k_lat, k_mask, 0.08, k_bw)
     k_bytes = nbytes(k_lat, k_mask, k_bw) + k_rows * 4
     rows_out = []
-    for (name, src, replaces, kern, plain, library, args, kwargs, by, ops,
+    for (name, src, replaces, kern, plain, library, args, kwargs, work,
          iters) in (
             ("round_step_swrr", "src/repro_torch/kernels/csrc/round_fused.cu",
              "src/repro/kernels/round_fused.py:183",
              round_fused.round_step_swrr, ref.round_step_swrr, None, r_args,
-             kw, r_bytes, 0, 20),
+             kw, (r_bytes, 0), 20),
             ("fused_maintenance", "src/repro_torch/kernels/csrc/maintenance.cu",
              "src/repro/kernels/kde.py:127", kde.fused_maintenance,
-             ref.bandit_maintenance_stats, None, m_args, {}, m_bytes, 0, 200),
+             ref.bandit_maintenance_stats, None, m_args, {}, (m_bytes, 0),
+             200),
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:97",
              flash_attention.flash_attention, ref.attention,
              lambda: F.scaled_dot_product_attention(
                  fq, fk, fv, is_causal=True, enable_gqa=True),
-             (fq, fk, fv), {}, f_bytes, f_flops, 20),
+             (fq, fk, fv), {}, attention_work(fq, fk, fv), 20),
             ("decode_attention",
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:64",
              decode_attention.decode_attention, ref.decode_attention,
              lambda: F.scaled_dot_product_attention(
                  dq[:, :, None], dk, dv, attn_mask=d_mask, enable_gqa=True),
-             (dq, dk, dv, dlen), {}, d_bytes, d_flops, 200),
+             (dq, dk, dv, dlen), {}, decode_work(dq, dk, dv, dlen), 200),
             ("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
              "src/repro/kernels/ssd.py:66",
              functools.partial(ssd.ssd, chunk=chunk), ref.ssd, None, s_args,
-             {}, s_bytes, s_flops, 20),
+             {}, ssd_work(*s_args), 20),
             ("kde_success_prob", "src/repro_torch/kernels/csrc/maintenance.cu",
              "src/repro/kernels/kde.py:50", kde.kde_success_prob,
-             ref.kde_success_prob, None, k_args, {}, k_bytes, 0, 200)):
-        ms = cuda_ms(lambda: kern(*args, **kwargs), iters)
-        plain_ms = cuda_ms(lambda: plain(*args, **kwargs), max(iters // 10, 3),
-                           queued=False)
-        library_ms = None if library is None else cuda_ms(library, iters)
-        bytes_ms = by / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_FLOP_PER_S * 1e3
+             ref.kde_success_prob, None, k_args, {}, (k_bytes, 0), 200)):
         rows_out.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name], ms=ms,
-            plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=library_ms))
+            launches=launches[name], max_abs_err=errs[name],
+            **time_row(lambda: kern(*args, **kwargs),
+                       lambda: plain(*args, **kwargs), library, work, iters)))
         if name in ("fused_maintenance", "kde_success_prob"):
             # one row: the launch and one row's chain
             one = [a[:1] if isinstance(a, torch.Tensor) else a for a in args]
             extra = dict(ms_1row=cuda_ms(lambda: kern(*one), iters))
         else:
-            extra = ({"flops_chunk256": s_flops_256,
-                      "flops_tensor_core_passes": s_mma_flops,
+            extra = ({"flops_chunk256": ssd_work(*s_args, tile=chunk)[1],
+                      "flops_tensor_core_passes": ssd._mma_flops(B, S, H, N,
+                                                                 P),
                       "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
                           s_args[0].dtype]} if name == "ssd" else
                      round_launch_fields(K, M, C, dev)
                      if name == "round_step_swrr" else {})
-        emit(phase="times", bytes=by, flops=ops, **extra, **rows_out[-1])
+        emit(phase="times", bytes=work[0], flops=work[1], **extra,
+             **rows_out[-1])
     # the round kernel with a lane axis: the lanes phase's shape and the
     # fleet's, four lanes in one launch
     for S, Kl, Ml in ROUND_LANE_CASES[1:]:
@@ -2219,14 +2386,65 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
         l_bytes = (nbytes(*l_args[:18])
                    + nbytes(*(x for i, x in enumerate(l_args[:12]) if i != 5))
                    + 2 * S * Ml * 4 + 3 * S * Kl * C * 4)
-        ms = cuda_ms(lambda: round_fused.round_step_swrr(*l_args, **kw), 20)
-        plain_ms = cuda_ms(lambda: ref.round_step_swrr(*l_args, **kw), 3,
-                           queued=False)
+        row = time_row(lambda: round_fused.round_step_swrr(*l_args, **kw),
+                       lambda: ref.round_step_swrr(*l_args, **kw), None,
+                       (l_bytes, 0), 20)
+        del row["library_ms"]
         emit(phase="times_lanes", name="round_step_swrr", lanes=S, K=Kl,
-             M=Ml, ms=ms, plain_ms=plain_ms,
-             bound_ms=l_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-             bytes=l_bytes, **round_launch_fields(S * Kl, Ml, C, dev, S))
+             M=Ml, **row, bytes=l_bytes,
+             **round_launch_fields(S * Kl, Ml, C, dev, S))
     return rows_out
+
+
+def phase_family_times(dev) -> None:
+    """The serving kernels at the decoder families' shapes (``time_row``):
+    flash at ``FAMILY_FLASH`` (its library call SDPA, causal, with the
+    window as a boolean mask where there is one; the bound counts the
+    window's pairs only), decode attention on ``FAMILY_DECODE``'s caches
+    at their whole length, ``ssd`` at hymba's heads."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention, ref, ssd
+    B = SERVE["batch"]
+    for (Hq, Hkv), S, D, window in FAMILY_FLASH:
+        q, k, v = attention_inputs(B, Hq, Hkv, S, D, "bfloat16", 34, dev)
+        t = torch.arange(S, device=dev)
+        mask = (t[:, None] >= t[None, :]) & (t[:, None] - t[None, :]
+                                             < (window or S))
+        library = functools.partial(
+            F.scaled_dot_product_attention, q, k, v, enable_gqa=True,
+            **(dict(is_causal=True) if window is None else
+               dict(attn_mask=mask)))
+        work = attention_work(q, k, v, window)
+        emit(phase="times_families", name="flash_attention",
+             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window),
+             **time_row(functools.partial(flash_attention.flash_attention, q,
+                                          k, v, window=window),
+                        functools.partial(ref.attention, q, k, v,
+                                          window=window), library, work, 20),
+             bytes=work[0], flops=work[1])
+    for (Hq, Hkv), S, D, _ in FAMILY_DECODE:
+        q, k, v, length = decode_inputs(B, Hq, Hkv, S, D, "bfloat16",
+                                        [S] * B, 35, dev)
+        work = decode_work(q, k, v, length)
+        emit(phase="times_families", name="decode_attention",
+             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, length=S),
+             **time_row(functools.partial(decode_attention.decode_attention,
+                                          q, k, v, length),
+                        functools.partial(ref.decode_attention, q, k, v,
+                                          length),
+                        functools.partial(F.scaled_dot_product_attention,
+                                          q[:, :, None], k, v,
+                                          enable_gqa=True), work, 200),
+             bytes=work[0], flops=work[1])
+    Bs, S, H, P, N, chunk, dtype, model = SSD_CASES[-1]
+    args = ssd_inputs(Bs, S, H, P, N, dtype, model, 36, dev)
+    work = ssd_work(*args)
+    emit(phase="times_families", name="ssd",
+         shape=dict(B=Bs, S=S, H=H, P=P, N=N, chunk=chunk),
+         **time_row(functools.partial(ssd.ssd, *args, chunk=chunk),
+                    functools.partial(ref.ssd, *args), None, work, 20),
+         bytes=work[0], flops=work[1])
 
 
 def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
@@ -2289,8 +2507,8 @@ def phase_fleet_only(dev, repeats: int, trace_dir: Path | None) -> None:
 def phase_profile(dev, trace_dir: Path) -> None:
     """Profiler breakdowns: 20 fleet steps; 20 steps of each suite
     strategy on the 30x10 testbed (seed 1); one prefill and one decode
-    call of each serving cell's model (qwen3-4b, then mamba2-1.3b; batch
-    4, prompt 1000)."""
+    call of each served model (qwen3-4b, mamba2-1.3b, then the families'
+    hymba-1.5b, gemma3-1b and qwen3-moe-30b-a3b; batch 4, prompt 1000)."""
     import torch
     from repro_torch.bench import figures as bf
     from repro_torch.configs import get_config
@@ -2346,7 +2564,9 @@ def phase_profile(dev, trace_dir: Path) -> None:
                  tenants=bs.MT_TENANTS)
 
     B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
-    for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_")):
+    for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_"),
+                      ("hymba-1.5b", "hymba_"), ("gemma3-1b", "gemma3_"),
+                      ("qwen3-moe-30b-a3b", "moe_")):
         mcfg = get_config(arch)
         model = build_model(mcfg, device=dev)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -2361,6 +2581,8 @@ def phase_profile(dev, trace_dir: Path) -> None:
                  f"{tag}decode", trace_dir, arch=arch, batch=B,
                  cache_slots=S + steps)
         del model, cache
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2431,6 +2653,7 @@ def main() -> int:
                          (decode_attention.decode_attention,))
     phase_decode_graph(dev, "mamba2-1.3b")
     served_ssm = phase_serve(dev, "serve_ssm", "mamba2-1.3b", (ssd.ssd,), ())
+    families = phase_families(dev)
     # each kernel's launches on its main path: the simulator kernels in the
     # fleet run, the serving kernels in their serve runs; the KDE kernel,
     # which no path calls, summed over all three runs
@@ -2439,6 +2662,7 @@ def main() -> int:
                          if k not in launches})
         launches["kde_success_prob"] += run["launches"]["kde_success_prob"]
     kernels = phase_times(dev, launches, errs)
+    phase_family_times(dev)
     times = {row["name"]: row["ms"] for row in kernels}
     # kernel time x launches per call over the serve run's median call
     emit(phase="serve_shares",
@@ -2446,12 +2670,18 @@ def main() -> int:
          / served["prefill_ms"],
          decode_share_of_decode=served["layers"] * times["decode_attention"]
          / served["decode_ms"],
-         decode_device_share=dense_graph_ms / served["decode_ms"],
+         decode_device_share=share(dense_graph_ms, served["decode_ms"]),
          ssd_share_of_prefill=served_ssm["layers"] * times["ssd"]
          / served_ssm["prefill_ms"],
          maintenance_launches_in_serve=served["launches"]["fused_maintenance"],
          maintenance_launches_in_serve_ssm=served_ssm["launches"][
              "fused_maintenance"])
+    # a replayed decode call's device time over the served median call
+    emit(phase="families_shares", **{
+        arch: dict(prefill_ms=run["prefill_ms"], decode_ms=run["decode_ms"],
+                   decode_device_share=share(run["decode_graph_ms"],
+                                             run["decode_ms"]))
+        for arch, run in families.items()})
     if args.profile is not None:
         phase_profile(dev, args.profile)
     emit(phase="total", seconds=time.perf_counter() - t_start)

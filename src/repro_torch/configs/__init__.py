@@ -2,17 +2,25 @@
 
 ``get_config(name)`` returns the exact published config;
 ``get_config(name, reduced=True)`` the structurally identical smoke
-variant. ``ARCH_NAMES`` lists only the architectures the port can
-build; the reference's others raise ``KeyError`` until their families
-are ported (ROADMAP A11).
+variant. ``ARCH_NAMES`` lists the architectures the port builds: every
+decoder-only config of the reference, in the reference's registry
+order. The encoder-decoder (``whisper-tiny``) and the VLM
+(``internvl2-1b``) raise ``KeyError`` until their families are ported
+(ROADMAP A11).
 """
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_1_3b, qwen3_4b
+from repro_torch.configs import (gemma3_1b, hymba_1_5b, mamba2_1_3b,
+                                 mistral_nemo_12b, qwen3_4b,
+                                 qwen3_moe_30b_a3b, qwen3_moe_235b_a22b,
+                                 qwen25_14b)
 from repro_torch.configs.base import (AUDIO, DENSE, FAMILIES, HYBRID, MOE,
                                       SSM, VLM, ModelConfig)
 
-_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen3_4b, mamba2_1_3b)}
+_REGISTRY = {m.CONFIG.name: m.CONFIG
+             for m in (mistral_nemo_12b, gemma3_1b, qwen25_14b, qwen3_4b,
+                       hymba_1_5b, qwen3_moe_235b_a22b, qwen3_moe_30b_a3b,
+                       mamba2_1_3b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 

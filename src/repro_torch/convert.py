@@ -19,7 +19,7 @@ breaker's ``BreakerState``, the control plane's ``ControlCarry``
 ``RecorderState`` likewise.
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
-``init_params`` pytree (as numpy, layers stacked on a leading L axis)
+``init_params`` pytree (as numpy, layers stacked on leading axes)
 into the port's ``Model``.
 """
 from __future__ import annotations
@@ -182,26 +182,32 @@ def _flatten(tree, prefix: str = ""):
             yield key, np.asarray(sub)
 
 
+# the stacked layer pytrees and how many leading axes stack their layers
+_STACKS = {"layers": 1, "group_global": 1, "tail_local": 1, "group_local": 2}
+
+
 def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
     """The reference's ``init_params(key, cfg)`` pytree (numpy leaves:
-    ``embed.tok``/``embed.unembed``, ``final_norm``, ``layers.*`` with
-    a leading L axis: ``ln1``, ``attn.*``, ``ln2``, ``mlp.*`` for a
-    dense stack, ``ln1`` and ``ssm.{in_proj, conv_w, conv_b, A_log,
-    dt_bias, norm, out_proj}`` for an SSM stack) as the port's ``Model``
-    on ``device``. Matrices and the conv weights are cast once to
-    ``cfg.dtype`` (the reference casts at every use, with the same
-    rounding); norm weights, ``A_log`` and ``dt_bias`` stay float32. A
-    missing, extra or misshapen leaf raises (``load_state_dict``,
-    strict)."""
+    ``embed.tok``/``embed.unembed``, ``final_norm``, and the stacked
+    layers: ``layers.*`` with a leading L axis for a uniform stack, or
+    ``group_local.*`` (G, nl), ``group_global.*`` (G,) and
+    ``tail_local.*`` (n_tail,) for a gemma3 stack; a layer's leaves are
+    ``ln1``, ``attn.*``, ``ssm.{in_proj, conv_w, conv_b, A_log, dt_bias,
+    norm, out_proj}``, ``attn_norm``/``ssm_norm`` (hybrid), ``ln2`` with
+    ``mlp.*`` or ``moe.{router, wi, wg, wo}``, by family) as the port's
+    ``Model`` on ``device``. Matrices and the conv weights are cast once
+    to ``cfg.dtype`` (the reference casts at every use, with the same
+    rounding); norm weights, ``A_log``, ``dt_bias`` and the MoE router
+    stay float32. A missing, extra or misshapen leaf raises
+    (``load_state_dict``, strict)."""
     model = build_model(cfg, device=device)
     state = {}
     for key, arr in _flatten(params):
-        if key.startswith("layers."):
-            rest = key[len("layers."):]
-            for i in range(arr.shape[0]):
-                state[f"params.layers.{i}.{rest}"] = torch.from_numpy(
-                    np.array(arr[i], copy=True))
-        else:
-            state[f"params.{key}"] = torch.from_numpy(np.array(arr, copy=True))
+        head, _, rest = key.partition(".")
+        lead = _STACKS.get(head, 0)
+        for idx in np.ndindex(*arr.shape[:lead]):
+            name = ".".join(("params", head, *map(str, idx), rest)
+                            if lead else ("params", key))
+            state[name] = torch.from_numpy(np.array(arr[idx], copy=True))
     model.load_state_dict(state, strict=True)
     return model

@@ -1,24 +1,32 @@
 """Model API: ``build_model(cfg)`` -> ``Model``, an ``nn.Module`` with
 ``forward`` / ``prefill`` / ``decode`` / ``init_cache``.
 
-Port of the dense and SSM paths of ``repro/models/model_zoo.py``. The
-reference's ``Model`` is a tuple of pure functions over a separate
-params pytree; here the module holds its weights (``model.params``), in
-``cfg.dtype`` on its device, norm weights (and the SSM's ``A_log`` and
-``dt_bias``) in float32.
+Port of the decoder-only paths of ``repro/models/model_zoo.py`` (dense,
+MoE, SSM, hybrid, gemma3 local/global). The reference's ``Model`` is a
+tuple of pure functions over a separate params pytree; here the module
+holds its weights (``model.params``), in ``cfg.dtype`` on its device,
+norm weights (and the SSM's ``A_log`` and ``dt_bias``, the MoE router)
+in float32.
 
 Batches: ``{"tokens": (B, S)}`` for ``forward`` and ``prefill``;
 ``{"token": (B, 1), "pos": int}`` plus the cache for ``decode``. The
 loss and the dry run's input specs wait for the training slice
 (ROADMAP A11).
 
+Caches (``transformer``'s module docstring has their layout): a layer
+with a sliding window keeps a ring of ``window`` slots (prefill fills
+it through ``_to_ring``; decode writes slot ``pos % W``), a layer
+without one a full cache of ``max_len`` slots (decode writes slot
+``pos``), an SSM layer its conv and SSM states (decode rewrites them
+whole). ``transformer.cache_layout`` names which is which.
+
 On a CUDA device ``decode`` replays the decode step as a CUDA graph
-(one per batch, cache shape and dtype; ``decode_graphs`` off runs every
-step eagerly). A graph issues the step's kernels (~1,600 for the dense
-stack, ~2,000 for the SSM stack) in one host call. It runs over static
-copies of the caches, the token and the position: the dense step reads
-its position from a device tensor (``transformer.decode_step``), so one
-graph serves every position.
+(one per batch and cache shapes and dtypes; ``decode_graphs`` off runs
+every step eagerly). A graph issues the step's kernels (~1,600 for the
+dense stack, ~2,000 for the SSM stack) in one host call. It runs over
+static copies of the caches, the token and the position: the step reads
+its position from a device tensor (``transformer.decode_step``; a
+ring's slot ``pos % W`` too), so one graph serves every position.
 
 The caller's cache. ``decode`` returns the cache it was given, updated
 in place as by the eager step; a caller may read it, pass it to the
@@ -27,11 +35,12 @@ caller's cache in only when it does not already hold it: when the
 caller passes another cache object (a new microbatch after its prefill,
 or two microbatches in turn) or changed this one since the last call
 (any in-place PyTorch write bumps a tensor's version counter). A step
-then moves only what it writes: one slot of every layer's K and V back
-into the caller's cache for a dense stack (~0.6 MB at qwen3-4b's batch
-4), the whole state for an SSM stack (every element changes). A caller
-must not write into the cache other than through PyTorch (a kernel of
-its own through ``data_ptr()``), or the graph misses the change.
+then moves only what it writes: one slot of every layer's K and V
+(slot ``pos`` of a full cache, ``pos % W`` of a ring) back into the
+caller's cache (~0.6 MB at qwen3-4b's batch 4), and every SSM state
+whole (every element changes). A caller must not write into the cache
+other than through PyTorch (a kernel of its own through
+``data_ptr()``), or the graph misses the change.
 
 Launch counts. A capture records kernels and runs none, so the launches
 the kernel wrappers count while the step is captured are taken back,
@@ -47,11 +56,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import SSM, ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+
+def _cache_len(cfg: ModelConfig, S: int) -> int:
+    if cfg.sliding_window is not None and cfg.local_global_pattern is None:
+        return min(S, cfg.sliding_window)
+    return S
+
+
+def _to_ring(kv: tuple, W: int) -> tuple:
+    """(..., S, D) full caches -> (..., W, D) rings with position t in slot
+    t % W: padded when S <= W, else the last W positions rotated into
+    their slots."""
+    k, v = kv
+    S = k.shape[-2]
+    if S <= W:
+        pad = (0, 0, 0, W - S)
+        return F.pad(k, pad), F.pad(v, pad)
+    # position S - W + i goes to slot (S - W + i) % W: a rotation by S % W
+    return tuple(torch.roll(t[..., S - W:, :], S % W, dims=-2) for t in kv)
 
 
 def _pad_seq(kv: tuple, max_len: int | None) -> tuple:
@@ -64,6 +91,11 @@ def _pad_seq(kv: tuple, max_len: int | None) -> tuple:
     return F.pad(k, pad), F.pad(v, pad)
 
 
+def _flat(cache: dict, layout: dict) -> list:
+    """The cache's tensors in ``layout`` order."""
+    return [t for key in layout for t in cache[key]]
+
+
 class _DecodeGraph:
     """One decode step captured as a CUDA graph over static copies of the
     caches, the token and the position (the module docstring says what a
@@ -72,8 +104,10 @@ class _DecodeGraph:
     def __init__(self, params: T.Params, cfg: ModelConfig, cache: dict,
                  token: torch.Tensor):
         self.params, self.cfg = params, cfg
-        self.cache = {"layers": tuple(torch.empty_like(t)
-                                      for t in cache["layers"])}
+        self.layout = T.cache_layout(cfg)
+        self.kinds = [kind for key in self.layout for kind in self.layout[key]]
+        self.cache = {key: tuple(torch.empty_like(t) for t in cache[key])
+                      for key in self.layout}
         self.token = torch.empty_like(token)
         self.pos = torch.zeros(1, dtype=torch.int64, device=token.device)
         self.held: list | None = None      # (weakref, version) of each held
@@ -111,10 +145,11 @@ class _DecodeGraph:
             for (ref, version), t in zip(self.held, given))
 
     def __call__(self, cache: dict, token: torch.Tensor, pos: int):
-        given = cache["layers"]
+        given = _flat(cache, self.layout)
+        static = _flat(self.cache, self.layout)
         if not self._holds(given):
-            for static, t in zip(self.cache["layers"], given):
-                static.copy_(t)
+            for s, t in zip(static, given):
+                s.copy_(t)
         self.token.copy_(token)
         self.pos.fill_(pos)
         if self.graph is None:
@@ -124,24 +159,26 @@ class _DecodeGraph:
             for fn, n in zip(ops.WRAPPERS, self.replay_launches):
                 fn.launches += n
             logits = self.logits.clone()
-        for static, t in zip(self.cache["layers"], given):
-            if self.cfg.family == SSM:
-                t.copy_(static)
-            else:                             # (L, B, Hkv, S, D): slot pos
-                t[:, :, :, pos].copy_(static[:, :, :, pos])
+        for s, t, kind in zip(static, given, self.kinds):
+            if kind == T.STATE:
+                t.copy_(s)
+            else:                     # (..., slots, D): the slot written
+                i = pos % t.shape[-2] if kind == T.RING else pos
+                t.select(-2, i).copy_(s.select(-2, i))
         self.held = [(weakref.ref(t), t._version) for t in given]
         return logits, cache
 
 
 class Model(nn.Module):
-    """A dense or SSM decoder LM with its weights. ``decode_graphs``
-    (default on): replay the decode step as a CUDA graph on a CUDA
-    device; off, every step runs eagerly."""
+    """A decoder LM of any ported family with its weights.
+    ``decode_graphs`` (default on): replay the decode step as a CUDA graph
+    on a CUDA device; off, every step runs eagerly."""
 
     def __init__(self, cfg: ModelConfig, params: T.Params):
         super().__init__()
         self.cfg = cfg
         self.params = params
+        self.layout = T.cache_layout(cfg)
         self.decode_graphs = True
         self._graphs: dict = {}
 
@@ -153,27 +190,40 @@ class Model(nn.Module):
 
     def prefill(self, batch: dict, max_len: int | None = None):
         """tokens (B, S) -> (last position's logits (B, 1, V), caches):
-        KV caches with ``max_len`` slots, the first S filled; SSM states
-        as they are (O(1) in S, nothing to pad)."""
+        full KV caches with ``max_len`` slots, the first S filled; ring
+        caches of the window's slots (fixed at the window size), position
+        t in slot t % W; SSM states as they are (O(1) in S)."""
+        cfg = self.cfg
         x = L.embed_tokens(self.params.embed, batch["tokens"])
-        h, _, caches = T.forward(self.params, self.cfg, x, collect_cache=True)
-        logits = T.logits_from_hidden(self.params, self.cfg, h[:, -1:])
-        if self.cfg.family == SSM:
-            return logits, caches
-        return logits, {"layers": _pad_seq(caches["layers"], max_len)}
+        h, _, caches = T.forward(self.params, cfg, x, collect_cache=True)
+        logits = T.logits_from_hidden(self.params, cfg, h[:, -1:])
+        W = cfg.sliding_window
+        if cfg.local_global_pattern is not None:
+            caches = {key: (_pad_seq(kv, max_len) if key == "group_global"
+                            else _to_ring(kv, W))
+                      for key, kv in caches.items()}
+        elif cfg.family != SSM:
+            c = caches["layers"]
+            kv = _to_ring(c[:2], W) if W is not None else _pad_seq(c[:2],
+                                                                   max_len)
+            caches = {"layers": kv + c[2:]}
+        return logits, caches
 
     def decode(self, cache: dict, batch: dict):
         """One token per row at ``batch["pos"]`` -> (logits (B, 1, V),
-        cache), the cache updated in place. A dense cache must have a slot
-        at pos."""
+        cache), the cache updated in place. A full cache must have a slot
+        at pos; a ring takes any pos >= 0."""
         token, pos = batch["token"], int(batch["pos"])
-        first = cache["layers"][0]
-        if self.cfg.family != SSM and not 0 <= pos < first.shape[3]:
-            raise IndexError(f"position {pos} outside the cache's "
-                             f"{first.shape[3]} slots")
+        for key, kinds in self.layout.items():
+            for t, kind in zip(cache[key], kinds):
+                if kind != T.STATE and (pos < 0 or kind == T.FULL
+                                      and pos >= t.shape[-2]):
+                    raise IndexError(f"position {pos} outside the {key} "
+                                     f"cache's {t.shape[-2]} slots")
         if token.is_cuda and self.decode_graphs:
-            key = (tuple(token.shape), token.dtype, tuple(first.shape),
-                   first.dtype)
+            key = (tuple(token.shape), token.dtype,
+                   *((tuple(t.shape), t.dtype)
+                     for t in _flat(cache, self.layout)))
             if key not in self._graphs:
                 self._graphs[key] = _DecodeGraph(self.params, self.cfg,
                                                  cache, token)
@@ -181,21 +231,38 @@ class Model(nn.Module):
         return T.decode_step(self.params, self.cfg, cache, token, pos)
 
     def init_cache(self, B: int, S: int) -> dict:
-        """Zero caches for B rows: KV caches of S slots, or the SSM conv
+        """Zero caches for B rows, as the reference's ``init_cache(B, S)``:
+        KV caches of S slots (``min(S, window)`` for a ring), the SSM conv
         (compute dtype) and state (float32) caches."""
         cfg = self.cfg
         dev = self.params.final_norm.device
         dtype = T.compute_dtype(cfg)
-        if cfg.family == SSM:
+
+        def kv(stack: tuple, slots: int) -> tuple:
+            shape = (*stack, B, cfg.num_kv_heads, slots, cfg.head_dim)
+            return (torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev))
+
+        if cfg.local_global_pattern is not None:
+            n_groups, n_local, n_tail = T.groups(cfg)
+            Wd = min(S, cfg.sliding_window)
+            c = {"group_local": kv((n_groups, n_local), Wd),
+                 "group_global": kv((n_groups,), S)}
+            if n_tail:
+                c["tail_local"] = kv((n_tail,), Wd)
+            return c
+        Ln = cfg.num_layers
+        states = ()
+        if cfg.family in (SSM, HYBRID):
             conv_dim = cfg.ssm_inner + 2 * cfg.ssm_state
-            conv = torch.zeros((cfg.num_layers, B, cfg.ssm_conv - 1, conv_dim),
-                               dtype=dtype, device=dev)
-            h = torch.zeros((cfg.num_layers, B, cfg.ssm_heads, cfg.ssm_state,
-                             cfg.ssm_head_dim), dtype=torch.float32, device=dev)
-            return {"layers": (conv, h)}
-        shape = (cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)
-        return {"layers": (torch.zeros(shape, dtype=dtype, device=dev),
-                           torch.zeros(shape, dtype=dtype, device=dev))}
+            states = (torch.zeros((Ln, B, cfg.ssm_conv - 1, conv_dim),
+                                  dtype=dtype, device=dev),
+                      torch.zeros((Ln, B, cfg.ssm_heads, cfg.ssm_state,
+                                   cfg.ssm_head_dim), dtype=torch.float32,
+                                  device=dev))
+        if cfg.family == SSM:
+            return {"layers": states}
+        return {"layers": kv((Ln,), _cache_len(cfg, S)) + states}
 
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> Model:

@@ -81,8 +81,10 @@ def f32(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_published_qwen3_4b():
-    # and mamba2-1.3b: the two published configs the port builds
-    assert ARCH_NAMES == ("qwen3-4b", "mamba2-1.3b")
+    # and every other decoder-only config of the reference, in its order
+    assert ARCH_NAMES == tuple(a for a in JAX_ARCHS
+                               if a not in ("whisper-tiny", "internvl2-1b"))
+    assert len(ARCH_NAMES) == 8
     for arch in ARCH_NAMES:
         for reduced in (False, True):
             want = jax_config(arch, reduced=reduced)
@@ -114,12 +116,10 @@ def test_config_copy_derives_the_same_reduced_config(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="ROADMAP A11"):
-        get_config("hymba-1.5b")
+        get_config("whisper-tiny")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
-                                  "hymba-1.5b", "gemma3-1b", "whisper-tiny",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         build_model(port_config(arch), device="cpu")

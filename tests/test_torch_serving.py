@@ -25,7 +25,7 @@ from repro.core import BanditParams as JaxBanditParams
 from repro.models import build_model as jax_build
 from repro.serving import QEdgeRouter as JaxRouter
 from repro.serving import generate as jax_generate
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.convert import model_params_to_torch
 from repro_torch.core import BanditParams
 from repro_torch.launch import serve
@@ -173,16 +173,17 @@ def test_router_hooks_of_unported_layers_raise():
 # The launcher.
 # ---------------------------------------------------------------------------
 
-def test_serve_runs_to_the_end_on_the_cpu():
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_serve_runs_to_the_end_on_the_cpu(arch):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        router = serve.main(["--smoke", "--device", "cpu", "--requests", "6",
-                             "--frontends", "3", "--batch", "2",
-                             "--prompt-len", "12", "--decode-steps", "3",
-                             "--slow-replica", "2"])
+        router = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                             "--requests", "6", "--frontends", "3",
+                             "--batch", "2", "--prompt-len", "12",
+                             "--decode-steps", "3", "--slow-replica", "2"])
     assert isinstance(router, QEdgeRouter) and router.weights.shape == (3, 3)
     report = json.loads(out.getvalue().strip().splitlines()[-1])
-    assert report["arch"] == "qwen3-4b-smoke" and report["device"] == "cpu"
+    assert report["arch"] == f"{arch}-smoke" and report["device"] == "cpu"
     assert report["microbatches"] == report["prefills"] == 18
     assert report["decodes"] == 18 * 3 == len(report["decode_s"])
     assert report["logits_finite"] and report["maintenance_calls"] >= 1
