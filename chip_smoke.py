@@ -13,9 +13,14 @@ Phases, one JSON line each; any failure exits non-zero:
                 of ``NO_SPILL`` that spills fails.
 3. kernels   -- each CUDA kernel against its plain PyTorch version on the
                 card, at the main paths' shapes (the decoder families'
-                attention and SSD too) and at small ones; the
-                round kernel also at K past a wave of resident warps, M
-                above 64 and one arm taking every request, each case with
+                attention and SSD too; Whisper's encoder attention, non
+                causal over 1,500 frames, its decoder's causal
+                self-attention over prompts of 4 and 446, its 1,500-slot
+                cross cache and 448-slot self ring, InternVL2's prefill
+                over 256 patches and 1,000 tokens and its 1,272-slot
+                cache, a group of 7) and at small ones; the round kernel
+                also at K past a wave of resident warps, M above 64 and
+                one arm taking every request, each case with
                 its inputs unchanged and a second call bit-identical, and
                 a fleet-shape call replayed from a CUDA graph, and with
                 a lane axis (S lanes of players, (S, M) queues: S = 3 and
@@ -159,7 +164,7 @@ Phases, one JSON line each; any failure exits non-zero:
    families  -- the hybrid, gemma3 local/global and MoE decoders at their
                 published widths (hymba-1.5b, gemma3-1b, qwen3-moe-30b-a3b;
                 random weights from seed 0), one at a time: (a) served as
-                in ``serve`` but 10 rounds (``families_serve``): finite
+                in ``serve`` but 5 rounds (``families_serve``): finite
                 logits, every request counted, ``flash_attention`` and
                 ``decode_attention`` once per layer per prefill and decode
                 call, ``ssd`` once per layer per prefill (hymba),
@@ -172,10 +177,30 @@ Phases, one JSON line each; any failure exits non-zero:
                 fit on no one card): ``decode_graph``'s two microbatches
                 of four decode calls each, equal to eager. The phase's
                 seconds.
+   audio_vlm -- whisper-tiny and internvl2-1b at their published widths
+                (random weights from seed 0), one at a time, freed
+                between: (a) served as in ``families`` (``audio_vlm_serve``;
+                the launcher sends Whisper 1,500 encoder frames beside a
+                4-token decoder prompt, InternVL2 256 patch embeddings
+                before a 1,000-token prompt): finite logits, every request
+                counted, maintenance once per router maintenance,
+                ``flash_attention`` once per encoder layer and decoder
+                self-attention per Whisper prefill (8; its cross-attention
+                of 4 queries over 1,500 frames is plain PyTorch) and once
+                per layer per InternVL2 prefill (24), ``decode_attention``
+                twice per Whisper decoder layer per decode call (self ring
+                and cross cache: 8) and once per InternVL2 layer (24); (b)
+                ``decode_graph`` against eager, exactly: Whisper at prompts
+                of 4 and 446 (decode crosses the 448-position cap: the self
+                ring wraps, the positional row clamps; the cross cache is
+                read, never copied back), InternVL2 at 1,000. Prefill and
+                decode ms, decode tokens/s, peak memory, the phase's
+                seconds.
 10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
                 bound, at the main paths' shapes (``times``) and at the
-                families' (``times_families``), by CUDA events (kernel and
+                families', Whisper's and InternVL2's (``times_families``),
+                by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
                 enqueue rate does not enter), the maintenance kernels also
                 at one row (the launch and one row's chain); then
@@ -187,8 +212,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 lifecycle), 20 steps of each suite strategy, 20 steps of
                 the lanes phase's four lanes, 20 steps of the
                 multi-tenant lane's four lanes a policy and one prefill
-                and one decode call of each served model
-                (``--profile-only``: these alone, no checks).
+                and one decode call of each served model, whisper-tiny
+                and internvl2-1b included (``--profile-only``: these
+                alone, no checks).
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
 line and ``{"ok": true, "device": {...}}``.
@@ -289,7 +315,7 @@ SERVE = dict(replicas=3, frontends=4, requests=30, batch=4, prompt_len=1000,
              decode_steps=16, tau=1.0, slow_replica=2)
 # the decoder families' serve runs: the serve cell with fewer rounds (the
 # script's clock)
-FAMILY_REQUESTS = 10
+FAMILY_REQUESTS = 5
 HEADS = dict(Hq=32, Hkv=8, D=128)                  # qwen3-4b attention
 # Attention against its plain version: float32 to max |kernel - plain| <=
 # 1e-5 at unit-scale inputs (sums reassociated, CUDA's expf); bfloat16
@@ -306,11 +332,25 @@ ATTN_TOL = {"float32": dict(rtol=0.0, atol=1e-5),
 # (a group of 4 at D = 256), qwen3-moe-30b-a3b (a group of 8)
 FAMILY_FLASH = (((25, 5), 1100, 64, 1024), ((4, 1), 1000, 256, 512),
                 ((4, 1), 1000, 256, None), ((32, 4), 1000, 128, None))
+# Whisper-tiny and InternVL2-1B at published width (the audio_vlm phase),
+# each at its serve prompt and the decode graph's prompts: Whisper's decoder
+# prompt is the 4 special tokens its decoding starts from; from 446 its
+# decode crosses the 448-position cap (the self ring wraps, the positional
+# row clamps); InternVL2's 1,000 tokens follow its 256 patches
+AUDIO_VLM = {"whisper-tiny": dict(prompt_len=4, graph_prompts=(4, 446)),
+             "internvl2-1b": dict(prompt_len=1000, graph_prompts=(1000,))}
+# their attention, (Hq, Hkv), S, D, causal: Whisper's encoder over 1,500
+# frames (MHA, bidirectional), its decoder's causal self-attention over the
+# served 4-token prompt (shorter than one 64-row tile: a CTA's second
+# consumer warpgroup has no rows) and the decode graph's 446, InternVL2's
+# prefill over 256 patches and 1,000 tokens (a group of 7)
+AV_FLASH = (((6, 6), 1500, 64, False), ((6, 6), 4, 64, True),
+            ((6, 6), 446, 64, True), ((14, 2), 1256, 64, True))
 # (B, Hq, Hkv, S, D, dtype, causal, window, q_mul): the serve prefill
 # first, then the same with q x 4 (peaked rows: the online softmax rescales
 # at large logits); a window of 48 at D=64, non-causal with a group of 4
 # at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S;
-# then ``FAMILY_FLASH`` at the serve cell's batch
+# then ``FAMILY_FLASH`` and ``AV_FLASH`` at the serve cell's batch
 FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                 HEADS["D"], "bfloat16", True, None, 1.0),
                (SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
@@ -322,7 +362,9 @@ FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                  for dtype in ("float32", "bfloat16")),
                (1, 2, 1, 300, 256, "bfloat16", True, None, 1.0),
                *((SERVE["batch"], *heads, S, D, "bfloat16", True, window, 1.0)
-                 for heads, S, D, window in FAMILY_FLASH))
+                 for heads, S, D, window in FAMILY_FLASH),
+               *((SERVE["batch"], *heads, S, D, "bfloat16", causal, None, 1.0)
+                 for heads, S, D, causal in AV_FLASH))
 _C = 64                                            # decode_attention.CHUNK
 # The decoder families' decode caches, (Hq, Hkv), slots, D, lengths:
 # hymba-1.5b's 1,024-slot ring (G 5, D 64), gemma3-1b's 512-slot ring and
@@ -333,11 +375,18 @@ FAMILY_DECODE = (((25, 5), 1024, 64, (1, _C, _C + 1, 1024)),
                  ((4, 1), 1016, 256, (0, 1, 512, 1016)),
                  ((HEADS["Hq"], 4), SERVE["prompt_len"] + SERVE["decode_steps"],
                   HEADS["D"], (0, 1, _C + 1, 1016)))
+# Whisper's and InternVL2's decode caches, (Hq, Hkv), slots, D, lengths:
+# Whisper's cross cache (the encoder's 1,500 frames, every slot live in the
+# model) and its 448-slot self ring, InternVL2's full cache after 256
+# patches, 1,000 tokens and 16 decode steps (a group of 7)
+AV_DECODE = (((6, 6), 1500, 64, (0, 1, _C + 1, 1500)),
+             ((6, 6), 448, 64, (0, 1, _C + 1, 448)),
+             ((14, 2), 1272, 64, (0, 1, _C + 1, 1272)))
 # (B, Hq, Hkv, S, D, dtype, lengths): the serve decode cache first, at
 # lengths 1, one split (64), one past it and the whole cache, then with a
 # row of length 0 (exactly zero, where the plain version gives the mean of
-# V); then small float32 caches; then ``FAMILY_DECODE`` at the serve
-# cell's batch
+# V); then small float32 caches; then ``FAMILY_DECODE`` and ``AV_DECODE``
+# at the serve cell's batch
 DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                  SERVE["prompt_len"] + SERVE["decode_steps"], HEADS["D"],
                  "bfloat16", (1, _C, _C + 1, 1016)),
@@ -347,7 +396,7 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                 (2, 8, 2, 100, 64, "float32", (1, 64)),
                 (2, 4, 1, 40, 16, "float32", (40, 17)),
                 *((SERVE["batch"], *heads, S, D, "bfloat16", lengths)
-                  for heads, S, D, lengths in FAMILY_DECODE))
+                  for heads, S, D, lengths in (*FAMILY_DECODE, *AV_DECODE)))
 # SSD, element by element (|out - plain| <= atol + rtol |plain|): float32
 # to tests/test_kernels.py's rtol = atol = 1e-3 (the chunked form
 # reassociates the decays); a bfloat16 output to one bfloat16 step of
@@ -2006,24 +2055,47 @@ def phase_events(dev) -> None:
                                  f"< {EVENTS['min_post_steady']} ({event})")
 
 
-def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
-                per_decode: tuple, requests: int = SERVE["requests"],
-                slow_gate: bool = True) -> dict:
+def path_launches(cfg) -> tuple:
+    """The launches of each serving kernel (by name) a prefill makes, and
+    those a decode call makes: an attention layer launches
+    ``flash_attention`` once a prefill and ``decode_attention`` once a
+    decode call, an SSM layer ``ssd`` once a prefill. Whisper: each
+    encoder layer and each decoder self-attention ``flash_attention`` (a
+    served prompt is shorter than the encoder's frames, so the
+    cross-attention is plain PyTorch), the decoder's self and cross
+    attention ``decode_attention`` each."""
+    from repro_torch.configs.base import AUDIO, HYBRID, SSM as SSM_FAMILY
+    n = cfg.num_layers
+    if cfg.family == AUDIO:
+        return ({"flash_attention": cfg.encoder_layers + n},
+                {"decode_attention": 2 * n})
+    if cfg.family == SSM_FAMILY:
+        return {"ssd": n}, {}
+    prefill = {"flash_attention": n}
+    if cfg.family == HYBRID:
+        prefill["ssd"] = n
+    return prefill, {"decode_attention": n}
+
+
+def phase_serve(dev, phase: str, arch: str, requests: int = SERVE["requests"],
+                slow_gate: bool = True,
+                prompt_len: int = SERVE["prompt_len"]) -> dict:
     """The serving cell through the launcher a user runs, with ``arch``
-    at its published width and ``requests`` rounds; the launches prove
-    the path: each kernel of ``per_prefill`` (``per_decode``) once per
-    layer per prefill (decode call), maintenance once per router
-    maintenance; ``slow_gate``: every front-end weighs the slow replica
-    below each fast one. Returns the launch counts and the per-call
-    medians."""
+    at its published width, ``requests`` rounds and prompts of
+    ``prompt_len`` tokens; the launches prove the path: each serving
+    kernel as often as ``path_launches`` says a prefill and a decode call
+    launch it, maintenance once per router maintenance; ``slow_gate``:
+    every front-end weighs the slow replica below each fast one. Returns
+    the launch counts and the per-call medians."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kde
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--device", "cuda"]
-    for key, val in {**SERVE, "requests": requests}.items():
+    for key, val in {**SERVE, "requests": requests,
+                     "prompt_len": prompt_len}.items():
         argv += [f"--{key.replace('_', '-')}", str(val)]
     cfg = get_config(arch)
+    per_prefill, per_decode = path_launches(cfg)
     base = memory_baseline(dev)
     for fn in all_kernels():
         fn.launches = 0
@@ -2032,9 +2104,10 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
     with contextlib.redirect_stdout(out):
         router = serve.main(argv)
     secs = time.perf_counter() - t0
-    kernels = (*per_prefill, *per_decode, kde.fused_maintenance,
-               kde.kde_success_prob)
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    names = {*per_prefill, *per_decode, "fused_maintenance",
+             "kde_success_prob"}
+    launches = {fn.__name__: fn.launches for fn in all_kernels()
+                if fn.__name__ in names}
     *text, last = out.getvalue().strip().splitlines()
     print("\n".join(text), file=sys.stderr)
     rep = json.loads(last)
@@ -2045,6 +2118,7 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
     fast = [m for m in range(SERVE["replicas"]) if m != slow]
     emit(phase=phase, arch=rep["arch"], layers=cfg.num_layers,
          d_model=cfg.d_model, params=cfg.param_count(), argv=argv,
+         launches_per_prefill=per_prefill, launches_per_decode=per_decode,
          seconds=secs, microbatches=rep["microbatches"],
          prefills=rep["prefills"], decodes=rep["decodes"],
          maintenance_calls=rep["maintenance_calls"], launches=launches,
@@ -2062,10 +2136,8 @@ def phase_serve(dev, phase: str, arch: str, per_prefill: tuple,
     want = requests * SERVE["frontends"]
     if rep["microbatches"] != want or rep["prefills"] != want:
         raise AssertionError(f"{rep['prefills']} prefills, {want} requests")
-    needs = [(fn.__name__, cfg.num_layers * rep["prefills"])
-             for fn in per_prefill]
-    needs += [(fn.__name__, cfg.num_layers * rep["decodes"])
-              for fn in per_decode]
+    needs = [(name, n * rep["prefills"]) for name, n in per_prefill.items()]
+    needs += [(name, n * rep["decodes"]) for name, n in per_decode.items()]
     needs += [("fused_maintenance", rep["maintenance_calls"]),
               ("kde_success_prob", 0)]
     for name, n in needs:
@@ -2084,16 +2156,19 @@ def phase_decode_graph(dev, arch: str, steps: int = 4,
                        sync_check: bool = False) -> float | None:
     """The decode step replayed as a CUDA graph against the same step run
     eagerly, at the serve cell's batch and cache slots after a prompt of
-    ``prompt`` (past a window, the prefill masks and the ring wraps): two
+    ``prompt`` tokens (after the VLM's patches, beside Whisper's frames,
+    built as the launcher builds them: ``serve.request_batch``; past a
+    window, the prefill masks and the ring wraps; past Whisper's
+    ``max_decode_len``, its self ring wraps and the position clamps): two
     microbatches decode in turn (A0 A1 B0 B1 A2 B2 ...), so the graph
     copies a cache in when the other one was its last and replays on the
     one it holds otherwise. Both modes
     run the same kernels on the same inputs, so logits and every cache
     tensor must agree exactly, and the kernel wrappers' counts must read
-    one launch per attention layer per decode call in both. Times a
-    replayed call on the card (queued, ``cuda_ms``), on the host's clock
-    (each call synchronised, as the serving engine times it), and the
-    host's enqueue alone. When the host takes half a call's synchronised
+    ``path_launches``' decode attention launches per decode call in both.
+    Times a replayed call on the card (queued, ``cuda_ms``), on the host's
+    clock (each call synchronised, as the serving engine times it), and
+    the host's enqueue alone. When the host takes half a call's synchronised
     time or more to enqueue it (``host_bound``), the card cannot be got
     ahead of: the calls back to back are timed unqueued
     (``graph_call_wall_ms``, the slower of host and card) and the device
@@ -2104,23 +2179,23 @@ def phase_decode_graph(dev, arch: str, steps: int = 4,
     time of one replayed decode call (ms), None when host-bound."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import SSM as SSM_FAMILY
     from repro_torch.kernels import decode_attention
+    from repro_torch.launch.serve import decode_start, request_batch
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import cache_layout
     cfg = get_config(arch, reduced=reduced)
     model = build_model(cfg, device=dev)
     B, S = SERVE["batch"], prompt
-    slots = S + SERVE["decode_steps"]
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = [torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen,
                             device=dev) for _ in range(2)]
-    caches = [model.prefill({"tokens": t[:, :S]}, max_len=slots)[1]
-              for t in tokens]
+    first = decode_start(cfg, S)
+    slots = first + SERVE["decode_steps"]
+    caches = [model.prefill(request_batch(cfg, t[:, :S], gen),
+                            max_len=slots)[1] for t in tokens]
     order = [(m, j) for i in range(0, steps, 2) for m in range(2)
              for j in (i, i + 1) if j < steps]
-    per_call = cfg.num_layers if cfg.family != SSM_FAMILY else 0
-    layout = cache_layout(cfg)
+    per_call = path_launches(cfg)[1].get("decode_attention", 0)
+    layout = model.layout
     results = {}
     for mode in (False, True):
         model.decode_graphs = mode
@@ -2131,7 +2206,8 @@ def phase_decode_graph(dev, arch: str, steps: int = 4,
         out = [[] for _ in tokens]
         for m, i in order:
             tok = tokens[m][:, S + i:S + i + 1].to(torch.int32)
-            logits, cs[m] = model.decode(cs[m], {"token": tok, "pos": S + i})
+            logits, cs[m] = model.decode(cs[m], {"token": tok,
+                                                 "pos": first + i})
             out[m].append(logits)
         torch.cuda.synchronize()
         launched = decode_attention.decode_attention.launches
@@ -2156,11 +2232,12 @@ def phase_decode_graph(dev, arch: str, steps: int = 4,
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                model.decode(c, {"token": token, "pos": S + steps})
+                model.decode(c, {"token": token, "pos": first + steps})
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             synced["graph" if mode else "eager"] = "no host sync"
-    call = lambda: model.decode(c, {"token": token, "pos": S + steps + 1})
+    call = lambda: model.decode(c, {"token": token,
+                                    "pos": first + steps + 1})
     host_ms = []
     for _ in range(10):                  # as the serving engine times a call
         t0 = time.perf_counter()
@@ -2184,8 +2261,8 @@ def phase_decode_graph(dev, arch: str, steps: int = 4,
     graph_ms = None if host_bound else timed_ms
     emit(phase="decode_graph", arch=cfg.name, family=cfg.family,
          layers=cfg.num_layers, params=cfg.param_count(), batch=B, prompt=S,
-         cache_slots=slots, cache_shapes={key: [list(t.shape) for t in c[key]]
-                                         for key in layout},
+         first_position=first, cache_slots=slots,
+         cache_shapes={key: [list(t.shape) for t in c[key]] for key in layout},
          steps=steps, calls=order, graphs=len(model._graphs),
          decode_attention_launches=launched,
          max_abs_err=dict(zip(names, errs)), graph_call_device_ms=graph_ms,
@@ -2216,18 +2293,13 @@ def phase_families(dev) -> dict:
     weights, ~454 GB), reduced, through the same decode-graph check.
     Returns each family's serve results."""
     import torch
-    from repro_torch.kernels import decode_attention, flash_attention, ssd
     t0 = time.perf_counter()
-    attn = ((flash_attention.flash_attention,),
-            (decode_attention.decode_attention,))
     served = {}
-    for arch, prompt, per_prefill, moe in (
-            ("hymba-1.5b", 1100, (*attn[0], ssd.ssd), False),
-            ("gemma3-1b", 1000, attn[0], False),
-            ("qwen3-moe-30b-a3b", SERVE["prompt_len"], attn[0], True)):
-        served[arch] = phase_serve(dev, "families_serve", arch, per_prefill,
-                                   attn[1], requests=FAMILY_REQUESTS,
-                                   slow_gate=False)
+    for arch, prompt, moe in (
+            ("hymba-1.5b", 1100, False), ("gemma3-1b", 1000, False),
+            ("qwen3-moe-30b-a3b", SERVE["prompt_len"], True)):
+        served[arch] = phase_serve(dev, "families_serve", arch,
+                                   requests=FAMILY_REQUESTS, slow_gate=False)
         gc.collect()
         torch.cuda.empty_cache()
         served[arch]["decode_graph_ms"] = phase_decode_graph(
@@ -2240,18 +2312,55 @@ def phase_families(dev) -> dict:
     return served
 
 
+def phase_audio_vlm(dev) -> dict:
+    """Whisper-tiny and InternVL2-1B at published width (random weights
+    from seed 0), each in turn and freed before the next: (a) served
+    through the launcher (``phase_serve`` at the serve cell,
+    ``FAMILY_REQUESTS`` rounds, the prompt of ``AUDIO_VLM``; no
+    slow-replica gate), each kernel as often as ``path_launches`` says;
+    (b) the decode graph against eager (``phase_decode_graph``) at each
+    of ``AUDIO_VLM``'s graph prompts. Returns each model's serve results
+    with its decode graphs' device ms by prompt."""
+    import torch
+    t0 = time.perf_counter()
+    served = {}
+    for arch, conf in AUDIO_VLM.items():
+        served[arch] = phase_serve(dev, "audio_vlm_serve", arch,
+                                   requests=FAMILY_REQUESTS, slow_gate=False,
+                                   prompt_len=conf["prompt_len"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[arch]["decode_graph_ms"] = {
+            prompt: phase_decode_graph(dev, arch, prompt=prompt)
+            for prompt in conf["graph_prompts"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="audio_vlm", seconds=time.perf_counter() - t0,
+         requests=FAMILY_REQUESTS, **{
+             arch: dict(prefill_ms=run["prefill_ms"],
+                        decode_ms=run["decode_ms"],
+                        decode_graph_ms=run["decode_graph_ms"],
+                        decode_device_share=share(
+                            run["decode_graph_ms"][AUDIO_VLM[arch][
+                                "prompt_len"]], run["decode_ms"]))
+             for arch, run in served.items()})
+    return served
+
+
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port (each carries ``launches``)."""
     from repro_torch.kernels import ops
     return ops.WRAPPERS
 
 
-def attention_work(q, k, v, window=None) -> tuple:
-    """(bytes, operations) of causal prefill attention: q, k and v read
-    once, the output (q's size) written once; 4 D operations a (query,
-    key) pair that the causal mask and the window keep."""
+def attention_work(q, k, v, window=None, causal: bool = True) -> tuple:
+    """(bytes, operations) of prefill attention: q, k and v read once,
+    the output (q's size) written once; 4 D operations a (query, key)
+    pair that the causal mask and the window keep (every pair, non
+    causal)."""
     B, Hq, S, D = q.shape
-    pairs = sum(min(t + 1, window or S) for t in range(S))
+    pairs = (sum(min(t + 1, window or S) for t in range(S)) if causal
+             else S * S)
     return 2 * nbytes(q) + nbytes(k, v), 4 * B * Hq * D * pairs
 
 
@@ -2397,33 +2506,40 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
 
 
 def phase_family_times(dev) -> None:
-    """The serving kernels at the decoder families' shapes (``time_row``):
-    flash at ``FAMILY_FLASH`` (its library call SDPA, causal, with the
-    window as a boolean mask where there is one; the bound counts the
-    window's pairs only), decode attention on ``FAMILY_DECODE``'s caches
-    at their whole length, ``ssd`` at hymba's heads."""
+    """The serving kernels at the decoder families', Whisper's and
+    InternVL2's shapes (``time_row``): flash at ``FAMILY_FLASH`` and
+    ``AV_FLASH`` (its library call SDPA, causal or not, with the window
+    as a boolean mask where there is one; the bound counts the pairs the
+    mask keeps), decode attention on ``FAMILY_DECODE``'s and
+    ``AV_DECODE``'s caches at their whole length, ``ssd`` at hymba's
+    heads."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, flash_attention, ref, ssd
     B = SERVE["batch"]
-    for (Hq, Hkv), S, D, window in FAMILY_FLASH:
+    for (Hq, Hkv), S, D, window, causal in (
+            *((*c, True) for c in FAMILY_FLASH),
+            *((heads, S, D, None, causal)
+              for heads, S, D, causal in AV_FLASH)):
         q, k, v = attention_inputs(B, Hq, Hkv, S, D, "bfloat16", 34, dev)
         t = torch.arange(S, device=dev)
         mask = (t[:, None] >= t[None, :]) & (t[:, None] - t[None, :]
                                              < (window or S))
         library = functools.partial(
             F.scaled_dot_product_attention, q, k, v, enable_gqa=True,
-            **(dict(is_causal=True) if window is None else
+            **(dict(is_causal=causal) if window is None else
                dict(attn_mask=mask)))
-        work = attention_work(q, k, v, window)
+        work = attention_work(q, k, v, window, causal)
         emit(phase="times_families", name="flash_attention",
-             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window),
+             shape=dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=window,
+                        causal=causal),
              **time_row(functools.partial(flash_attention.flash_attention, q,
-                                          k, v, window=window),
+                                          k, v, causal=causal, window=window),
                         functools.partial(ref.attention, q, k, v,
-                                          window=window), library, work, 20),
+                                          causal=causal, window=window),
+                        library, work, 20),
              bytes=work[0], flops=work[1])
-    for (Hq, Hkv), S, D, _ in FAMILY_DECODE:
+    for (Hq, Hkv), S, D, _ in (*FAMILY_DECODE, *AV_DECODE):
         q, k, v, length = decode_inputs(B, Hq, Hkv, S, D, "bfloat16",
                                         [S] * B, 35, dev)
         work = decode_work(q, k, v, length)
@@ -2508,11 +2624,14 @@ def phase_profile(dev, trace_dir: Path) -> None:
     """Profiler breakdowns: 20 fleet steps; 20 steps of each suite
     strategy on the 30x10 testbed (seed 1); one prefill and one decode
     call of each served model (qwen3-4b, mamba2-1.3b, then the families'
-    hymba-1.5b, gemma3-1b and qwen3-moe-30b-a3b; batch 4, prompt 1000)."""
+    hymba-1.5b, gemma3-1b and qwen3-moe-30b-a3b, batch 4, prompt 1000;
+    whisper-tiny at its prompt of 4 beside 1,500 frames and internvl2-1b
+    at 256 patches and 1,000 tokens)."""
     import torch
     from repro_torch.bench import figures as bf
     from repro_torch.configs import get_config
     from repro_torch.continuum import make_topology, run_sim_stream
+    from repro_torch.launch.serve import decode_start, request_batch
     from repro_torch.models import build_model
     profile_fleet(dev, trace_dir)
     cfg, rtt = fleet_inputs(dev, 2.0)
@@ -2563,23 +2682,28 @@ def phase_profile(dev, trace_dir: Path) -> None:
                  steps=mcfg.num_steps, lanes=len(names),
                  tenants=bs.MT_TENANTS)
 
-    B, S, steps = SERVE["batch"], SERVE["prompt_len"], SERVE["decode_steps"]
+    B, steps = SERVE["batch"], SERVE["decode_steps"]
     for arch, tag in (("qwen3-4b", ""), ("mamba2-1.3b", "ssm_"),
                       ("hymba-1.5b", "hymba_"), ("gemma3-1b", "gemma3_"),
-                      ("qwen3-moe-30b-a3b", "moe_")):
+                      ("qwen3-moe-30b-a3b", "moe_"),
+                      ("whisper-tiny", "whisper_"),
+                      ("internvl2-1b", "internvl2_")):
         mcfg = get_config(arch)
+        S = AUDIO_VLM.get(arch, SERVE)["prompt_len"]
         model = build_model(mcfg, device=dev)
         gen = torch.Generator(device=dev).manual_seed(0)
         tokens = torch.randint(0, mcfg.vocab_size, (B, S), generator=gen,
                                device=dev)
+        batch, first = request_batch(mcfg, tokens, gen), decode_start(mcfg, S)
         token = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        _, cache = model.prefill({"tokens": tokens}, max_len=S + steps)  # warm
-        model.decode(cache, {"token": token, "pos": S})
-        profiled(lambda: model.prefill({"tokens": tokens}, max_len=S + steps),
+        _, cache = model.prefill(batch, max_len=first + steps)      # warm
+        model.decode(cache, {"token": token, "pos": first})
+        profiled(lambda: model.prefill(batch, max_len=first + steps),
                  f"{tag}prefill", trace_dir, arch=arch, batch=B, prompt=S)
-        profiled(lambda: model.decode(cache, {"token": token, "pos": S + 1}),
+        profiled(lambda: model.decode(cache, {"token": token,
+                                              "pos": first + 1}),
                  f"{tag}decode", trace_dir, arch=arch, batch=B,
-                 cache_slots=S + steps)
+                 cache_slots=first + steps)
         del model, cache
         gc.collect()
         torch.cuda.empty_cache()
@@ -2593,7 +2717,8 @@ def main() -> int:
                          "model, and write their Chrome traces to "
                          "DIR/{fleet,fleet_control,fleet_lifecycle,"
                          "suite_<strategy>,lanes,multi_tenant_<policy>,"
-                         "prefill,decode,ssm_prefill,ssm_decode}_trace.json")
+                         "prefill,decode,ssm_prefill,ssm_decode,"
+                         "<model>_prefill,<model>_decode}_trace.json")
     ap.add_argument("--profile-only", action="store_true",
                     help="with --profile: build the kernels and run only the "
                          "profiler breakdowns, no checks")
@@ -2632,7 +2757,6 @@ def main() -> int:
                and k["kernel"].startswith(NO_SPILL)]
     if spilled:
         raise AssertionError(f"kernels that spill registers: {spilled}")
-    from repro_torch.kernels import decode_attention, flash_attention, ssd
     errs = phase_kernels(dev)
     phase_testbed(dev)
     launches, fleet_steps_per_s = phase_fleet(dev)
@@ -2648,12 +2772,11 @@ def main() -> int:
     phase_multi_tenant(dev)
     phase_players(dev)
     dense_graph_ms = phase_decode_graph(dev, "qwen3-4b")
-    served = phase_serve(dev, "serve", "qwen3-4b",
-                         (flash_attention.flash_attention,),
-                         (decode_attention.decode_attention,))
+    served = phase_serve(dev, "serve", "qwen3-4b")
     phase_decode_graph(dev, "mamba2-1.3b")
-    served_ssm = phase_serve(dev, "serve_ssm", "mamba2-1.3b", (ssd.ssd,), ())
+    served_ssm = phase_serve(dev, "serve_ssm", "mamba2-1.3b")
     families = phase_families(dev)
+    phase_audio_vlm(dev)
     # each kernel's launches on its main path: the simulator kernels in the
     # fleet run, the serving kernels in their serve runs; the KDE kernel,
     # which no path calls, summed over all three runs

@@ -2,32 +2,29 @@
 
 ``get_config(name)`` returns the exact published config;
 ``get_config(name, reduced=True)`` the structurally identical smoke
-variant. ``ARCH_NAMES`` lists the architectures the port builds: every
-decoder-only config of the reference, in the reference's registry
-order. The encoder-decoder (``whisper-tiny``) and the VLM
-(``internvl2-1b``) raise ``KeyError`` until their families are ported
-(ROADMAP A11).
+variant. ``ARCH_NAMES`` lists the reference's ten architectures in
+its registry order; the port builds every one of them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (gemma3_1b, hymba_1_5b, mamba2_1_3b,
-                                 mistral_nemo_12b, qwen3_4b,
+from repro_torch.configs import (gemma3_1b, hymba_1_5b, internvl2_1b,
+                                 mamba2_1_3b, mistral_nemo_12b, qwen3_4b,
                                  qwen3_moe_30b_a3b, qwen3_moe_235b_a22b,
-                                 qwen25_14b)
+                                 qwen25_14b, whisper_tiny)
 from repro_torch.configs.base import (AUDIO, DENSE, FAMILIES, HYBRID, MOE,
                                       SSM, VLM, ModelConfig)
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
              for m in (mistral_nemo_12b, gemma3_1b, qwen25_14b, qwen3_4b,
                        hymba_1_5b, qwen3_moe_235b_a22b, qwen3_moe_30b_a3b,
-                       mamba2_1_3b)}
+                       internvl2_1b, whisper_tiny, mamba2_1_3b)}
 
 ARCH_NAMES = tuple(_REGISTRY)
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported (ROADMAP A11); "
+        raise KeyError(f"unknown arch {name!r}; "
                        f"available: {sorted(_REGISTRY)}")
     cfg = _REGISTRY[name]
     return cfg.reduced() if reduced else cfg

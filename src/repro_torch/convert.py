@@ -20,7 +20,8 @@ breaker's ``BreakerState``, the control plane's ``ControlCarry``
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
 ``init_params`` pytree (as numpy, layers stacked on leading axes)
-into the port's ``Model``.
+into the port's ``Model``; ``model_cache_to_torch`` carries a model's
+caches (prefill's or decode's) the same way.
 """
 from __future__ import annotations
 
@@ -183,7 +184,8 @@ def _flatten(tree, prefix: str = ""):
 
 
 # the stacked layer pytrees and how many leading axes stack their layers
-_STACKS = {"layers": 1, "group_global": 1, "tail_local": 1, "group_local": 2}
+_STACKS = {"layers": 1, "group_global": 1, "tail_local": 1, "group_local": 2,
+           "enc_layers": 1, "dec_layers": 1}
 
 
 def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
@@ -192,13 +194,17 @@ def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
     layers: ``layers.*`` with a leading L axis for a uniform stack, or
     ``group_local.*`` (G, nl), ``group_global.*`` (G,) and
     ``tail_local.*`` (n_tail,) for a gemma3 stack; a layer's leaves are
-    ``ln1``, ``attn.*``, ``ssm.{in_proj, conv_w, conv_b, A_log, dt_bias,
-    norm, out_proj}``, ``attn_norm``/``ssm_norm`` (hybrid), ``ln2`` with
-    ``mlp.*`` or ``moe.{router, wi, wg, wo}``, by family) as the port's
-    ``Model`` on ``device``. Matrices and the conv weights are cast once
-    to ``cfg.dtype`` (the reference casts at every use, with the same
-    rounding); norm weights, ``A_log``, ``dt_bias`` and the MoE router
-    stay float32. A missing, extra or misshapen leaf raises
+    ``ln1``, ``attn.*`` (with ``bq``/``bk``/``bv`` where the config has
+    QKV bias), ``ssm.{in_proj, conv_w, conv_b, A_log, dt_bias, norm,
+    out_proj}``, ``attn_norm``/``ssm_norm`` (hybrid), ``ln2`` with
+    ``mlp.*`` or ``moe.{router, wi, wg, wo}``, by family; Whisper's
+    ``embed.tok``, ``enc_layers.{ln1, attn.*, ln2, mlp.*}`` and
+    ``dec_layers.{ln1, self_attn.*, ln_x, cross_attn.*, ln2, mlp.*}``
+    stacked on a leading axis, ``enc_norm``, ``final_norm``) as the
+    port's ``Model`` on ``device``. Matrices and the conv weights are
+    cast once to ``cfg.dtype`` (the reference casts at every use, with
+    the same rounding); norm weights, ``A_log``, ``dt_bias`` and the MoE
+    router stay float32. A missing, extra or misshapen leaf raises
     (``load_state_dict``, strict)."""
     model = build_model(cfg, device=device)
     state = {}
@@ -211,3 +217,22 @@ def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
             state[name] = torch.from_numpy(np.array(arr[idx], copy=True))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def model_cache_to_torch(cache, device=None) -> dict:
+    """The reference's model cache (numpy leaves, or bfloat16 arrays
+    numpy holds as ``ml_dtypes``) as the port's cache dict on ``device``,
+    each tensor in its reference dtype: a dict of tuples keeps its keys;
+    Whisper's bare ``(k_self, v_self, k_cross, v_cross)`` goes under
+    ``"layers"``."""
+    if not isinstance(cache, dict):
+        cache = {"layers": cache}
+    dev = resolve_device(device)
+
+    def leaf(x):
+        a = np.asarray(x)
+        dtype = getattr(torch, str(a.dtype))
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        return t.to(device=dev, dtype=dtype)
+
+    return {key: tuple(leaf(x) for x in cache[key]) for key in cache}

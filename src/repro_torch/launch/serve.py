@@ -8,10 +8,21 @@ to meet (tau, rho, W). Unlike the reference launcher, which always
 serves the reduced model, this one serves the published config unless
 ``--smoke`` is given.
 
+Each microbatch is built by family (``request_batch``): the tokens
+alone for the decoders; Whisper's encoder frames (``cross_kv_len`` of
+them) beside a ``--prompt-len``-token decoder prompt, decoded from
+position ``prompt_len`` (the launcher refuses a run whose decode would
+pass ``max_decode_len``); the VLM's ``num_patches`` patch embeddings
+before the prompt, decoded from position ``num_patches + prompt_len``,
+its caches counting the patches. The reference launcher sends the
+tokens alone, which the Whisper and VLM models cannot take.
+
   python -m repro_torch.launch.serve --replicas 3 --frontends 4 \\
       --requests 30 --batch 4 --prompt-len 1000 --decode-steps 16 \\
       --tau 1.0 --slow-replica 2                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --smoke --device cpu --prompt-len 4   # within max_decode_len (32)
 
 The last line of output is one JSON object with the run's counts and
 per-call times (host clock, each call ending in a device synchronize).
@@ -25,11 +36,32 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, AUDIO, VLM, ModelConfig, get_config
 from repro_torch.core import BanditParams
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serving import QEdgeRouter, ServingEngine
+
+
+def decode_start(cfg: ModelConfig, prompt_len: int) -> int:
+    """The position of the first decode token after a prompt of
+    ``prompt_len`` tokens: after the VLM's patches too."""
+    return prompt_len + (cfg.num_patches if cfg.family == VLM else 0)
+
+
+def request_batch(cfg: ModelConfig, prompt: torch.Tensor,
+                  gen: torch.Generator) -> dict:
+    """The model's batch for the prompt tokens (B, S), its stub frontend
+    inputs drawn from ``gen`` on the prompt's device: Whisper's frames
+    (B, cross_kv_len, d), the VLM's patches (B, num_patches, d); float32,
+    the model casts them."""
+    if cfg.family not in (AUDIO, VLM):
+        return {"tokens": prompt}
+    n, key = ((cfg.cross_kv_len, "frames") if cfg.family == AUDIO
+              else (cfg.num_patches, "patches"))
+    stub = torch.randn((prompt.shape[0], n, cfg.d_model), generator=gen,
+                       device=prompt.device)
+    return {key: stub, "tokens": prompt}
 
 
 def main(argv=None):
@@ -51,8 +83,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.smoke)
+    if (cfg.family == AUDIO
+            and args.prompt_len + args.decode_steps > cfg.max_decode_len):
+        raise ValueError(f"{cfg.name} decodes at most {cfg.max_decode_len} "
+                         f"positions: prompt {args.prompt_len} + "
+                         f"{args.decode_steps} decode steps")
     model = build_model(cfg, device=dev)
-    max_len = args.prompt_len + args.decode_steps
+    first = decode_start(cfg, args.prompt_len)
+    max_len = first + args.decode_steps
 
     engines = []
     for m in range(args.replicas):
@@ -75,14 +113,15 @@ def main(argv=None):
             prompt = torch.randint(0, cfg.vocab_size,
                                    (args.batch, args.prompt_len),
                                    generator=gen, device=dev)
-            logits, cache, lat_p = engines[m].prefill({"tokens": prompt})
+            logits, cache, lat_p = engines[m].prefill(
+                request_batch(cfg, prompt, gen))
             finite &= bool(logits.isfinite().all())
             prefill_s.append(lat_p - engines[m].extra_latency)
             lat = lat_p
             tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=dev)
             for i in range(args.decode_steps):
-                logits, cache, lat_d = engines[m].decode(
-                    cache, tok, args.prompt_len + i)
+                logits, cache, lat_d = engines[m].decode(cache, tok,
+                                                         first + i)
                 finite &= bool(logits.isfinite().all())
                 decode_s.append(lat_d - engines[m].extra_latency)
                 lat += lat_d

@@ -1,8 +1,8 @@
 """Shared model building blocks.
 
-Port of ``repro/models/layers.py`` for the dense decoder: RMSNorm,
-rotary embedding, token embedding and unembedding, the SwiGLU MLP, and
-their ``init_*`` functions. Weights keep the reference's layouts
+Port of ``repro/models/layers.py``: RMSNorm, rotary embedding, Whisper's
+sinusoidal positions, token embedding and unembedding, the SwiGLU MLP,
+and their ``init_*`` functions. Weights keep the reference's layouts
 (``(in, out)`` matrices, ``x @ w``) so converted JAX weights load as
 they are. The reference casts each float32 weight to the compute dtype
 at every use; the port holds matrices in that dtype from the start (a
@@ -12,9 +12,13 @@ mesh and are dropped.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.core import fmath
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
@@ -72,6 +76,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     """Rotary embedding. x: (..., S, D) with D even; positions: (S,) or
     (B, S). The two halves of D rotate as a pair, in float32."""
     return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoidal_positions(num: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (num, dim) in float32, in
+    the reference's order: ``exp(-log(1e4) * i / (half - 1))``, then the
+    products with the positions, then ``sin`` and ``cos`` concatenated."""
+    half = dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    # XLA:CPU's exp (fmath): torch's lands an ULP away in some entries,
+    # ~1e-4 at position 1,500
+    freq = fmath.exp(-math.log(10000.0) * i / (half - 1))
+    args = torch.arange(num, dtype=torch.float32, device=device)[:, None] \
+        * freq[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,32 @@
 """Model API: ``build_model(cfg)`` -> ``Model``, an ``nn.Module`` with
 ``forward`` / ``prefill`` / ``decode`` / ``init_cache``.
 
-Port of the decoder-only paths of ``repro/models/model_zoo.py`` (dense,
-MoE, SSM, hybrid, gemma3 local/global). The reference's ``Model`` is a
-tuple of pure functions over a separate params pytree; here the module
-holds its weights (``model.params``), in ``cfg.dtype`` on its device,
-norm weights (and the SSM's ``A_log`` and ``dt_bias``, the MoE router)
-in float32.
+Port of ``repro/models/model_zoo.py`` for every family: the decoders
+(dense, MoE, SSM, hybrid, gemma3 local/global), the VLM (a decoder whose
+input is a patch-embedding prefix before the tokens) and the Whisper
+encoder-decoder (``whisper.py``). The reference's ``Model`` is a tuple
+of pure functions over a separate params pytree; here the module holds
+its weights (``model.params``), in ``cfg.dtype`` on its device, norm
+weights (and the SSM's ``A_log`` and ``dt_bias``, the MoE router) in
+float32.
 
-Batches: ``{"tokens": (B, S)}`` for ``forward`` and ``prefill``;
-``{"token": (B, 1), "pos": int}`` plus the cache for ``decode``. The
-loss and the dry run's input specs wait for the training slice
-(ROADMAP A11).
+Batches for ``forward`` and ``prefill``: ``{"tokens": (B, S)}``; the
+VLM adds ``"patches"`` (B, P, d), cast to the compute dtype and put
+before the token embeddings (decode positions then start at P + S);
+Whisper takes ``{"frames": (B, Se, d), "tokens": (B, Sd)}``. ``decode``
+takes ``{"token": (B, 1), "pos": int}`` plus the cache. The loss and
+the dry run's input specs wait for the training slice (ROADMAP A11).
 
 Caches (``transformer``'s module docstring has their layout): a layer
 with a sliding window keeps a ring of ``window`` slots (prefill fills
 it through ``_to_ring``; decode writes slot ``pos % W``), a layer
 without one a full cache of ``max_len`` slots (decode writes slot
 ``pos``), an SSM layer its conv and SSM states (decode rewrites them
-whole). ``transformer.cache_layout`` names which is which.
+whole). Whisper's cache is ``{"layers": (k_self, v_self, k_cross,
+v_cross)}`` (the reference returns the bare tuple): the self K/V a ring
+of ``max_decode_len`` slots, the cross K/V the encoder's, which decode
+reads and never writes. A model's ``layout`` names which is which
+(``transformer.cache_layout``, ``whisper.CACHE_LAYOUT``).
 
 On a CUDA device ``decode`` replays the decode step as a CUDA graph
 (one per batch and cache shapes and dtypes; ``decode_graphs`` off runs
@@ -38,7 +46,8 @@ or two microbatches in turn) or changed this one since the last call
 then moves only what it writes: one slot of every layer's K and V
 (slot ``pos`` of a full cache, ``pos % W`` of a ring) back into the
 caller's cache (~0.6 MB at qwen3-4b's batch 4), and every SSM state
-whole (every element changes). A caller must not write into the cache
+whole (every element changes); a read-only cache (Whisper's cross K/V)
+is never copied back. A caller must not write into the cache
 other than through PyTorch (a kernel of its own through
 ``data_ptr()``), or the graph misses the change.
 
@@ -56,11 +65,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import AUDIO, HYBRID, SSM, VLM, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper
 
 def _cache_len(cfg: ModelConfig, S: int) -> int:
     if cfg.sliding_window is not None and cfg.local_global_pattern is None:
@@ -99,12 +109,13 @@ def _flat(cache: dict, layout: dict) -> list:
 class _DecodeGraph:
     """One decode step captured as a CUDA graph over static copies of the
     caches, the token and the position (the module docstring says what a
-    caller may do with its cache)."""
+    caller may do with its cache); ``step`` and ``layout`` are the
+    model's."""
 
-    def __init__(self, params: T.Params, cfg: ModelConfig, cache: dict,
-                 token: torch.Tensor):
-        self.params, self.cfg = params, cfg
-        self.layout = T.cache_layout(cfg)
+    def __init__(self, params, cfg: ModelConfig, cache: dict,
+                 token: torch.Tensor, step, layout: dict):
+        self.params, self.cfg, self.step = params, cfg, step
+        self.layout = layout
         self.kinds = [kind for key in self.layout for kind in self.layout[key]]
         self.cache = {key: tuple(torch.empty_like(t) for t in cache[key])
                       for key in self.layout}
@@ -115,8 +126,8 @@ class _DecodeGraph:
         self.replay_launches: list[int] = []
 
     def _step(self) -> torch.Tensor:
-        return T.decode_step(self.params, self.cfg, self.cache, self.token,
-                             self.pos)[0]
+        return self.step(self.params, self.cfg, self.cache, self.token,
+                         self.pos)[0]
 
     def _capture(self) -> torch.Tensor:
         """Run the step eagerly on a side stream (the warm-up), then capture
@@ -162,7 +173,7 @@ class _DecodeGraph:
         for s, t, kind in zip(static, given, self.kinds):
             if kind == T.STATE:
                 t.copy_(s)
-            else:                     # (..., slots, D): the slot written
+            elif kind in (T.RING, T.FULL):  # (..., slots, D): the slot written
                 i = pos % t.shape[-2] if kind == T.RING else pos
                 t.select(-2, i).copy_(s.select(-2, i))
         self.held = [(weakref.ref(t), t._version) for t in given]
@@ -170,32 +181,49 @@ class _DecodeGraph:
 
 
 class Model(nn.Module):
-    """A decoder LM of any ported family with its weights.
-    ``decode_graphs`` (default on): replay the decode step as a CUDA graph
-    on a CUDA device; off, every step runs eagerly."""
+    """A decoder of any family with its weights (``WhisperModel`` is the
+    encoder-decoder). ``decode_graphs`` (default on): replay the decode
+    step as a CUDA graph on a CUDA device; off, every step runs
+    eagerly."""
 
-    def __init__(self, cfg: ModelConfig, params: T.Params):
+    step = staticmethod(T.decode_step)
+
+    def __init__(self, cfg: ModelConfig, params: T.Params | whisper.Params):
         super().__init__()
         self.cfg = cfg
         self.params = params
-        self.layout = T.cache_layout(cfg)
+        self.layout = self._layout(cfg)
         self.decode_graphs = True
         self._graphs: dict = {}
 
-    def forward(self, batch: dict):
-        """tokens (B, S) -> (logits (B, S, V), aux)."""
+    def _embed_inputs(self, batch: dict) -> torch.Tensor:
+        """The token embeddings, after the VLM's patches (cast to the
+        compute dtype)."""
         x = L.embed_tokens(self.params.embed, batch["tokens"])
-        h, aux, _ = T.forward(self.params, self.cfg, x)
+        if self.cfg.family == VLM:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
+
+    @staticmethod
+    def _layout(cfg: ModelConfig) -> dict:
+        return T.cache_layout(cfg)
+
+    def forward(self, batch: dict):
+        """The batch (the module docstring) -> (logits (B, S, V), aux):
+        S counts the VLM's patches."""
+        h, aux, _ = T.forward(self.params, self.cfg,
+                              self._embed_inputs(batch))
         return T.logits_from_hidden(self.params, self.cfg, h), aux
 
     def prefill(self, batch: dict, max_len: int | None = None):
-        """tokens (B, S) -> (last position's logits (B, 1, V), caches):
-        full KV caches with ``max_len`` slots, the first S filled; ring
-        caches of the window's slots (fixed at the window size), position
-        t in slot t % W; SSM states as they are (O(1) in S)."""
+        """The batch -> (last position's logits (B, 1, V), caches):
+        full KV caches with ``max_len`` slots (the VLM's count its
+        patches), the first S filled; ring caches of the window's slots
+        (fixed at the window size), position t in slot t % W; SSM states
+        as they are (O(1) in S)."""
         cfg = self.cfg
-        x = L.embed_tokens(self.params.embed, batch["tokens"])
-        h, _, caches = T.forward(self.params, cfg, x, collect_cache=True)
+        h, _, caches = T.forward(self.params, cfg, self._embed_inputs(batch),
+                                 collect_cache=True)
         logits = T.logits_from_hidden(self.params, cfg, h[:, -1:])
         W = cfg.sliding_window
         if cfg.local_global_pattern is not None:
@@ -216,8 +244,8 @@ class Model(nn.Module):
         token, pos = batch["token"], int(batch["pos"])
         for key, kinds in self.layout.items():
             for t, kind in zip(cache[key], kinds):
-                if kind != T.STATE and (pos < 0 or kind == T.FULL
-                                      and pos >= t.shape[-2]):
+                if kind in (T.RING, T.FULL) and (pos < 0 or kind == T.FULL
+                                                 and pos >= t.shape[-2]):
                     raise IndexError(f"position {pos} outside the {key} "
                                      f"cache's {t.shape[-2]} slots")
         if token.is_cuda and self.decode_graphs:
@@ -226,22 +254,19 @@ class Model(nn.Module):
                      for t in _flat(cache, self.layout)))
             if key not in self._graphs:
                 self._graphs[key] = _DecodeGraph(self.params, self.cfg,
-                                                 cache, token)
+                                                 cache, token, self.step,
+                                                 self.layout)
             return self._graphs[key](cache, token, pos)
-        return T.decode_step(self.params, self.cfg, cache, token, pos)
+        return self.step(self.params, self.cfg, cache, token, pos)
 
     def init_cache(self, B: int, S: int) -> dict:
         """Zero caches for B rows, as the reference's ``init_cache(B, S)``:
         KV caches of S slots (``min(S, window)`` for a ring), the SSM conv
         (compute dtype) and state (float32) caches."""
         cfg = self.cfg
-        dev = self.params.final_norm.device
-        dtype = T.compute_dtype(cfg)
 
         def kv(stack: tuple, slots: int) -> tuple:
-            shape = (*stack, B, cfg.num_kv_heads, slots, cfg.head_dim)
-            return (torch.zeros(shape, dtype=dtype, device=dev),
-                    torch.zeros(shape, dtype=dtype, device=dev))
+            return self._zero_kv(stack, B, slots)
 
         if cfg.local_global_pattern is not None:
             n_groups, n_local, n_tail = T.groups(cfg)
@@ -253,6 +278,7 @@ class Model(nn.Module):
             return c
         Ln = cfg.num_layers
         states = ()
+        dev, dtype = self.params.final_norm.device, T.compute_dtype(cfg)
         if cfg.family in (SSM, HYBRID):
             conv_dim = cfg.ssm_inner + 2 * cfg.ssm_state
             states = (torch.zeros((Ln, B, cfg.ssm_conv - 1, conv_dim),
@@ -264,10 +290,57 @@ class Model(nn.Module):
             return {"layers": states}
         return {"layers": kv((Ln,), _cache_len(cfg, S)) + states}
 
+    def _zero_kv(self, stack: tuple, B: int, slots: int) -> tuple:
+        """Zero (K, V) caches of shape (*stack, B, Hkv, slots, D)."""
+        cfg = self.cfg
+        shape = (*stack, B, cfg.num_kv_heads, slots, cfg.head_dim)
+        dev, dtype = self.params.final_norm.device, T.compute_dtype(cfg)
+        return (torch.zeros(shape, dtype=dtype, device=dev),
+                torch.zeros(shape, dtype=dtype, device=dev))
+
+
+class WhisperModel(Model):
+    """The Whisper encoder-decoder with its weights (``whisper.py``):
+    batches ``{"frames": (B, Se, d), "tokens": (B, Sd)}``, caches
+    ``{"layers": (k_self, v_self, k_cross, v_cross)}``."""
+
+    step = staticmethod(whisper.decode_step)
+
+    @staticmethod
+    def _layout(cfg: ModelConfig) -> dict:
+        return whisper.CACHE_LAYOUT
+
+    def forward(self, batch: dict):
+        """The batch -> (the decoder's logits (B, Sd, V), aux 0.0)."""
+        enc = whisper.encode(self.params, self.cfg, batch["frames"])
+        return whisper.decode_full(self.params, self.cfg, batch["tokens"],
+                                   enc)[0], 0.0
+
+    def prefill(self, batch: dict, max_len: int | None = None):
+        """The batch -> (last position's logits (B, 1, V), caches): the
+        self K/V a ring of ``max_decode_len`` slots, the cross K/V the
+        encoder's ``Se``. ``max_len`` is ignored, as the reference
+        ignores it."""
+        cfg = self.cfg
+        enc = whisper.encode(self.params, cfg, batch["frames"])
+        logits, (k, v, k_x, v_x) = whisper.decode_full(
+            self.params, cfg, batch["tokens"], enc, collect_cache=True)
+        return logits[:, -1:], {
+            "layers": _to_ring((k, v), cfg.max_decode_len) + (k_x, v_x)}
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """Zero caches for B rows, as the reference's ``init_cache(B, S)``:
+        a self ring of ``min(S, max_decode_len)`` slots, cross K/V of
+        ``cross_kv_len``."""
+        cfg, stack = self.cfg, (self.cfg.num_layers,)
+        return {"layers": self._zero_kv(stack, B, min(S, cfg.max_decode_len))
+                + self._zero_kv(stack, B, cfg.cross_kv_len)}
+
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> Model:
     """The model with random weights at the reference's scales, drawn on
     ``device`` (default ``cuda``) from a generator seeded with ``seed``."""
-    T.require_ported(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    if cfg.family == AUDIO:
+        return WhisperModel(cfg, whisper.init_params(gen, cfg))
     return Model(cfg, T.init_params(gen, cfg))

@@ -1,5 +1,6 @@
 """Decoder-only LM assembly for every uniform-stack family (dense, MoE,
-SSM, hybrid) and the gemma3 grouped local:global stack.
+SSM, hybrid, and the VLM's language backbone) and the gemma3 grouped
+local:global stack.
 
 Port of ``repro/models/transformer.py``. The reference stacks its layers
 on a leading L axis and runs them with ``lax.scan``; here the layers are
@@ -18,15 +19,15 @@ uniform stack, the local layers of a gemma3 stack) attends over the last
 token's K and V go to slot ``pos % W`` of a W-slot cache, which attends
 over its first ``min(pos + 1, W)`` slots.
 
-The VLM and audio families and ``remat`` raise ``NotImplementedError``
-(ROADMAP A11).
+``remat`` raises ``NotImplementedError`` (the training slice, ROADMAP
+A11). The encoder-decoder (audio) family is ``whisper.py``'s.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
+from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -36,14 +37,6 @@ from repro_torch.models import ssm as M
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port's model substrate does not build yet."""
-    if cfg.family in (VLM, AUDIO):
-        raise NotImplementedError(
-            f"{cfg.family} models are not ported (ROADMAP A11); the port "
-            "builds the dense, MoE, SSM and hybrid families")
 
 
 def groups(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -78,16 +71,15 @@ def cache_layout(cfg: ModelConfig) -> dict:
 
 class Layer(nn.Module):
     """One layer's weights, as the reference's ``init_layer``: ``ln1``;
-    ``attn`` (dense, MoE, hybrid); ``ssm`` (SSM, hybrid); ``attn_norm``
+    ``attn`` (dense, MoE, hybrid, VLM); ``ssm`` (SSM, hybrid); ``attn_norm``
     and ``ssm_norm`` (hybrid); ``ln2`` and ``moe`` (MoE) or ``ln2`` and
     ``mlp`` where ``d_ff > 0``."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
-        require_ported(cfg)
         dtype, dev, fam = compute_dtype(cfg), gen.device, cfg.family
         self.ln1 = L.zeros_f32(cfg.d_model, dev)
-        if fam in (DENSE, MOE, HYBRID):
+        if fam in (DENSE, MOE, HYBRID, VLM):
             self.attn = A.init_attn(gen, cfg, dtype)
         if fam in (SSM, HYBRID):
             self.ssm = M.init_ssm(gen, cfg, dtype)
@@ -114,7 +106,6 @@ class Params(nn.Module):
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig):
         super().__init__()
-        require_ported(cfg)
         self.embed = L.init_embed(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.tie_embeddings, compute_dtype(cfg))
         self.final_norm = L.zeros_f32(cfg.d_model, gen.device)
@@ -155,7 +146,7 @@ def layer_full(lp: Layer, cfg: ModelConfig, x: torch.Tensor, rope_cs,
     aux = 0.0
     h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
     cache = ()
-    if fam in (DENSE, MOE, HYBRID):
+    if fam in (DENSE, MOE, HYBRID, VLM):
         a_out, cache = A.attn_full(lp.attn, cfg, h, rope_cs, window=window)
     if fam in (SSM, HYBRID):
         if collect_cache:
@@ -186,7 +177,7 @@ def layer_decode(lp: Layer, cfg: ModelConfig, x: torch.Tensor, cache: tuple,
     None for an SSM stack) are built once per step by ``decode_step``."""
     fam = cfg.family
     h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
-    if fam in (DENSE, MOE, HYBRID):
+    if fam in (DENSE, MOE, HYBRID, VLM):
         write_idx, lengths = slot
         a_out, _, _ = A.attn_decode(lp.attn, cfg, h, rope_cs, cache[0],
                                     cache[1], lengths, write_idx)

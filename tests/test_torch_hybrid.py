@@ -128,6 +128,8 @@ def test_ring_decode_matches_own_full_forward():
 def test_init_cache_matches_the_reference(arch):
     jcfg = jax_config(arch, reduced=True)
     want = JZ.make_init_cache(jcfg)(3, 10)
+    if isinstance(want, tuple):     # Whisper's bare tuple, under "layers"
+        want = {"layers": want}
     got = build_model(get_config(arch, reduced=True),
                       device="cpu").init_cache(3, 10)
     assert set(got) == set(want)
