@@ -28,7 +28,16 @@ Phases, one JSON line each; any failure exits non-zero:
                 S = 4 at the fleet's), one launch for every lane; the two
                 maintenance kernels also on rows that select at ties and
                 signed zeros, with none or one sample, R from 1 to past
-                1024.
+                1024, the maintenance kernel's mu and q bit for bit
+                (``MAINT_TOL``) at R 64, at every such R and at
+                ``MU_ORDER_R`` (the KDE sum's orders at R 11..32); the flash
+                backward (``flash_attention_bwd``, a kernel of the port
+                alone) against ``ref.attention_grads`` at ``BWD_CASES``
+                (the training shape with a strided dO, gemma3's local
+                window at D 256, two small float32 cases, one non causal),
+                dQ, dK and dV within ``BWD_TOL`` and a second call
+                bit-identical; ``ops.ssd``, which has no backward, refusing
+                an input that requires grad.
 4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
@@ -125,7 +134,13 @@ Phases, one JSON line each; any failure exits non-zero:
                 the CPU port equals the JAX package; (c) that run in
                 25-step chunks, and stopped at step 50 into a checkpoint
                 and resumed, equal to it. Each policy's grid steps/s,
-                peak memory; the phase's seconds (budget 120 s).
+                peak memory; the phase's seconds (budget 120 s). Also
+                reported, not gated (``multi_tenant_lanes_card_vs_cpu``):
+                (a)'s ``qedgeproxy`` run on the card against the same
+                24 s run on the CPU (computed meanwhile by a process of
+                its own), lane by lane and field by field as in (b) (the
+                oracle's fields within ``oracle_bound``), with the first
+                field that parts, if one does.
    players   -- player sharding and the sharded grid, two ranks of a gloo
                 process group on the one card (``launch.mesh.spawn``):
                 (a) the K=1000 x M=50 anchor fleet under ``qedgeproxy``
@@ -196,9 +211,24 @@ Phases, one JSON line each; any failure exits non-zero:
                 read, never copied back), InternVL2 at 1,000. Prefill and
                 decode ms, decode tokens/s, peak memory, the phase's
                 seconds.
+   train     -- ``repro_torch.launch.train`` with qwen3-4b at its published
+                width (36 layers, d_model 2,560, 32/8 heads of 128, vocab
+                151,936, bf16; random weights from seed 0) on the card:
+                ``synthetic_batch`` at seq 256, batch 8, AdamW on a cosine
+                schedule (3e-4, 20 warm-up steps), remat, 20 steps. Each
+                loss, tokens/s, the median step, peak memory, the model
+                FLOP/s (6 x parameters x tokens) as a share of 989 TFLOP/s;
+                flash forward 72 and backward 36 launches a step (36
+                layers: the step's forward and remat's recomputation, one
+                backward), no other kernel. Gates: every loss finite, the
+                last five's mean below the first, peak under the card's
+                memory (budget 90 s, the model's build included).
 10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
-                bound, at the main paths' shapes (``times``) and at the
+                bound, at the main paths' shapes (``times``; the flash
+                backward at the training shape beside SDPA's backward
+                through ``torch.autograd.grad``, its bound 2.5 x the
+                forward's operations) and at the
                 families', Whisper's and InternVL2's (``times_families``),
                 by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
@@ -211,9 +241,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 (neutral, under control, under control and the
                 lifecycle), 20 steps of each suite strategy, 20 steps of
                 the lanes phase's four lanes, 20 steps of the
-                multi-tenant lane's four lanes a policy and one prefill
+                multi-tenant lane's four lanes a policy, one prefill
                 and one decode call of each served model, whisper-tiny
-                and internvl2-1b included (``--profile-only``: these
+                and internvl2-1b included, and one ``train`` step's
+                gradients and AdamW update (``--profile-only``: these
                 alone, no checks).
 
 The last lines are the ``nvidia-smi`` line, the ``{"kernels": [...]}``
@@ -238,7 +269,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
 
-MAINT_TOL = 1e-5    # |mu| error: 64-term sums reassociated, CUDA erff/powf ULPs
+# mu against its plain version: bit equality, as ROUND_RTOL holds the round
+# kernel. The kernel computes mu op for op as ref.bandit_maintenance_stats
+# does (the row sums in XLA:CPU's order, glibc's n ** -0.2 by table, fmath's
+# erf, a correctly rounded root, IEEE divisions), so any difference is a
+# fault; a mu an ULP away moves a weight, and long card runs then part from
+# the CPU's (the multi-tenant lane's, at 24 s)
+MAINT_TOL = 0.0
 ROUND_RTOL = 0.0    # the round kernel rounds every float as its plain version
 # the tenant step on the card against the CPU: the oracle's true mu (a
 # normal CDF of a logarithm; a few float32 ULPs apart between the two
@@ -432,6 +469,36 @@ KDE_SIZES = ((65536, 64), (300, 64))
 # (32 lanes of 8 quads); the KDE kernel also past it (segments of 128)
 ADVERSARIAL_R = (1, 33, 64, 1024)
 KDE_LONG_R = 1027
+# R where the maintenance KDE sum takes its other two orders (ref.
+# _xla_kde_sum: 11..16 padded to two eights, 17..32 whole eights and a
+# tail): mu bit for bit there too
+MU_ORDER_R = (13, 20, 24)
+# The flash backward against ref.attention_grads (float32 autograd through the
+# plain attention), element by element, |grad - plain| <= atol + rtol |plain|:
+# bfloat16, rtol 2**-7 is one bfloat16 step of the gradient's own magnitude
+# (the kernel's float32 result rounds once to bfloat16, at most half a step;
+# the rest is float32 sums in another order, ~1e-6 of the gradient's scale),
+# atol 1e-3 for gradients near 0; float32 within 1e-5 + 1e-5 |plain| (sums
+# over up to S rows in another order, CUDA's expf)
+BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+           "bfloat16": dict(rtol=2.0 ** -7, atol=1e-3)}
+# The training cell: qwen3-4b at its published width, the reference CLI's
+# sequence and batch (synthetic_batch), AdamW on a cosine schedule with 20
+# warm-up steps, remat; budget 90 s with the model's build. 20 steps, cut
+# from 30 to keep the script inside its time limit on slower hosts, the
+# fewest that keep the whole warm-up
+TRAIN = dict(arch="qwen3-4b", steps=20, seq_len=256, batch=8, lr=3e-4,
+             budget_s=90.0)
+# (B, Hq, Hkv, S, D, dtype, causal, window): the training shape (qwen3-4b's
+# heads, batch 8, seq 256; its dO strided, as the model's transpose gives it),
+# gemma3-1b's local layers (4/1 heads of 256, window 512, S 1,000, the serve
+# cell's batch), a small float32 case with a window, and Whisper's
+# bidirectional encoder mask in float32
+BWD_CASES = ((TRAIN["batch"], HEADS["Hq"], HEADS["Hkv"], TRAIN["seq_len"],
+              HEADS["D"], "bfloat16", True, None),
+             (SERVE["batch"], 4, 1, 1000, 256, "bfloat16", True, 512),
+             (2, 4, 2, 130, 64, "float32", True, 48),
+             (2, 4, 1, 70, 32, "float32", False, None))
 # kernels that must build without spilling registers: the kernels redesigned
 # for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
@@ -440,7 +507,8 @@ NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel",
             *SSD_PASSES, "round_kernel", "maintenance_kernel", "kde_kernel")
 # the port's CUDA kernels by name, as the profiler and ptxas report them
 PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
-                "flash_tc_kernel", "flash_f32_kernel", "decode_split_kernel",
+                "flash_tc_kernel", "flash_f32_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkdv_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "ssd_kernel", *SSD_PASSES)
 
 
@@ -712,12 +780,11 @@ def phase_kernels(dev) -> dict:
         if not torch.equal(q, q_p):
             bad = (q != q_p).nonzero()[:5].flatten().tolist()
             raise AssertionError(f"maintenance q differs at rows {bad}")
-        err = (mu - mu_p).abs().max().item()
-        if not err <= MAINT_TOL:
-            raise AssertionError(f"maintenance mu error {err} > {MAINT_TOL}")
+        err = check_mu_bits(mu, mu_p, "R=64")
         errs.setdefault("fused_maintenance", err)
         emit(phase="kernels", kernel="fused_maintenance", rows=rows, R=64,
-             q_exact=True, mu_max_abs_err=err, tol=MAINT_TOL)
+             q_exact=True, mu_bit_exact=True, mu_max_abs_err=err,
+             tol=MAINT_TOL)
     check_adversarial_rows(dev)
 
     errs["round_step_swrr"] = check_round(dev)
@@ -786,15 +853,102 @@ def phase_kernels(dev) -> dict:
         errs.setdefault("kde_success_prob", err)
         emit(phase="kernels", kernel="kde_success_prob", rows=rows, R=R,
              max_abs_err=err, **KDE_TOL)
+    errs["flash_attention_bwd"] = check_flash_bwd(dev)
+    check_grad_refusal(dev)
     return errs
+
+
+def check_mu_bits(mu, mu_p, where: str) -> float:
+    """mu bit for bit against the plain version's (``MAINT_TOL``);
+    returns the largest difference (0.0)."""
+    import torch
+    if not same_bits(mu, mu_p):
+        bad = (mu.view(torch.int32) != mu_p.view(torch.int32)).nonzero()
+        raise AssertionError(f"maintenance mu not bit-exact at {where}, rows "
+                             f"{bad[:5].flatten().tolist()} of {len(bad)}: "
+                             f"{mu[bad[:3, 0]].tolist()} against "
+                             f"{mu_p[bad[:3, 0]].tolist()}")
+    return (mu - mu_p).abs().max().item()
+
+
+def check_flash_bwd(dev) -> float:
+    """``flash_attention_bwd`` against ``ref.attention_grads`` at
+    ``BWD_CASES`` (dQ, dK, dV element by element within ``BWD_TOL``), a
+    second call bit-identical (no atomics), on unit-scale q, k, v and dO
+    drawn on the card. Returns the training shape's largest error."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    first = None
+    for seed, case in enumerate(BWD_CASES, 90):
+        B, Hq, Hkv, S, D, dtype, causal, window = case
+        q, k, v = attention_inputs(B, Hq, Hkv, S, D, dtype, seed, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        # dO as the model's backward hands it: (B, S, Hq, D) seen as
+        # (B, Hq, S, D), strided
+        do = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(
+            q.dtype).transpose(1, 2)
+        grads = flash_attention.flash_attention_bwd(q, k, v, do, causal=causal,
+                                                    window=window)
+        again = flash_attention.flash_attention_bwd(q, k, v, do,
+                                                    causal=causal,
+                                                    window=window)
+        plain = ref.attention_grads(q, k, v, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol, res = BWD_TOL[dtype], {}
+        for name, g, gp, g2 in zip(("dq", "dk", "dv"), grads, plain, again):
+            if g.shape != gp.shape or g.dtype != q.dtype:
+                raise AssertionError(f"flash_attention_bwd {case} {name}: "
+                                     f"{g.shape} {g.dtype}")
+            diff = (g.float() - gp).abs()
+            used = (diff / (tol["atol"] + tol["rtol"] * gp.abs())).max().item()
+            res[name] = dict(max_abs_err=diff.max().item(),
+                             allowance_used=used,
+                             grad_max_abs=gp.abs().max().item())
+            if not used <= 1.0:
+                raise AssertionError(f"flash_attention_bwd {case} {name}: "
+                                     f"{res[name]} against {tol}")
+            if not same_bits(g, g2):
+                raise AssertionError(f"flash_attention_bwd {case}: a second "
+                                     f"call differs in {name}")
+        first = first if first is not None else max(
+            r["max_abs_err"] for r in res.values())
+        emit(phase="kernels", kernel="flash_attention_bwd", B=B, Hq=Hq,
+             Hkv=Hkv, S=S, D=D, dtype=dtype, causal=causal, window=window,
+             dout_strided=not do.is_contiguous(), repeat_identical=True,
+             **res, **tol)
+        del q, k, v, do, grads, again, plain
+    return first
+
+
+def check_grad_refusal(dev) -> None:
+    """A kernel without a backward refuses an input that requires grad
+    (``ops.ssd`` on the card), and gives its answer under ``no_grad``."""
+    import torch
+    from repro_torch.kernels import ops
+    args = ssd_inputs(1, 64, 2, 64, 128, "float32", False, 95, dev)
+    x = args[0].clone().requires_grad_()
+    try:
+        ops.ssd(x, *args[1:])
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError("ops.ssd took an input that requires grad")
+    with torch.no_grad():
+        out = ops.ssd(x, *args[1:])
+    torch.cuda.synchronize()
+    emit(phase="kernels", kernel="ssd", grad_refused=True, message=refused,
+         no_grad_finite=bool(torch.isfinite(out).all()))
 
 
 def check_adversarial_rows(dev) -> None:
     """Both maintenance kernels on rows that select at ties and at signed
     zeros, with one sample, none, and R from 1 to past 1024: q equal to the
     plain version's (-0.0 == 0.0: the plain version's sort leaves the order
-    of equal zeros undefined), mu within ``MAINT_TOL``, the KDE kernel
-    within ``KDE_TOL``."""
+    of equal zeros undefined), mu bit for bit (``MAINT_TOL``), the KDE
+    kernel within ``KDE_TOL``; then the maintenance kernel alone at
+    ``MU_ORDER_R``, the KDE sum's other orders."""
     import torch
     from repro_torch.kernels import kde, ref
     for R in (*ADVERSARIAL_R, KDE_LONG_R):
@@ -808,11 +962,8 @@ def check_adversarial_rows(dev) -> None:
                 bad = (q != q_p).nonzero()[:5].flatten().tolist()
                 raise AssertionError(f"maintenance q differs at R={R}, rows "
                                      f"{bad}")
-            err = (mu - mu_p).abs().max().item()
-            if not err <= MAINT_TOL:
-                raise AssertionError(f"maintenance mu error {err} > "
-                                     f"{MAINT_TOL} at R={R}")
-            fields.update(q_exact=True, mu_max_abs_err=err,
+            err = check_mu_bits(mu, mu_p, f"R={R}")
+            fields.update(q_exact=True, mu_bit_exact=True, mu_max_abs_err=err,
                           zero_q_rows=int((q == 0).sum()))
         out = kde.kde_success_prob(lat, mask, 0.08, bw)
         plain = ref.kde_success_prob(lat, mask, 0.08, bw)
@@ -823,6 +974,16 @@ def check_adversarial_rows(dev) -> None:
                                  f"{kde_err}, tol {KDE_TOL}")
         emit(phase="kernels", kernel="maintenance_adversarial", R=R,
              rows=lat.shape[0], kde_max_abs_err=kde_err, **fields)
+    for R in MU_ORDER_R:
+        lat, mask, rtt, _ = adversarial_maintenance_inputs(R, 60 + R, dev)
+        mu, q = kde.fused_maintenance(lat, mask, rtt, 0.08, 0.9)
+        mu_p, q_p = ref.bandit_maintenance_stats(lat, mask, rtt, 0.08, 0.9)
+        torch.cuda.synchronize()
+        if not torch.equal(q, q_p):
+            raise AssertionError(f"maintenance q differs at R={R}")
+        emit(phase="kernels", kernel="maintenance_mu_order", R=R,
+             rows=lat.shape[0], q_exact=True, mu_bit_exact=True,
+             mu_max_abs_err=check_mu_bits(mu, mu_p, f"R={R}"))
 
 
 def same_bits(a, b) -> bool:
@@ -1505,16 +1666,37 @@ def phase_closed_loop(dev) -> None:
 
 def phase_multi_tenant(dev) -> None:
     """The multi-tenant lane on the card: (a) the tenant library as the
-    lanes of one run per policy with the lane's gates, (b) one lane
+    lanes of one run per policy with the lane's gates, and its
+    ``qedgeproxy`` run against the same run on the CPU, which a process
+    of its own computes meanwhile (``tenant_lanes_cpu``); (b) one lane
     alone against its lane, and the smoke lanes alone on the card
     against the CPU, (c) that run chunked and resumed."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_path = str(Path(tmp) / "cpu_lanes.pt")
+        cpu_proc = torch.multiprocessing.get_context("spawn").Process(
+            target=tenant_lanes_cpu, args=(MULTI_TENANT["horizon"],
+                                           cpu_path))
+        cpu_proc.start()
+        try:
+            multi_tenant_card_runs(dev, t0, cpu_proc, cpu_path)
+        finally:
+            if cpu_proc.is_alive():
+                cpu_proc.kill()
+            cpu_proc.join()
+
+
+def multi_tenant_card_runs(dev, t0: float, cpu_proc, cpu_path: str) -> None:
+    """``phase_multi_tenant``'s card runs and checks, while ``cpu_proc``
+    writes the CPU's run to ``cpu_path``."""
     import tempfile
     import torch
     from repro_torch.bench import scenarios as bs
     from repro_torch.continuum import (lane, run_sim_grid, run_sim_stream,
                                        stack_drivers)
     from repro_torch.obs import registry
-    t0 = time.perf_counter()
     NT = bs.MT_TENANTS
     # (a) the four tenant scenarios as the lanes of one run per policy
     base = memory_baseline(dev)
@@ -1587,6 +1769,20 @@ def phase_multi_tenant(dev) -> None:
         resumed = run_sim_stream("qedgeproxy", rtts[i], cfg, keys[i],
                                  resume=True, **ck, **kw)
     check_identical(resumed, alone, "resumed vs whole")
+    # (a) also: the 24 s card run against the same run on the CPU
+    t_wait = time.perf_counter()
+    cpu_proc.join()
+    if cpu_proc.exitcode != 0:
+        raise RuntimeError(f"the CPU's multi-tenant run exited with "
+                           f"{cpu_proc.exitcode}")
+    cpu = torch.load(cpu_path, weights_only=False)
+    lanes_vs_cpu = tenant_lanes_card_vs_cpu(suite, cpu)
+    emit(phase="multi_tenant_lanes_card_vs_cpu",
+         horizon=MULTI_TENANT["horizon"], steps=T,
+         equal=all(r["equal"] for r in lanes_vs_cpu.values()),
+         cpu_seconds=cpu["seconds"],
+         waited_s=time.perf_counter() - t_wait,
+         oracle_mu_tol=ORACLE_MU_TOL, runs=lanes_vs_cpu)
     # (b) also: the card's tenant step against the CPU's
     vs_cpu = tenant_card_vs_cpu(dev)
     emit(phase="multi_tenant_card_vs_cpu", horizon=MULTI_TENANT["cpu_horizon"],
@@ -1810,25 +2006,85 @@ def tenant_card_vs_cpu(dev) -> dict:
     for name in bs.SMOKE_MT_SCENARIOS:
         q_d, d, cell_d = tenant_alone(dev, h, name, label, kw)
         q_c, c, cell_c = tenant_alone(cpu, h, name, label, kw)
-        T, K = c.series.succ.shape[0], c.acc[0].regret_k.shape[0]
-        parts = [("queue", "queue", q_d, q_c)]
-        parts += [(f"acc[{t}].{f}", f, getattr(x, f), getattr(y, f))
-                  for t, (x, y) in enumerate(zip(d.acc, c.acc))
-                  for f in x._fields]
-        parts += [(f"series.{f}", f, getattr(d.series, f),
-                   getattr(c.series, f)) for f in d.series._fields]
-        differ, oracle = [], {}
-        for part, f, x, y in parts:
-            x = x.cpu()
-            if f in ORACLE_FIELDS:
-                err, bound = oracle.get(f, (0.0, float("inf")))
-                oracle[f] = [max(err, float((x - y).abs().max())),
-                             min(bound, oracle_bound(f, y, T, K))]
-            elif not torch.equal(x, y):
-                differ.append(part)
-        differ += [f"tenant_cell.{k}" for k in cell_d
-                   if cell_d[k] != cell_c.get(k)]
-        report[f"{name}/{label}"] = dict(differ=differ, oracle=oracle)
+        report[f"{name}/{label}"] = compare_tenant_runs(
+            d, c, cell_d, cell_c, [("queue", "queue", q_d, q_c)])
+    return report
+
+
+def compare_tenant_runs(d, c, cell_d: dict, cell_c: dict,
+                        parts: list | None = None) -> dict:
+    """A tenant run on the card (``d``, its ``tenant_cell`` ``cell_d``)
+    against the same run on the CPU, part by part in order (``parts``
+    first, then every tenant's accumulator fields, the series, the
+    cell): ``{"differ": the parts not exactly equal, "oracle": {field:
+    [max abs error, least bound]}}``, the oracle's fields
+    (``ORACLE_FIELDS``) held to ``oracle_bound`` instead of equality."""
+    import torch
+    T, K = c.series.succ.shape[0], c.acc[0].regret_k.shape[0]
+    parts = list(parts or [])
+    parts += [(f"acc[{t}].{f}", f, getattr(x, f), getattr(y, f))
+              for t, (x, y) in enumerate(zip(d.acc, c.acc))
+              for f in x._fields]
+    parts += [(f"series.{f}", f, getattr(d.series, f),
+               getattr(c.series, f)) for f in d.series._fields]
+    differ, oracle = [], {}
+    for part, f, x, y in parts:
+        x = x.cpu()
+        if f in ORACLE_FIELDS:
+            err, bound = oracle.get(f, (0.0, float("inf")))
+            oracle[f] = [max(err, float((x - y).abs().max())),
+                         min(bound, oracle_bound(f, y, T, K))]
+        elif not torch.equal(x, y):
+            differ.append(part)
+    differ += [f"tenant_cell.{k}" for k in cell_d
+               if cell_d[k] != cell_c.get(k)]
+    return dict(differ=differ, oracle=oracle)
+
+
+def tenant_lanes_cpu(horizon: float, path: str) -> None:
+    """The multi-tenant lane's ``qedgeproxy`` run (its four scenarios as
+    lanes) on the CPU for ``horizon`` seconds, each lane's outputs saved
+    to ``path`` with the run's seconds. ``phase_multi_tenant`` runs this
+    in a process of its own beside its card runs, so the CPU's run costs
+    the script no time of its own."""
+    import dataclasses
+    import torch
+    from repro_torch.bench import figures as bf
+    from repro_torch.bench import scenarios as bs
+    from repro_torch.continuum import lane, stack_drivers
+    torch.set_num_threads(2)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    conf, cfg, names, rtts, keys, drivers = bs.mt_inputs(cpu,
+                                                         horizon=horizon)
+    label, kw = bs.MT_POLICIES[0]
+    out, _ = bf.run_lanes(label, kw, rtts, keys, stack_drivers(drivers),
+                          dataclasses.replace(conf, cfg=cfg), cpu)
+    torch.save(dict(names=names, label=label, rho=cfg.rho,
+                    runs=[lane(out, i) for i in range(len(names))],
+                    seconds=time.perf_counter() - t0), path)
+
+
+def tenant_lanes_card_vs_cpu(suite: dict, cpu: dict) -> dict:
+    """The multi-tenant lane's ``qedgeproxy`` run on the card (in
+    ``suite``) against the same run on the CPU (``tenant_lanes_cpu``'s
+    ``cpu``), lane by lane (``compare_tenant_runs``): the policy that
+    runs the maintenance kernel, whose ``mu`` is bit-exact to its plain
+    version; proxy-mity launches no kernel of the simulator.
+    ``{"<name>/qedgeproxy": {"equal", "first_differing", "differ",
+    "oracle"}}``, reported, not gated."""
+    from repro_torch.obs import registry
+    report, label, rho = {}, cpu["label"], cpu["rho"]
+    for name, c in zip(cpu["names"], cpu["runs"]):
+        d = suite["runs"][(name, label)]
+        r = compare_tenant_runs(d, c, registry.tenant_cell(d, rho=rho),
+                                registry.tenant_cell(c, rho=rho))
+        over = [f for f, (err, bound) in r["oracle"].items()
+                if not err <= bound]
+        parted = r["differ"] + [f"oracle.{f}" for f in over]
+        report[f"{name}/{label}"] = dict(equal=not parted,
+                                         first_differing=(parted or [None])[0],
+                                         **r)
     return report
 
 
@@ -2347,6 +2603,79 @@ def phase_audio_vlm(dev) -> dict:
     return served
 
 
+def phase_train(dev) -> dict:
+    """``repro_torch.launch.train`` with ``TRAIN``'s model at its
+    published width on the card (random weights from seed 0, the
+    numpy-seeded LCG stream, remat): every loss finite, the mean of the
+    last five below the first, peak memory under the card's; the flash
+    kernel twice a layer a step (the step's forward and remat's
+    recomputation) and its backward once, no other kernel. Prints
+    tokens/s, the median step, peak memory, each loss and the model
+    FLOP/s (6 x parameters x tokens a step) as a share of the bf16 peak.
+    Returns the launches of each kernel in the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN["arch"])
+    argv = ["--arch", TRAIN["arch"], "--device", "cuda", "--steps",
+            str(TRAIN["steps"]), "--seq-len", str(TRAIN["seq_len"]),
+            "--batch", str(TRAIN["batch"]), "--lr", str(TRAIN["lr"]),
+            "--log-every", "1"]
+    base = memory_baseline(dev)
+    for fn in all_kernels():
+        fn.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    *text, last = out.getvalue().strip().splitlines()
+    print("\n".join(text), file=sys.stderr)
+    rep = json.loads(last)
+    steps, layers = TRAIN["steps"], cfg.num_layers
+    step_s = rep["step_s"][1:]                 # the first step warms up
+    median = float(np.median(step_s))
+    tokens = rep["tokens_per_step"]
+    model_flops = 6 * cfg.param_count() * tokens
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    emit(phase="train", arch=cfg.name, layers=layers, d_model=cfg.d_model,
+         heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+         vocab=cfg.vocab_size, params=cfg.param_count(), argv=argv,
+         steps=steps, tokens_per_step=tokens, losses=losses,
+         step_s=rep["step_s"], first_step_s=rep["step_s"][0],
+         step_ms_median=median * 1e3, tokens_per_s=tokens / median,
+         model_flops_per_step=model_flops,
+         model_flops_share_of_bf16_peak=model_flops / median
+         / BF16_FLOP_PER_S,
+         flash_launches_per_step=launches["flash_attention"] / steps,
+         flash_bwd_launches_per_step=launches["flash_attention_bwd"] / steps,
+         launches=launches, peak_mem_bytes=peak, card_mem_bytes=card_bytes,
+         **base, seconds=secs, budget_s=TRAIN["budget_s"], card=nvidia_smi())
+    if not (len(losses) == steps and np.isfinite(losses).all()):
+        raise AssertionError(f"train: losses {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"train: the last five losses average "
+                             f"{np.mean(losses[-5:])}, not below the first "
+                             f"{losses[0]}")
+    if not peak < card_bytes:
+        raise AssertionError(f"train: peak {peak} B of {card_bytes} B")
+    want = {fn.__name__: 0 for fn in all_kernels()}
+    want.update(flash_attention=2 * layers * steps,
+                flash_attention_bwd=layers * steps)
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, the path needs "
+                             f"{want}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port (each carries ``launches``)."""
     from repro_torch.kernels import ops
@@ -2433,6 +2762,16 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
 
     B, S, H, P, N, chunk, dtype, model = SSD_CASES[0]
     s_args = ssd_inputs(B, S, H, P, N, dtype, model, 32, dev)
+    bq, bk, bv = attention_inputs(*BWD_CASES[0][:6], 34, dev)
+    bdo = torch.randn(bq.shape, generator=torch.Generator(device=dev)
+                      .manual_seed(35), device=dev).to(bq.dtype)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (bq, bk, bv))
+    l_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                           enable_gqa=True)
+    # five products against the forward's two: 2.5 x its operations; q, k,
+    # v and dO read once, dq, dk, dv written once
+    b_work = (nbytes(bq, bk, bv, bdo) + nbytes(bq, bk, bv),
+              int(2.5 * attention_work(bq, bk, bv)[1]))
     k_rows, k_R = KDE_SIZES[0]
     k_lat, k_mask, k_bw = kde_inputs(k_rows, k_R, 33, dev)
     k_args = (k_lat, k_mask, 0.08, k_bw)
@@ -2455,6 +2794,14 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
              lambda: F.scaled_dot_product_attention(
                  fq, fk, fv, is_causal=True, enable_gqa=True),
              (fq, fk, fv), {}, attention_work(fq, fk, fv), 20),
+            ("flash_attention_bwd",
+             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             "none (port-only backward of "
+             "src/repro/kernels/flash_attention.py:97)",
+             flash_attention.flash_attention_bwd, ref.attention_grads,
+             lambda: torch.autograd.grad(l_out, (lq, lk, lv), bdo,
+                                         retain_graph=True),
+             (bq, bk, bv, bdo), {}, b_work, 10),
             ("decode_attention",
              "src/repro_torch/kernels/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention.py:64",
@@ -2607,6 +2954,43 @@ def profile_fleet(dev, trace_dir: Path) -> None:
              "fleet", trace_dir, steps=cfg.num_steps)
 
 
+def profile_train(dev, trace_dir: Path) -> None:
+    """The profiler breakdown of one ``TRAIN`` step after two unprofiled:
+    the loss and its gradients (the forward, remat's recomputation, the
+    backward), then the AdamW update, each alone."""
+    import torch
+    from repro_torch import training
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    cfg = get_config(TRAIN["arch"])
+    model = build_model(cfg, device=dev).trainable()
+    params = dict(model.named_parameters())
+    opt = training.adamw(training.cosine_schedule(TRAIN["lr"], 20,
+                                                  TRAIN["steps"]))
+    state = opt.init(params)
+    shape = ShapeConfig("cli", "train", TRAIN["seq_len"], TRAIN["batch"])
+    batch = training.synthetic_batch(cfg, shape, 0, dev)
+    step = training.make_train_step(model, opt)
+    for _ in range(2):                                           # warm
+        params, state, _ = step(params, state, batch)
+    found = {}
+
+    def grads():
+        loss = model.loss(batch, remat=True)
+        found["grads"] = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    fields = dict(arch=cfg.name, batch=TRAIN["batch"],
+                  seq_len=TRAIN["seq_len"])
+    profiled(grads, "train_grads", trace_dir, **fields)
+    profiled(lambda: opt.update(found["grads"], state, params),
+             "train_update", trace_dir, **fields)
+    del model, params, state, found
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_fleet_only(dev, repeats: int, trace_dir: Path | None) -> None:
     """The fleet phase alone, ``repeats`` times after a 20-step warm-up,
     then (``trace_dir``) its profile: the harness that compares two
@@ -2626,7 +3010,8 @@ def phase_profile(dev, trace_dir: Path) -> None:
     call of each served model (qwen3-4b, mamba2-1.3b, then the families'
     hymba-1.5b, gemma3-1b and qwen3-moe-30b-a3b, batch 4, prompt 1000;
     whisper-tiny at its prompt of 4 beside 1,500 frames and internvl2-1b
-    at 256 patches and 1,000 tokens)."""
+    at 256 patches and 1,000 tokens); one training step's gradients and
+    update (``profile_train``)."""
     import torch
     from repro_torch.bench import figures as bf
     from repro_torch.configs import get_config
@@ -2707,6 +3092,7 @@ def phase_profile(dev, trace_dir: Path) -> None:
         del model, cache
         gc.collect()
         torch.cuda.empty_cache()
+    profile_train(dev, trace_dir)
 
 
 def main() -> int:
@@ -2718,7 +3104,8 @@ def main() -> int:
                          "DIR/{fleet,fleet_control,fleet_lifecycle,"
                          "suite_<strategy>,lanes,multi_tenant_<policy>,"
                          "prefill,decode,ssm_prefill,ssm_decode,"
-                         "<model>_prefill,<model>_decode}_trace.json")
+                         "<model>_prefill,<model>_decode,train_grads,"
+                         "train_update}_trace.json")
     ap.add_argument("--profile-only", action="store_true",
                     help="with --profile: build the kernels and run only the "
                          "profiler breakdowns, no checks")
@@ -2777,13 +3164,16 @@ def main() -> int:
     served_ssm = phase_serve(dev, "serve_ssm", "mamba2-1.3b")
     families = phase_families(dev)
     phase_audio_vlm(dev)
+    trained = phase_train(dev)
     # each kernel's launches on its main path: the simulator kernels in the
-    # fleet run, the serving kernels in their serve runs; the KDE kernel,
-    # which no path calls, summed over all three runs
+    # fleet run, the serving kernels in their serve runs, the flash backward
+    # in the train run; the KDE kernel, which no path calls, summed over the
+    # fleet and serve runs
     for run in (served, served_ssm):
         launches.update({k: n for k, n in run["launches"].items()
                          if k not in launches})
         launches["kde_success_prob"] += run["launches"]["kde_success_prob"]
+    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
     kernels = phase_times(dev, launches, errs)
     phase_family_times(dev)
     times = {row["name"]: row["ms"] for row in kernels}

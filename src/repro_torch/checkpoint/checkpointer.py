@@ -14,7 +14,9 @@ The manifest carries a ``schema`` version and the SHA-256 of
 raises ``CheckpointCorruptError`` on a truncated, bit-flipped or
 foreign-version checkpoint. ``save`` snapshots every leaf to numpy on
 the caller's thread, so an async write never races the caller's next
-step; ``keep`` bounds the steps kept on disk.
+step; ``keep`` bounds the steps kept on disk. numpy has no bfloat16: a
+bfloat16 leaf is stored as its int16 bits and restored into the
+template's bfloat16.
 """
 from __future__ import annotations
 
@@ -62,8 +64,12 @@ def _flatten(tree, path: str = "", out: dict | None = None) -> dict:
         return out
     kids = _children(tree)
     if kids is None:
-        leaf = (tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
-                else np.asarray(tree))
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach().cpu()
+            leaf = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                    else t).numpy()
+        else:
+            leaf = np.asarray(tree)
         out[path] = np.array(leaf, copy=True)
         return out
     for name, child in kids:
@@ -81,8 +87,10 @@ def _unflatten(template, data, path: str = ""):
     if kids is None:
         arr = data[path]
         if isinstance(template, torch.Tensor):
-            return torch.from_numpy(np.array(arr, copy=True)).to(
-                template.device)
+            t = torch.from_numpy(np.array(arr, copy=True))
+            if template.dtype == torch.bfloat16:
+                t = t.view(torch.bfloat16)
+            return t.to(template.device)
         return arr
     vals = [_unflatten(child, data, f"{path}{_SEP}{name}" if path else name)
             for name, child in kids]

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the exact published config;
 ``get_config(name, reduced=True)`` the structurally identical smoke
-variant. ``ARCH_NAMES`` lists the reference's ten architectures in
-its registry order; the port builds every one of them.
+variant; ``get_shape`` the input-shape cells of ``SHAPES``.
+``ARCH_NAMES`` lists the reference's ten architectures in its registry
+order; the port builds every one of them.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ from repro_torch.configs import (gemma3_1b, hymba_1_5b, internvl2_1b,
                                  mamba2_1_3b, mistral_nemo_12b, qwen3_4b,
                                  qwen3_moe_30b_a3b, qwen3_moe_235b_a22b,
                                  qwen25_14b, whisper_tiny)
-from repro_torch.configs.base import (AUDIO, DENSE, FAMILIES, HYBRID, MOE,
-                                      SSM, VLM, ModelConfig)
+from repro_torch.configs.base import (AUDIO, DENSE, FAMILIES, HYBRID,
+                                      LONG_CONTEXT_ARCHS, MOE, SHAPES, SSM,
+                                      VLM, ModelConfig, ShapeConfig,
+                                      shape_applicable)
 
 _REGISTRY = {m.CONFIG.name: m.CONFIG
              for m in (mistral_nemo_12b, gemma3_1b, qwen25_14b, qwen3_4b,
@@ -30,5 +33,13 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return cfg.reduced() if reduced else cfg
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "DENSE", "MOE", "SSM",
-           "HYBRID", "VLM", "AUDIO", "FAMILIES"]
+def get_shape(name: str, reduced: bool = False) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    shp = SHAPES[name]
+    return shp.reduced() if reduced else shp
+
+
+__all__ = ["ARCH_NAMES", "SHAPES", "LONG_CONTEXT_ARCHS", "ModelConfig",
+           "ShapeConfig", "get_config", "get_shape", "shape_applicable",
+           "DENSE", "MOE", "SSM", "HYBRID", "VLM", "AUDIO", "FAMILIES"]

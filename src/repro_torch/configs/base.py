@@ -2,9 +2,9 @@
 
 Port of ``repro/configs/base.py``: ``ModelConfig`` with its properties
 and ``reduced()``, and the family constants, copied field for field so
-the port and the JAX package describe a model by the same numbers. The
-input-shape cells (``ShapeConfig``, ``SHAPES``) belong to the dry run
-and training, which are not ported yet.
+the port and the JAX package describe a model by the same numbers, and
+the input-shape cells (``ShapeConfig``, ``SHAPES``, ``shape_applicable``)
+that training and the dry run take.
 
 Every architecture gets one module in this package exporting ``CONFIG``
 (exact published numbers). ``ModelConfig.reduced()`` derives the CPU
@@ -191,3 +191,54 @@ class ModelConfig:
         if self.num_patches:
             kw["num_patches"] = 4
         return replace(self, **kw)
+
+
+# Shapes --------------------------------------------------------------------
+TRAIN = "train"
+PREFILL = "prefill"
+DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell.
+
+    ``kind``:
+      - ``train``   lowers ``train_step`` (fwd+bwd+opt) on (batch, seq).
+      - ``prefill`` lowers ``serve_prefill`` on (batch, seq).
+      - ``decode``  lowers ``serve_step`` — one new token against a KV
+        cache of length ``seq_len``.
+    """
+
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+    def reduced(self) -> "ShapeConfig":
+        return replace(
+            self,
+            name=self.name + "-smoke",
+            seq_len=min(self.seq_len, 64),
+            global_batch=min(self.global_batch, 2),
+        )
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", TRAIN, 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", PREFILL, 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", DECODE, 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", DECODE, 524_288, 1),
+}
+
+
+# long-context eligibility: sub-quadratic / bounded-state archs only
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "gemma3-1b")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether this (arch, shape) cell is runnable, with a reason if not."""
+    if shape.name.startswith("long_") and cfg.name not in LONG_CONTEXT_ARCHS:
+        return False, ("pure full-attention arch: 500k decode is "
+                       "quadratic-cost/unbounded-KV (skip per assignment)")
+    return True, ""

@@ -20,8 +20,12 @@ breaker's ``BreakerState``, the control plane's ``ControlCarry``
 
 ``model_params_to_torch`` carries a model's weights: the JAX package's
 ``init_params`` pytree (as numpy, layers stacked on leading axes)
-into the port's ``Model``; ``model_cache_to_torch`` carries a model's
-caches (prefill's or decode's) the same way.
+into the port's ``Model``, and ``model_params_to_numpy`` back;
+``model_cache_to_torch`` carries a model's caches (prefill's or
+decode's) the same way. ``adamw_state_to_torch`` and
+``adamw_state_to_numpy`` carry an AdamW state (its step and the two
+moment pytrees, laid out as the parameters), so both packages can take
+a training step from the same parameters, moments and gradients.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.core.baselines import DecSarsaState
 from repro_torch.device import resolve_device
 from repro_torch.models.model_zoo import Model, build_model
 from repro_torch.obs.recorder import RecorderState
+from repro_torch.training.optimizer import AdamWState
 
 # The step carry's 9 slots, as the reference's ``build_sim_parts`` lays
 # them out.
@@ -207,16 +212,89 @@ def model_params_to_torch(params, cfg: ModelConfig, device=None) -> Model:
     router stay float32. A missing, extra or misshapen leaf raises
     (``load_state_dict``, strict)."""
     model = build_model(cfg, device=device)
-    state = {}
-    for key, arr in _flatten(params):
+    state = {name: torch.from_numpy(np.array(arr, copy=True))
+             for name, arr in _unstacked(params).items()}
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def _float32_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def _unstacked(tree) -> dict:
+    """A reference parameter pytree (numpy leaves, layers stacked) as
+    ``{port parameter name: array}``, one entry a layer."""
+    out = {}
+    for key, arr in _flatten(tree):
         head, _, rest = key.partition(".")
         lead = _STACKS.get(head, 0)
         for idx in np.ndindex(*arr.shape[:lead]):
             name = ".".join(("params", head, *map(str, idx), rest)
                             if lead else ("params", key))
-            state[name] = torch.from_numpy(np.array(arr[idx], copy=True))
-    model.load_state_dict(state, strict=True)
-    return model
+            out[name] = arr[idx]
+    return out
+
+
+def named_to_numpy(named: dict) -> dict:
+    """Tensors or arrays keyed by a model's parameter names (its
+    parameters, their gradients, AdamW moments) as the reference's
+    parameter pytree: float32 numpy leaves, each stack's layers in index
+    order on its leading axes (the way back from ``_unstacked``)."""
+    named = {k: _float32_numpy(x) if isinstance(x, torch.Tensor) else x
+             for k, x in named.items()}
+    leaves: dict = {}
+    for name, arr in named.items():
+        head, *rest = name.split(".")[1:]
+        lead = _STACKS.get(head, 0)
+        idx = tuple(int(i) for i in rest[:lead])
+        leaves.setdefault((head, *rest[lead:]), {})[idx] = arr
+    tree: dict = {}
+    for path, by_idx in leaves.items():
+        if by_idx.keys() == {()}:
+            leaf = by_idx[()]
+        else:
+            dims = tuple(max(i[a] for i in by_idx) + 1
+                         for a in range(len(next(iter(by_idx)))))
+            leaf = np.stack([by_idx[i] for i in np.ndindex(*dims)])
+            leaf = leaf.reshape(dims + leaf.shape[1:])
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def model_params_to_numpy(model: Model) -> dict:
+    """The port's ``Model`` weights as the reference's ``init_params``
+    pytree (the layout ``model_params_to_torch`` reads), float32 numpy
+    leaves (bfloat16 weights widened exactly; the reference keeps its
+    weights in float32)."""
+    return named_to_numpy(dict(model.named_parameters()))
+
+
+def adamw_state_to_torch(state, model: Model, device=None) -> AdamWState:
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, and ``m``
+    and ``v`` laid out as the parameters) as the port's, its moments
+    keyed by ``model``'s parameter names (``training.optimizer``),
+    float32 on ``device``."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        named = _unstacked(tree)
+        return {name: torch.from_numpy(np.array(named[name], np.float32))
+                .to(dev) for name, _ in model.named_parameters()}
+
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=dev),
+                      m=moments(state.m), v=moments(state.v))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's ``AdamWState`` as the reference lays it out: an int32
+    step and the moments as parameter pytrees of float32 numpy."""
+    return AdamWState(step=np.asarray(state.step.cpu().numpy(), np.int32),
+                      m=named_to_numpy(state.m), v=named_to_numpy(state.v))
 
 
 def model_cache_to_torch(cache, device=None) -> dict:

@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIBRARY = BUILD_DIR / "libreprotorch.so"
@@ -117,3 +119,17 @@ def check(err: int, name: str) -> None:
     """Raise when a launch function reports a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward this kernel does not
+    have: grad mode on and a floating-point input that requires grad.
+    Without this the kernel's output, a fresh tensor with no
+    ``grad_fn``, would cut the graph and lose the gradient in silence.
+    On the CPU the plain versions keep their autograd."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors
+            if isinstance(t, torch.Tensor) and t.is_floating_point()):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; an "
+                           f"input requires grad (run it under "
+                           f"torch.no_grad(), or train on the CPU)")

@@ -30,10 +30,18 @@
 //   + 3. Where R % 4 == 0 a quad is one 16-byte load of lat and one
 //   4-byte load of mask; the ragged tail of any other R is masked. The
 //   row's sums are shuffles inside its L lanes.
-// - The middle stage takes the reciprocal of h once a row (IEEE
-//   round-to-nearest) and multiplies, where the plain version divides a
-//   sample: z moves by at most ~2 float32 ULP, each CDF term by < 1e-7,
-//   far inside the 1e-5 and KDE tolerances.
+// - mu is computed op for op as the plain version computes it
+//   (ref.bandit_maintenance_stats, which rounds as XLA:CPU does), so the
+//   two agree bit for bit: each lane stages its samples' terms in shared
+//   memory and the row's sums run in the plain version's order
+//   (xla_row_sum: blocks of 32 columns, each left to right, lane b adding
+//   block b, then the block sums in order; xla_kde_sum: the KDE's order,
+//   which depends on R); n^-0.2 comes from the plain version's table of
+//   glibc's powf (CUDA's powf is not glibc's); the root is correctly
+//   rounded, every division IEEE; erf is core/fmath.py's rational
+//   polynomial, each Horner step rounded through float64 as the plain
+//   version rounds it. The serial chains cost latency (a row's three sums
+//   are dependent adds) in place of shuffle trees.
 // - The quantile sorts the row's 32-bit keys by a bitonic network over
 //   its L lanes (in-lane compare-exchanges, then shuffles), with no
 //   shared memory and no R^2 count: log2(N)(log2(N)+1)/2 stages for N =
@@ -54,10 +62,10 @@
 //   lanes, 8 rows a warp), runs a grid of the resident blocks (occupancy
 //   x SMs) that strides over (row, segment) items, any R, and issues each
 //   item's loads before the erff of the item before it.
-// mu and kde reassociate the sums (lane order, then a shuffle tree) and
-// use CUDA's erff and powf: within a few float32 ULP of the plain
-// versions. The library is built with --fmad=false so no a*b+c is
-// contracted.
+// kde_kernel reassociates its sums (lane order, then a shuffle tree) and
+// uses CUDA's erff and one reciprocal of the bandwidth a row: within a few
+// float32 ULP of its plain version. The library is built with
+// --fmad=false so no a*b+c is contracted.
 #include <cfloat>
 #include <cstdint>
 
@@ -121,6 +129,96 @@ __device__ __forceinline__ float cdf_sum(const float* x, uint32_t valid, float t
   return s;
 }
 
+// core/fmath.py::erf's constants: the clamp where x p(x^2) / q(x^2) reaches
+// 1.0f, and the two polynomials, highest power first
+constexpr float kErfClamp = 3.7439211627767994f;
+__constant__ float kErfP[5] = {2.2905065861350646e-4f, 3.4082910107109506e-3f,
+                            5.0955695062380861e-2f, 1.8520832239976145e-1f,
+                            1.128379143519084f};
+__constant__ float kErfQ[7] = {-1.1791602954361697e-7f, 2.3547966471313185e-5f,
+                            1.0179625278914885e-3f,  1.4070470171167667e-2f,
+                            1.1098505178285362e-1f,  4.9746925110067538e-1f, 1.0f};
+
+// float32 erf rounded as the plain version rounds it (core/fmath.py::erf):
+// denormals flushed, x clamped, x^2 in float32, each Horner step p * x2 + c
+// added in float64 (the product of two floats is exact there) and stored
+// back to float32, then x * p / q.
+__device__ __forceinline__ float erf_plain(float x) {
+  if (fabsf(x) < FLT_MIN) x = __fmul_rn(0.f, x);
+  x = fminf(fmaxf(x, -kErfClamp), kErfClamp);
+  const double x2 = static_cast<double>(__fmul_rn(x, x));
+  float p = kErfP[0];
+#pragma unroll
+  for (int i = 1; i < 5; ++i) p = __double2float_rn(__dadd_rn(__dmul_rn(p, x2), kErfP[i]));
+  float q = kErfQ[0];
+#pragma unroll
+  for (int i = 1; i < 7; ++i) q = __double2float_rn(__dadd_rn(__dmul_rn(q, x2), kErfQ[i]));
+  return __fdiv_rn(__fmul_rn(x, p), q);
+}
+
+// The shared-memory slot of a lane's value v: the sample's index in the row
+// (quad c of lane l covers samples c*4L + 4l .. + 3).
+template <int L>
+__device__ __forceinline__ int slot(int v, int l) {
+  return (v / 4) * 4 * L + 4 * l + (v % 4);
+}
+
+__device__ __forceinline__ float mask_of(uint32_t valid, int v) {
+  return ((valid >> v) & 1u) ? 1.f : 0.f;
+}
+
+// The sum of a row's R staged values in ref._xla_row_sum's order: blocks of
+// 32 columns (one block of R where R <= 32), each added left to right (the
+// last block's columns past R as +0.0), then the block sums in order. Lane b
+// of the row adds block b (R <= 4 * L * CH gives at most L blocks); every
+// lane returns the total.
+__device__ __forceinline__ float xla_row_sum(const float* rbuf, float* rpart, int R,
+                                             int l) {
+  const int width = R <= 32 ? R : 32;
+  const int blocks = (R + width - 1) / width;
+  if (l < blocks) {
+    float acc = rbuf[l * width];
+    for (int j = 1; j < width; ++j) {
+      const int c = l * width + j;
+      acc = __fadd_rn(acc, c < R ? rbuf[c] : 0.f);
+    }
+    rpart[l] = acc;
+  }
+  __syncwarp();
+  float total = rpart[0];
+  for (int b = 1; b < blocks; ++b) total = __fadd_rn(total, rpart[b]);
+  __syncwarp();  // every lane has read the slots and the block sums
+  return total;
+}
+
+// The KDE's sum of a row's R staged terms in ref._xla_kde_sum's order: that
+// of xla_row_sum where R <= 10 or R > 32; between, eight accumulators
+// (column j into j % 8, over the first 16 columns zero-padded where R <= 16,
+// else over the whole eights), halved three times, then the columns past
+// the eights left to right. Every lane adds the row alone (the row's slots
+// are not written again after it).
+__device__ __forceinline__ float xla_kde_sum(const float* rbuf, float* rpart, int R,
+                                             int l) {
+  if (R <= 10 || R > 32) return xla_row_sum(rbuf, rpart, R, l);
+  const int eights = R <= 16 ? 2 : R / 8;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[i] = rbuf[i];
+    for (int c = 1; c < eights; ++c) {
+      const int j = 8 * c + i;
+      acc[i] = __fadd_rn(acc[i], j < R ? rbuf[j] : 0.f);
+    }
+  }
+#pragma unroll
+  for (int h = 4; h >= 1; h >>= 1)
+#pragma unroll
+    for (int i = 0; i < h; ++i) acc[i] = __fadd_rn(acc[i], acc[i + h]);
+  float total = acc[0];
+  for (int j = 8 * eights; j < R; ++j) total = __fadd_rn(total, rbuf[j]);
+  return total;
+}
+
 constexpr uint32_t kZeroKey = 0x80000000u;  // the key of +0.0 (and -0.0)
 
 // Order-preserving key of a float's bits; -0.0 keyed as +0.0.
@@ -174,9 +272,9 @@ __device__ __forceinline__ void bitonic_sort(uint32_t* a, int l) {
 template <int L, int CH>
 __global__ void __launch_bounds__(kThreads)
     maintenance_kernel(const float* __restrict__ lat, const uint8_t* __restrict__ mask,
-                       const float* __restrict__ rtt, float* __restrict__ mu_out,
-                       float* __restrict__ q_out, int rows, int R, bool vec, float tau,
-                       float rho, float min_bw) {
+                       const float* __restrict__ rtt, const float* __restrict__ pow_table,
+                       float* __restrict__ mu_out, float* __restrict__ q_out, int rows, int R,
+                       bool vec, float tau, float rho, float min_bw) {
   constexpr int V = 4 * CH;
   const int lane = threadIdx.x & 31;
   const int l = lane % L;
@@ -194,31 +292,45 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float rtt_row = live ? rtt[row] : 0.f;
 
-  // --- n and sum(lat * m), then the variance about the mean ---
-  float n = 0.f, s1 = 0.f;
+  // --- mu, op for op as the plain version: n, the mean and variance, the
+  // bandwidth, the KDE, each sum in its order over the row's staged slots ---
+  constexpr int kSlots = 4 * L * CH;             // a row's slots
+  constexpr int kParts = (kSlots + 31) / 32;     // its blocks of 32 columns
+  __shared__ float slots[(kThreads / L) * kSlots];
+  __shared__ float parts[(kThreads / L) * kParts];
+  float* rbuf = slots + (threadIdx.x / L) * kSlots;
+  float* rpart = parts + (threadIdx.x / L) * kParts;
+  float n = 0.f;
+  __syncwarp();
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const float m = ((valid >> v) & 1u) ? 1.f : 0.f;
-    n += m;
-    s1 += x[v] * m;
+    n += mask_of(valid, v);  // whole numbers: any order
+    rbuf[slot<L>(v, l)] = __fmul_rn(x[v], mask_of(valid, v));
   }
+  __syncwarp();
   n = row_sum<L, float>(n);
-  s1 = row_sum<L, float>(s1);
   const float nc = fmaxf(n, 1.f);
-  const float mean = s1 / nc;
-  float s2 = 0.f;
+  const float mean = __fdiv_rn(xla_row_sum(rbuf, rpart, R, l), nc);
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    const float d = x[v] - mean;
-    s2 += d * d * (((valid >> v) & 1u) ? 1.f : 0.f);
+    const float d = __fsub_rn(x[v], mean);
+    rbuf[slot<L>(v, l)] = __fmul_rn(__fmul_rn(d, d), mask_of(valid, v));
   }
-  s2 = row_sum<L, float>(s2);
-
-  // --- Silverman bandwidth, then the Gaussian-CDF success probability ---
-  const float sigma = sqrtf(fmaxf(s2 / nc, 0.f));
-  const float h = fmaxf(1.06f * sigma * powf(nc, -0.2f), min_bw);
-  const float s3 = row_sum<L, float>(cdf_sum<V>(x, valid, tau, __frcp_rn(h)));
-  const float mu = n > 0.f ? s3 / nc : 0.f;
+  __syncwarp();
+  const float var = __fdiv_rn(xla_row_sum(rbuf, rpart, R, l), nc);
+  const float sigma = __fsqrt_rn(fmaxf(var, 0.f));
+  const float h =
+      fmaxf(__fmul_rn(__fmul_rn(1.06f, sigma), pow_table[static_cast<int>(nc)]), min_bw);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float z = __fdiv_rn(__fsub_rn(tau, x[v]), h);
+    const float cdf = __fmul_rn(0.5f, __fadd_rn(1.f, erf_plain(__fmul_rn(z, kInvSqrt2))));
+    rbuf[slot<L>(v, l)] = __fmul_rn(cdf, mask_of(valid, v));
+  }
+  __syncwarp();
+  // every lane sums (the sums hold __syncwarp), then an empty row takes 0
+  const float contrib = xla_kde_sum(rbuf, rpart, R, l);
+  const float mu = n > 0.f ? __fdiv_rn(contrib, nc) : 0.f;
 
   // --- the masked rho-quantile: sort the keys, take rank tgt ---
   uint32_t a[V];
@@ -352,12 +464,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int L, int CH>
-int launch_maintenance(const float* lat, const uint8_t* mask, const float* rtt, float* mu,
-                       float* q, int rows, int R, bool vec, float tau, float rho,
-                       float min_bw, cudaStream_t stream) {
+int launch_maintenance(const float* lat, const uint8_t* mask, const float* rtt,
+                       const float* pow_table, float* mu, float* q, int rows, int R, bool vec,
+                       float tau, float rho, float min_bw, cudaStream_t stream) {
   const long long blocks = (static_cast<long long>(rows) * L + kThreads - 1) / kThreads;
   maintenance_kernel<L, CH><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      lat, mask, rtt, mu, q, rows, R, vec, tau, rho, min_bw);
+      lat, mask, rtt, pow_table, mu, q, rows, R, vec, tau, rho, min_bw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,19 +493,21 @@ int launch_kde(const float* lat, const uint8_t* mask, const float* bw, float* ou
 
 }  // namespace
 
-// lat (rows, R) float32, mask (rows, R) bool bytes, rtt (rows,); mu and q
+// lat (rows, R) float32, mask (rows, R) bool bytes, rtt (rows,), pow_table
+// (R + 1,) float32 with n^-0.2 at n (glibc's powf, ref._powf_table); mu and q
 // (rows,). A row on `lanes` lanes (1, 2, ..., 32) of `chunks` quads each
 // (1 below 32 lanes; 1, 2, 4 or 8 at 32), as kde.row_geometry gives them;
 // `vec`: R % 4 == 0 and lat 16-byte, mask 4-byte aligned.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int maintenance_launch(const float* lat, const uint8_t* mask, const float* rtt,
-                                  float* mu, float* q, int rows, int R, int lanes,
+                                  const float* pow_table, float* mu, float* q, int rows,
+                                  int R, int lanes,
                                   int chunks, int vec, float tau, float rho, float min_bw,
                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool v = vec != 0;
-  using Launch = int (*)(const float*, const uint8_t*, const float*, float*, float*, int,
-                         int, bool, float, float, float, cudaStream_t);
+  using Launch = int (*)(const float*, const uint8_t*, const float*, const float*, float*,
+                         float*, int, int, bool, float, float, float, cudaStream_t);
   Launch fn = nullptr;
   if (chunks == 1) {
     switch (lanes) {
@@ -412,7 +526,7 @@ extern "C" int maintenance_launch(const float* lat, const uint8_t* mask, const f
     }
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(lat, mask, rtt, mu, q, rows, R, v, tau, rho, min_bw, st);
+  return fn(lat, mask, rtt, pow_table, mu, q, rows, R, v, tau, rho, min_bw, st);
 }
 
 // lat (rows, R) float32, mask (rows, R) bool bytes, bw and out (rows,); any

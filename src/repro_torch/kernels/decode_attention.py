@@ -69,9 +69,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hq a multiple of Hkv, D in ``HEAD_DIMS``. Returns (B, Hq, D) in q's
     dtype, within float32 rounding of the plain version before the cast
     (sums in another order, CUDA's expf). Launches the split and combine
-    kernels on the current stream and counts one launch a call.
+    kernels on the current stream and counts one launch a call. It has
+    no backward: an input that requires grad under grad mode raises
+    (``_build.refuse_grad``).
     """
     launch = _launcher()
+    _build.refuse_grad("decode_attention", q, k, v)
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     _require(q.is_cuda and all(t.device == q.device for t in (k, v, length)),

@@ -11,6 +11,14 @@ products as ``wgmma``), float32 on the CUDA cores (exact to float32
 rounding). The work is bound by operations, ~400 FLOP a byte at the
 serving shape; the header says how each design meets that.
 ``ref.attention`` is their plain PyTorch version.
+
+``flash_attention_bwd`` is the backward, a kernel the TPU package does
+not have (its training differentiates the plain attention): two CUDA
+kernels in ``csrc/flash_attention_bwd.cu`` that recompute the
+probabilities from q and k, float32 on the CUDA cores for both dtypes,
+deterministic (no atomics). ``ref.attention_grads`` is its plain
+version; ``ops.attention`` pairs the two kernels in an autograd
+Function.
 """
 from __future__ import annotations
 
@@ -88,3 +96,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+@functools.cache
+def _bwd_launcher():
+    return _build.function("flash_attention_bwd_launch", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        ctypes.c_float, _I, _I, _P])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        window: int | None = None,
+                        scale: float | None = None):
+    """The gradients ``(dq, dk, dv)`` of ``flash_attention(q, k, v,
+    causal, window, scale)`` against the output gradient ``dout``, as
+    ``ref.attention_grads``.
+
+    ``q`` and ``dout`` (B, Hq, S, D), ``k`` and ``v`` (B, Hkv, S, D), the
+    rules of ``flash_attention`` (``dout`` may be strided: it is made
+    contiguous). Returns the three gradients in q's dtype: float32 sums
+    in another order than the plain version's (CUDA's expf); bfloat16
+    inputs are widened exactly and each gradient rounded once to
+    bfloat16 at the end. dk and dv of kv head j sum over the Hq / Hkv
+    query heads of its group. Two kernels on the current stream, no
+    atomics (two calls give the same bits); allocates (B, Hq, S) float32
+    log-sum-exp and delta rows. Counts one launch a call. A training
+    step with remat runs the forward twice a layer (the step's forward
+    and the checkpoint's recomputation) and this once.
+    """
+    launch = _bwd_launcher()
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    dout = dout.contiguous()
+    _require(q.is_cuda and all(t.device == q.device for t in (k, v, dout)),
+             "tensors must share a CUDA device")
+    _require(q.dtype in DTYPES and all(t.dtype == q.dtype
+                                       for t in (k, v, dout)),
+             "q, k, v, dout must all be float32 or all bfloat16")
+    _require(k.shape == (B, Hkv, S, D) and v.shape == k.shape
+             and dout.shape == q.shape and Hkv > 0 and Hq % Hkv == 0,
+             "shapes")
+    _require(D in HEAD_DIMS, f"head_dim {D} not in {HEAD_DIMS}")
+    _require(window is None or window >= 1, f"window {window} < 1")
+    _require(all(t.is_contiguous() for t in (q, k, v)),
+             "tensors must be contiguous")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse, delta = (torch.empty((B, Hq, S), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    scale = scale if scale is not None else D ** -0.5
+    err = launch(*(t.data_ptr() for t in (q, k, v, dout, dq, dk, dv, lse,
+                                          delta)),
+                 DTYPES[q.dtype], B, Hq, Hkv, S, D, scale, int(causal),
+                 window or 0,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd_launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

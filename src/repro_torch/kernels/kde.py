@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +31,7 @@ _F = ctypes.c_float
 @functools.cache
 def _launcher():
     return _build.function("maintenance_launch", [
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P])
 
 
 def row_geometry(R: int) -> tuple[int, int]:
@@ -63,13 +63,16 @@ def fused_maintenance(lat: torch.Tensor, mask: torch.Tensor,
 
     ``lat`` (rows, R) float32, ``mask`` (rows, R) bool, ``rtt`` (rows,)
     float32, all contiguous on one CUDA device, R <= 1024. Returns
-    ``(mu (rows,), q (rows,))``: q bit-exact against
-    ``ref.bandit_maintenance_stats`` (the same sample of the same rank;
-    of equal zeros, the one of lowest index), mu within a few float32 ULP
-    (shuffle tree sums, CUDA's erff/powf, one reciprocal of h a row).
-    Launches on the current stream.
+    ``(mu (rows,), q (rows,))``, both bit-exact against
+    ``ref.bandit_maintenance_stats``: q the same sample of the same rank
+    (of equal zeros, the one of lowest index), mu computed op for op as
+    the plain version computes it (its row sums in XLA:CPU's order, its
+    ``n ** -0.2`` table, which this passes in, ``fmath.erf``, a correctly
+    rounded root). Launches on the current stream. No backward: a float
+    input that requires grad under grad mode raises.
     """
     launch = _launcher()
+    _build.refuse_grad("fused_maintenance", lat, rtt)
     rows, R = lat.shape
     _require(lat.is_cuda and mask.device == lat.device
              and rtt.device == lat.device, "tensors must share a CUDA device")
@@ -83,8 +86,10 @@ def fused_maintenance(lat: torch.Tensor, mask: torch.Tensor,
     q = torch.empty(rows, dtype=torch.float32, device=lat.device)
     if rows == 0:
         return mu, q
+    pow_table = ref._powf_on(R, lat.device)      # glibc's n ** -0.2, n <= R
     err = launch(lat.data_ptr(), mask.data_ptr(), rtt.data_ptr(),
-                 mu.data_ptr(), q.data_ptr(), rows, R, *row_geometry(R),
+                 pow_table.data_ptr(), mu.data_ptr(), q.data_ptr(), rows, R,
+                 *row_geometry(R),
                  _vector_loads(lat, mask), tau, rho, min_bandwidth,
                  torch.cuda.current_stream(lat.device).cuda_stream)
     _build.check(err, "maintenance_launch")
@@ -123,9 +128,11 @@ def kde_success_prob(lat: torch.Tensor, mask: torch.Tensor, tau: float,
     (rows,) float32, all contiguous on one CUDA device. Returns (rows,)
     float32, within a few float32 ULP of ``ref.kde_success_prob`` (shuffle
     tree sums, CUDA's erff, one reciprocal of the bandwidth a row).
-    Launches on the current stream.
+    Launches on the current stream. No backward: a float input that
+    requires grad under grad mode raises.
     """
     launch = _kde_launcher()
+    _build.refuse_grad(_KDE, lat, bandwidth)
     rows, R = lat.shape
     _require(lat.is_cuda and mask.device == lat.device
              and bandwidth.device == lat.device,

@@ -4,6 +4,15 @@ A tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
 any other tensor goes to the CUDA kernel, which launches or raises (a
 missing ``nvcc``, a failed build, a tensor the kernel does not take, a
 refused launch). There is no mode switch and no fallback.
+
+Gradients. On the CPU the plain versions carry PyTorch's autograd. On
+the card ``attention`` is the one kernel with a backward: it runs as
+``FlashAttention``, an autograd Function whose forward is the flash
+kernel and whose backward is ``flash_attention_bwd`` (where no input
+requires grad, as in serving, it records nothing and launches the
+forward alone). The other kernels have no backward yet, and their
+wrappers raise on an input that requires grad rather than cut the graph
+(``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ from repro_torch.kernels import ssd as _ssd
 # every kernel wrapper of the port; each counts its launches in ``launches``
 WRAPPERS = (_round.round_step_swrr, _kde.fused_maintenance,
             _kde.kde_success_prob, _fa.flash_attention,
-            _dec.decode_attention, _ssd.ssd)
+            _fa.flash_attention_bwd, _dec.decode_attention, _ssd.ssd)
 
 
 def _on_host(x: torch.Tensor) -> bool:
@@ -64,12 +73,36 @@ def round_step_gumbel(weights, q, nc, z, gum, rtt_t, s_m, served_per_round):
                                  served_per_round)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel with its backward kernel: saves q, k and v (the
+    backward recomputes the probabilities from them) and returns dq, dk,
+    dv from ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, scale = ctx.args
+        grads = _fa.flash_attention_bwd(*ctx.saved_tensors, dout,
+                                        causal=causal, window=window,
+                                        scale=scale)
+        return (*grads, None, None, None)
+
+
 def attention(q, k, v, causal: bool = True, window: int | None = None,
               scale: float | None = None):
     """Causal GQA attention (prefill), optional sliding window.
-    (B,Hq,S,D) x (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype."""
-    fn = ref.attention if _on_host(q) else _fa.flash_attention
-    return fn(q, k, v, causal=causal, window=window, scale=scale)
+    (B,Hq,S,D) x (B,Hkv,S,D) -> (B,Hq,S,D) in q's dtype; differentiable
+    on every device."""
+    if _on_host(q):
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    return FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def decode_attention(q, k, v, length, scale: float | None = None):

@@ -7,7 +7,9 @@ SSD scan. They are what the CPU runs for the kernels
 (``kernels/ops.py`` sends a CPU tensor here), and what
 ``chip_smoke.py`` holds each CUDA kernel against on the card. Two have
 no kernel and run here on every device: the SSD single-token update
-and the proxy-mity round (``round_step_gumbel``).
+and the proxy-mity round (``round_step_gumbel``). ``attention_grads``
+is the plain version of the attention backward, a kernel of the port
+alone (the reference differentiates its plain attention).
 
 Kept free of module-level ``repro_torch.core`` imports for the reason
 the reference gives: ``core -> kernels -> core`` would cycle.
@@ -59,6 +61,21 @@ def attention(
     p = torch.softmax(torch.where(mask, logits, _NEG), dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def attention_grads(q, k, v, do, causal: bool = True,
+                    window: int | None = None, scale: float | None = None):
+    """The plain version of ``flash_attention_bwd``: ``(dq, dk, dv)`` of
+    ``attention(q, k, v, causal, window, scale)`` against the output
+    gradient ``do``, by ``torch.autograd.grad`` through ``attention`` on
+    float32 copies of the inputs; float32 gradients whatever the inputs'
+    dtype. The tests and ``chip_smoke.py`` hold the kernel to it; no
+    training path runs it on the card."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        out = attention(qf, kf, vf, causal=causal, window=window,
+                        scale=scale)
+        return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 
 def decode_attention(

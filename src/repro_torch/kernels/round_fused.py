@@ -144,9 +144,13 @@ def round_step_swrr(
     every output, which the wrapper allocates empty. ``t`` is the step
     time as a host number (a float32 value), so the launch needs no host
     sync. Every output is bit-exact against the plain version. With
-    (S, M) per-instance rows it runs S lanes in the one launch.
+    (S, M) per-instance rows it runs S lanes in the one launch. It has no
+    backward: a float input that requires grad under grad mode raises.
     """
     launch = _launcher()
+    _build.refuse_grad("round_step_swrr", weights, cw, cooldown_until,
+                       lat_buf, ts_buf, r_buf, rts_buf, q, z, rtt_t, s_m,
+                       served_per_round)
     K, M, R = lat_buf.shape
     C = z.shape[0]
     Rq = r_buf.shape[1]

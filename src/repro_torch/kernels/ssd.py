@@ -136,9 +136,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     One call is one count of ``ssd.launches`` and ``LAUNCHES_PER_CALL``
     CUDA launches on the current stream; bfloat16 also allocates a float32
     workspace of ``_workspace_floats`` entries (33.5 MB of chunk states at
-    the serving shape).
+    the serving shape). It has no backward yet: an input that requires
+    grad under grad mode raises (``_build.refuse_grad``), so the SSM and
+    hybrid families train on the CPU only.
     """
     launch = _launcher()
+    _build.refuse_grad("ssd", x, dt, A, Bm, Cm)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     _require(chunk >= 1, f"chunk {chunk} < 1")

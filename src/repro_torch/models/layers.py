@@ -24,7 +24,9 @@ from repro_torch.core import fmath
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
                 scale: float | None = None) -> nn.Parameter:
     """Normal(0, 1) * scale (default ``shape[0] ** -0.5``), drawn in
-    float32 on the generator's device and stored in ``dtype``."""
+    float32 on the generator's device and stored in ``dtype``; like every
+    weight of the port, without ``requires_grad`` until the trainer
+    switches the model on (``Model.trainable``)."""
     scale = scale if scale is not None else shape[0] ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale

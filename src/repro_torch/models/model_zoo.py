@@ -1,5 +1,5 @@
 """Model API: ``build_model(cfg)`` -> ``Model``, an ``nn.Module`` with
-``forward`` / ``prefill`` / ``decode`` / ``init_cache``.
+``forward`` / ``loss`` / ``prefill`` / ``decode`` / ``init_cache``.
 
 Port of ``repro/models/model_zoo.py`` for every family: the decoders
 (dense, MoE, SSM, hybrid, gemma3 local/global), the VLM (a decoder whose
@@ -14,8 +14,19 @@ Batches for ``forward`` and ``prefill``: ``{"tokens": (B, S)}``; the
 VLM adds ``"patches"`` (B, P, d), cast to the compute dtype and put
 before the token embeddings (decode positions then start at P + S);
 Whisper takes ``{"frames": (B, Se, d), "tokens": (B, Sd)}``. ``decode``
-takes ``{"token": (B, 1), "pos": int}`` plus the cache. The loss and
-the dry run's input specs wait for the training slice (ROADMAP A11).
+takes ``{"token": (B, 1), "pos": int}`` plus the cache. ``loss(batch,
+remat=True)`` adds ``"targets"`` (the tokens' shape) to a forward batch:
+the mean token cross-entropy of the float32 logits (the VLM scores its
+text positions only; the MoE adds ``MOE_AUX_WEIGHT`` times its balance
+loss), with ``remat`` checkpointing each layer (``transformer``). The
+reference's ``param_axes``, ``cache_axes`` and ``input_specs`` wait for
+the model rules and the dry run (ROADMAP A11).
+
+Training. Every weight is made with ``requires_grad`` off, so serving
+builds no autograd graph and its times and memory are what they were
+before the model could train; ``trainable()`` switches a whole model's
+weights on, which the trainer (``launch/train.py``) calls and serving
+never does.
 
 Caches (``transformer``'s module docstring has their layout): a layer
 with a sliding window keeps a ring of ``window`` slots (prefill fills
@@ -71,6 +82,17 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of the logits taken to float32."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
 
 def _cache_len(cfg: ModelConfig, S: int) -> int:
     if cfg.sliding_window is not None and cfg.local_global_pattern is None:
@@ -208,12 +230,28 @@ class Model(nn.Module):
     def _layout(cfg: ModelConfig) -> dict:
         return T.cache_layout(cfg)
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, remat: bool = False):
         """The batch (the module docstring) -> (logits (B, S, V), aux):
         S counts the VLM's patches."""
         h, aux, _ = T.forward(self.params, self.cfg,
-                              self._embed_inputs(batch))
+                              self._embed_inputs(batch), remat=remat)
         return T.logits_from_hidden(self.params, self.cfg, h), aux
+
+    def loss(self, batch: dict, remat: bool = True) -> torch.Tensor:
+        """The training loss of a batch with ``"targets"`` (the module
+        docstring), a float32 scalar."""
+        logits, aux = self.forward(batch, remat=remat)
+        if self.cfg.family == VLM:       # only text positions carry labels
+            logits = logits[:, self.cfg.num_patches:]
+        loss = _xent(logits, batch["targets"])
+        if self.cfg.is_moe:
+            loss = loss + MOE_AUX_WEIGHT * aux
+        return loss
+
+    def trainable(self) -> "Model":
+        """Every weight set to require grad; returns the model. The
+        trainer's switch (the module docstring)."""
+        return self.requires_grad_(True)
 
     def prefill(self, batch: dict, max_len: int | None = None):
         """The batch -> (last position's logits (B, 1, V), caches):
@@ -310,11 +348,16 @@ class WhisperModel(Model):
     def _layout(cfg: ModelConfig) -> dict:
         return whisper.CACHE_LAYOUT
 
-    def forward(self, batch: dict):
-        """The batch -> (the decoder's logits (B, Sd, V), aux 0.0)."""
+    def forward(self, batch: dict, remat: bool = False):
+        """The batch -> (the decoder's logits (B, Sd, V), aux 0.0);
+        ``remat`` is ignored, as the reference ignores it."""
         enc = whisper.encode(self.params, self.cfg, batch["frames"])
         return whisper.decode_full(self.params, self.cfg, batch["tokens"],
                                    enc)[0], 0.0
+
+    def loss(self, batch: dict, remat: bool = True) -> torch.Tensor:
+        """The decoder's token cross-entropy (the module docstring)."""
+        return _xent(self.forward(batch)[0], batch["targets"])
 
     def prefill(self, batch: dict, max_len: int | None = None):
         """The batch -> (last position's logits (B, 1, V), caches): the

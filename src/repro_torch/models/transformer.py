@@ -19,13 +19,19 @@ uniform stack, the local layers of a gemma3 stack) attends over the last
 token's K and V go to slot ``pos % W`` of a W-slot cache, which attends
 over its first ``min(pos + 1, W)`` slots.
 
-``remat`` raises ``NotImplementedError`` (the training slice, ROADMAP
-A11). The encoder-decoder (audio) family is ``whisper.py``'s.
+``remat`` (training) checkpoints each layer of a uniform stack and each
+local layer of a gemma3 group (``torch.utils.checkpoint``, non
+reentrant): the layer's activations are dropped after the forward and
+recomputed in the backward, as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` does per scan step; gemma3's global layers run
+plainly, as in the reference. The encoder-decoder (audio) family is
+``whisper.py``'s.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
@@ -204,12 +210,16 @@ def layer_decode(lp: Layer, cfg: ModelConfig, x: torch.Tensor, cache: tuple,
 # ---------------------------------------------------------------------------
 
 def _run_stack(layers, cfg: ModelConfig, x: torch.Tensor, rope_cs,
-               window: int | None, collect: bool, aux):
+               window: int | None, collect: bool, aux, remat: bool = False):
     """Layers in turn -> (x, aux summed, each cache tensor stacked on a
-    leading axis, or None)."""
+    leading axis, or None); ``remat``: each layer under a checkpoint."""
     per_layer = []
     for lp in layers:
-        x, cache, a = layer_full(lp, cfg, x, rope_cs, window, collect)
+        if remat:
+            x, cache, a = checkpoint(layer_full, lp, cfg, x, rope_cs, window,
+                                     collect, use_reentrant=False)
+        else:
+            x, cache, a = layer_full(lp, cfg, x, rope_cs, window, collect)
         aux = aux + a
         per_layer.append(cache)
     stacked = (tuple(torch.stack(parts) for parts in zip(*per_layer))
@@ -223,10 +233,8 @@ def forward(params: Params, cfg: ModelConfig, x_embed: torch.Tensor,
     caches are the module docstring's dict, each cache tensor of a
     layer stacked on the leading axes. The aux loss is the MoE layers'
     balance terms summed, a float32 tensor, 0.0 for a stack without MoE
-    layers."""
-    if remat:
-        raise NotImplementedError("remat belongs to the training slice "
-                                  "(ROADMAP A11)")
+    layers. ``remat``: activation checkpointing (the module
+    docstring)."""
     rope_cs = None
     if cfg.family != SSM:
         positions = torch.arange(x_embed.shape[1], device=x_embed.device)
@@ -235,12 +243,12 @@ def forward(params: Params, cfg: ModelConfig, x_embed: torch.Tensor,
     if cfg.local_global_pattern is None:
         x, aux, caches["layers"] = _run_stack(
             params.layers, cfg, x, rope_cs, cfg.sliding_window,
-            collect_cache, aux)
+            collect_cache, aux, remat)
     else:
         local, glob = [], []
         for loc, gl in zip(params.group_local, params.group_global):
             x, aux, c = _run_stack(loc, cfg, x, rope_cs, cfg.sliding_window,
-                                   collect_cache, aux)
+                                   collect_cache, aux, remat)
             local.append(c)
             x, c, a = layer_full(gl, cfg, x, rope_cs, None, collect_cache)
             aux = aux + a
@@ -253,7 +261,7 @@ def forward(params: Params, cfg: ModelConfig, x_embed: torch.Tensor,
         if hasattr(params, "tail_local"):
             x, aux, caches["tail_local"] = _run_stack(
                 params.tail_local, cfg, x, rope_cs, cfg.sliding_window,
-                collect_cache, aux)
+                collect_cache, aux, remat)
     x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
     return x, aux, (caches if collect_cache else None)
 

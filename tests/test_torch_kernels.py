@@ -249,6 +249,92 @@ def test_maintenance_kernel_selection_is_bit_exact(R):
     assert 4 * lanes * chunks >= R and (lanes == 32 or chunks == 1)
 
 
+# The maintenance kernel's mu (csrc/maintenance.cu), replayed in numpy: its
+# row sums as the kernel orders them (xla_row_sum: lane b adds block b of
+# 32, then the block sums; xla_kde_sum: eight accumulators between R 11 and
+# 32), its erf's float64 Horner steps, n ** -0.2 from the table the wrapper
+# passes. The card holds the kernel to the plain version at a few R
+# (chip_smoke.py); this holds the kernel's order at every R.
+
+def _kernel_row_sum(v: np.ndarray, R: int) -> np.float32:
+    f32 = np.float32
+    width = R if R <= 32 else 32
+    parts = []
+    for b in range(-(-R // width)):
+        acc = v[b * width]
+        for c in range(b * width + 1, (b + 1) * width):
+            acc = f32(acc + (v[c] if c < R else f32(0.0)))
+        parts.append(acc)
+    total = parts[0]
+    for part in parts[1:]:
+        total = f32(total + part)
+    return total
+
+
+def _kernel_kde_sum(v: np.ndarray, R: int) -> np.float32:
+    f32 = np.float32
+    if R <= 10 or R > 32:
+        return _kernel_row_sum(v, R)
+    eights = 2 if R <= 16 else R // 8
+    acc = list(v[:8])
+    for i in range(8):
+        for c in range(1, eights):
+            acc[i] = f32(acc[i] + (v[8 * c + i] if 8 * c + i < R else f32(0)))
+    for h in (4, 2, 1):
+        for i in range(h):
+            acc[i] = f32(acc[i] + acc[i + h])
+    total = acc[0]
+    for j in range(8 * eights, R):
+        total = f32(total + v[j])
+    return total
+
+
+def _kernel_erf(x: np.ndarray) -> np.ndarray:
+    from repro_torch.core import fmath
+    f32 = np.float32
+    x = np.where(np.abs(x) < np.finfo(f32).tiny, f32(0.0) * x, x)
+    x = np.clip(x, -fmath._ERF_CLAMP, fmath._ERF_CLAMP).astype(f32)
+    x2 = (x * x).astype(np.float64)
+    p = np.full_like(x, fmath._ERF_P[0])
+    for c in fmath._ERF_P[1:]:
+        p = (p.astype(np.float64) * x2 + c).astype(f32)
+    q = np.full_like(x, fmath._ERF_Q[0])
+    for c in fmath._ERF_Q[1:]:
+        q = (q.astype(np.float64) * x2 + c).astype(f32)
+    return (x * p / q).astype(f32)
+
+
+def kernel_mu(lat, mask, tau: float, min_bw: float = 1e-4) -> np.ndarray:
+    """mu as csrc/maintenance.cu's maintenance_kernel computes it."""
+    f32 = np.float32
+    rows, R = lat.shape
+    table = ref._powf_table(R)
+    mu = np.empty(rows, f32)
+    for r in range(rows):
+        m, x = mask[r].astype(f32), lat[r]
+        n = f32(m.sum())
+        nc = max(n, f32(1.0))
+        mean = f32(_kernel_row_sum(x * m, R) / nc)
+        d = x - mean
+        var = f32(_kernel_row_sum(d * d * m, R) / nc)
+        h = max(f32(f32(f32(1.06) * np.sqrt(max(var, f32(0.0))))
+                    * table[int(nc)]), f32(min_bw))
+        z = (f32(tau) - x) / h
+        cdf = f32(0.5) * (f32(1.0) + _kernel_erf(z * f32(0.7071067811865476)))
+        kde = _kernel_kde_sum((cdf * m).astype(f32), R)
+        mu[r] = f32(kde / nc) if n > 0 else f32(0.0)
+    return mu
+
+
+@pytest.mark.parametrize("R", [*range(1, 41), 48, 63, 64, 65, 100, 1024])
+def test_maintenance_kernel_mu_order_is_the_plain_versions(R):
+    lat, mask, rtt = adversarial_maint_rows(R, 7 + R)
+    want = ref.bandit_maintenance_stats(T(lat), T(mask), T(rtt), 0.08,
+                                        0.9)[0].numpy()
+    np.testing.assert_array_equal(kernel_mu(lat, mask, 0.08).view(np.uint32),
+                                  want.view(np.uint32))
+
+
 def test_row_geometry():
     assert tkde_kernel.row_geometry(64) == (16, 1)       # two rows a warp
     assert tkde_kernel.row_geometry(1) == (1, 1)
@@ -548,8 +634,8 @@ def test_build_flags_target_hopper_and_forbid_fma():
     assert "arch=compute_90a,code=sm_90a" in _build.COMPILE_FLAGS
     assert "--fmad=false" in _build.COMPILE_FLAGS
     assert [s.name for s in _build.sources()] == [
-        "decode_attention.cu", "flash_attention.cu", "maintenance.cu",
-        "round_fused.cu", "ssd.cu"]
+        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "maintenance.cu", "round_fused.cu", "ssd.cu"]
 
 
 def _no_nvcc(monkeypatch, tmp_path):

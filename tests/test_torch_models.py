@@ -301,8 +301,16 @@ def test_convert_refuses_a_misshapen_pytree():
         model_params_to_torch(p, port_config("qwen3-4b"), "cpu")
 
 
-def test_remat_raises():
-    model = build_model(get_config("qwen3-4b", reduced=True), device="cpu")
-    x = torch.zeros(1, 4, model.cfg.d_model, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        T.forward(model.params, model.cfg, x, remat=True)
+def test_remat_raises(monkeypatch):
+    # remat trains the decoders (tests/test_torch_train_step.py); on the
+    # card a stack whose kernel has no backward raises instead of losing
+    # the gradient: the SSM stack's ssd refuses an input that requires grad
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as tssd
+    monkeypatch.setattr(ops, "_on_host", lambda x: False)
+    monkeypatch.setattr(tssd, "_launcher", lambda: None)
+    model = build_model(get_config("mamba2-1.3b", reduced=True),
+                        device="cpu").trainable()
+    tokens = torch.zeros(1, 8, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model.loss({"tokens": tokens, "targets": tokens}, remat=True)
