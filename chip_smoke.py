@@ -34,10 +34,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 backward (``flash_attention_bwd``, a kernel of the port
                 alone) against ``ref.attention_grads`` at ``BWD_CASES``
                 (the training shape with a strided dO, gemma3's local
-                window at D 256, two small float32 cases, one non causal),
-                dQ, dK and dV within ``BWD_TOL`` and a second call
-                bit-identical; ``ops.ssd``, which has no backward, refusing
-                an input that requires grad.
+                window at D 256, hymba's 25/5 heads of 64 with its window
+                over an S that is no multiple of the tile, two small
+                float32 cases, one non causal), dQ, dK and dV within
+                ``BWD_TOL`` and a second call bit-identical; ``ops.ssd``,
+                which has no backward, refusing an input that requires
+                grad.
 4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
@@ -492,24 +494,31 @@ TRAIN = dict(arch="qwen3-4b", steps=20, seq_len=256, batch=8, lr=3e-4,
 # (B, Hq, Hkv, S, D, dtype, causal, window): the training shape (qwen3-4b's
 # heads, batch 8, seq 256; its dO strided, as the model's transpose gives it),
 # gemma3-1b's local layers (4/1 heads of 256, window 512, S 1,000, the serve
-# cell's batch), a small float32 case with a window, and Whisper's
-# bidirectional encoder mask in float32
+# cell's batch), hymba-1.5b's heads (25/5 of 64: a group of 5, its window of
+# 1,024, S 1,100 past the window and no multiple of the 64-row tile), a
+# small float32 case with a window, and Whisper's bidirectional encoder mask
+# in float32. bfloat16 at D 64 and 128 takes the tensor-core kernels, D 256
+# the CUDA-core ones (``flash_attention.bwd_tensor_cores``)
 BWD_CASES = ((TRAIN["batch"], HEADS["Hq"], HEADS["Hkv"], TRAIN["seq_len"],
               HEADS["D"], "bfloat16", True, None),
              (SERVE["batch"], 4, 1, 1000, 256, "bfloat16", True, 512),
+             (2, 25, 5, 1100, 64, "bfloat16", True, 1024),
              (2, 4, 2, 130, 64, "float32", True, 48),
              (2, 4, 1, 70, 32, "float32", False, None))
 # kernels that must build without spilling registers: the kernels redesigned
 # for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
               "ssd_scan_kernel")
-NO_SPILL = ("flash_tc_kernel", "decode_split_kernel", "decode_combine_kernel",
-            *SSD_PASSES, "round_kernel", "maintenance_kernel", "kde_kernel")
+FLASH_BWD_TC = ("flash_bwd_dq_tc_kernel", "flash_bwd_dkdv_tc_kernel")
+NO_SPILL = ("flash_tc_kernel", *FLASH_BWD_TC, "decode_split_kernel",
+            "decode_combine_kernel", *SSD_PASSES, "round_kernel",
+            "maintenance_kernel", "kde_kernel")
 # the port's CUDA kernels by name, as the profiler and ptxas report them
 PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
-                "flash_tc_kernel", "flash_f32_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkdv_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "ssd_kernel", *SSD_PASSES)
+                "flash_tc_kernel", "flash_f32_kernel", *FLASH_BWD_TC,
+                "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                "decode_split_kernel", "decode_combine_kernel", "ssd_kernel",
+                *SSD_PASSES)
 
 
 def ptxas_report(log: str) -> list:
@@ -914,6 +923,7 @@ def check_flash_bwd(dev) -> float:
             r["max_abs_err"] for r in res.values())
         emit(phase="kernels", kernel="flash_attention_bwd", B=B, Hq=Hq,
              Hkv=Hkv, S=S, D=D, dtype=dtype, causal=causal, window=window,
+             tensor_cores=flash_attention.bwd_tensor_cores(q.dtype, D),
              dout_strided=not do.is_contiguous(), repeat_identical=True,
              **res, **tol)
         del q, k, v, do, grads, again, plain
@@ -2910,11 +2920,13 @@ def phase_family_times(dev) -> None:
          bytes=work[0], flops=work[1])
 
 
-def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
+def profiled(fn, name: str, trace_dir: Path, sums: dict | None = None,
+             **fields) -> None:
     """Run ``fn`` once under torch.profiler and emit the device time by
     kernel name and the busy share of the wall time. The busy time sums
     the device-side events only (an op's device time repeats its
-    kernels')."""
+    kernels'). ``sums`` names fields of device ms, each the kernels whose
+    names hold one of its strings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2929,6 +2941,9 @@ def profiled(fn, name: str, trace_dir: Path, **fields) -> None:
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kernels)
+    for field, keys in (sums or {}).items():
+        fields[field] = sum(e.self_device_time_total for e in kernels
+                            if any(k in e.key for k in keys)) / 1e3
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU
                   and e.key.startswith("aten::")), key=lambda e: -e.count)
     emit(phase="profile", path=name, wall_s=wall, device_busy_us=dev_us,
@@ -2957,7 +2972,8 @@ def profile_fleet(dev, trace_dir: Path) -> None:
 def profile_train(dev, trace_dir: Path) -> None:
     """The profiler breakdown of one ``TRAIN`` step after two unprofiled:
     the loss and its gradients (the forward, remat's recomputation, the
-    backward), then the AdamW update, each alone."""
+    backward; with the flash backward's device ms), then the AdamW
+    update, each alone."""
     import torch
     from repro_torch import training
     from repro_torch.configs import get_config
@@ -2983,7 +2999,8 @@ def profile_train(dev, trace_dir: Path) -> None:
 
     fields = dict(arch=cfg.name, batch=TRAIN["batch"],
                   seq_len=TRAIN["seq_len"])
-    profiled(grads, "train_grads", trace_dir, **fields)
+    profiled(grads, "train_grads", trace_dir,
+             sums=dict(flash_bwd_device_ms=("flash_bwd_",)), **fields)
     profiled(lambda: opt.update(found["grads"], state, params),
              "train_update", trace_dir, **fields)
     del model, params, state, found

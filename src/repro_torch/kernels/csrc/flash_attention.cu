@@ -503,28 +503,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// (D, S, heads) bf16 tensor in boxes of (box_cols, box_rows, 1), swizzled by
-// box_cols * 2 bytes; rows past S read as zeros
-bool make_map(CUtensorMap* map, const void* base, int S, int heads, int D, int box_cols,
-              int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
            int Hkv, int S, float scale, int causal, int window, cudaStream_t stream) {

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd.cu): mbarriers, TMA tensor loads and their
-// tensor maps, wgmma shared-memory descriptors and products with float32
-// accumulators, and the split of a float32 pair into two bf16 terms.
+// (flash_attention.cu, flash_attention_bwd.cu, ssd.cu): mbarriers, TMA
+// tensor and bulk loads and their tensor maps, wgmma shared-memory
+// descriptors and products with float32 accumulators, and the split of a
+// float32 pair into two bf16 terms.
 #pragma once
 
 #include <cstdint>
@@ -56,6 +57,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared memory,
+// both ends 16-byte aligned, completing on `bar` as a TMA load does
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -242,6 +254,28 @@ inline EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// (D, S, heads) bf16 tensor in boxes of (box_cols, box_rows, 1), swizzled by
+// box_cols * 2 bytes; rows past S read as zeros
+inline bool make_map(CUtensorMap* map, const void* base, int S, int heads, int D,
+                     int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -8,9 +8,10 @@ refused launch). There is no mode switch and no fallback.
 Gradients. On the CPU the plain versions carry PyTorch's autograd. On
 the card ``attention`` is the one kernel with a backward: it runs as
 ``FlashAttention``, an autograd Function whose forward is the flash
-kernel and whose backward is ``flash_attention_bwd`` (where no input
-requires grad, as in serving, it records nothing and launches the
-forward alone). The other kernels have no backward yet, and their
+kernel and whose backward is ``flash_attention_bwd`` (bfloat16 at head
+dims 64 and 128 on the tensor cores, float32 and the other head dims on
+the CUDA cores; where no input requires grad, as in serving, it records
+nothing and launches the forward alone). The other kernels have no backward yet, and their
 wrappers raise on an input that requires grad rather than cut the graph
 (``_build.refuse_grad``).
 """
