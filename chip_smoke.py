@@ -18,7 +18,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 self-attention over prompts of 4 and 446, its 1,500-slot
                 cross cache and 448-slot self ring, InternVL2's prefill
                 over 256 patches and 1,000 tokens and its 1,272-slot
-                cache, a group of 7) and at small ones; the round kernel
+                cache, a group of 7; mesh_train's float32 attention at
+                D 128 on each mesh's local heads) and at small ones; the
+                round kernel
                 also at K past a wave of resident warps, M above 64 and
                 one arm taking every request, each case with
                 its inputs unchanged and a second call bit-identical, and
@@ -36,7 +38,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 (the training shape with a strided dO, gemma3's local
                 window at D 256, hymba's 25/5 heads of 64 with its window
                 over an S that is no multiple of the tile, two small
-                float32 cases, one non causal), dQ, dK and dV within
+                float32 cases, one non causal, and mesh_train's float32
+                shapes at D 128, ``MESH_FLASH``), dQ, dK and dV within
                 ``BWD_TOL`` and a second call bit-identical; ``ops.ssd``,
                 which has no backward, refusing an input that requires
                 grad.
@@ -225,6 +228,25 @@ Phases, one JSON line each; any failure exits non-zero:
                 backward), no other kernel. Gates: every loss finite, the
                 last five's mean below the first, peak under the card's
                 memory (budget 90 s, the model's build included).
+   mesh_train -- sharded training on ranks of the one card (gloo,
+                ``launch.mesh.spawn``): qwen3-4b at its published width
+                cut to 2 layers, float32 (TF32 off), seq 256 x batch 8,
+                ``adamw(1e-3, clip_norm=1.0)``, remat. (a) 3 steps on a
+                (data 2, model 2) mesh of 4 ranks (``Model.shard``: the
+                batch and the FSDP rows over data, heads, FFN columns and
+                the vocabulary over model) against the same 3 steps on
+                one rank: losses within ``MESH_TRAIN``'s rtol and atol,
+                flash forward 2 and backward 1 launches a layer a step on
+                every rank. (b) Rank 0 saves after step 3 (the state
+                gathered whole); the last data row is lost, the two
+                survivors form a process group of their own, restore onto
+                the (1, 2) mesh (``restore(..., shardings=)``) and take 2
+                steps, finite and equal to one rank resumed from the same
+                checkpoint; ``QEdgeRouter.mesh_resized(1)`` masks replica
+                1 of 2. Steps/s of each run, each rank's collectives a
+                step and their share of the step (host time inside them,
+                the device synchronised first), peak memory, the
+                phase's seconds (budget 60 s).
 10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
                 bound, at the main paths' shapes (``times``; the flash
@@ -385,11 +407,19 @@ AUDIO_VLM = {"whisper-tiny": dict(prompt_len=4, graph_prompts=(4, 446)),
 # prefill over 256 patches and 1,000 tokens (a group of 7)
 AV_FLASH = (((6, 6), 1500, 64, False), ((6, 6), 4, 64, True),
             ((6, 6), 446, 64, True), ((14, 2), 1256, 64, True))
+# The mesh_train cell's attention (``MESH_TRAIN``: qwen3-4b's heads, seq
+# 256, batch 8, float32), (B, Hq, Hkv, S, D) as a rank gets it: on the
+# (data 2, model 2) mesh half the batch and half the heads, on the shrunk
+# (1, 2) mesh the whole batch and half the heads, on one rank all of both
+MESH_FLASH = tuple((8 // data, HEADS["Hq"] // model, HEADS["Hkv"] // model,
+                    256, HEADS["D"])
+                   for data, model in ((2, 2), (1, 2), (1, 1)))
 # (B, Hq, Hkv, S, D, dtype, causal, window, q_mul): the serve prefill
 # first, then the same with q x 4 (peaked rows: the online softmax rescales
 # at large logits); a window of 48 at D=64, non-causal with a group of 4
 # at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S;
-# then ``FAMILY_FLASH`` and ``AV_FLASH`` at the serve cell's batch
+# then ``FAMILY_FLASH`` and ``AV_FLASH`` at the serve cell's batch, and
+# ``MESH_FLASH`` in float32 (``flash_f32_kernel`` at D 128)
 FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                 HEADS["D"], "bfloat16", True, None, 1.0),
                (SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
@@ -403,7 +433,9 @@ FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                *((SERVE["batch"], *heads, S, D, "bfloat16", True, window, 1.0)
                  for heads, S, D, window in FAMILY_FLASH),
                *((SERVE["batch"], *heads, S, D, "bfloat16", causal, None, 1.0)
-                 for heads, S, D, causal in AV_FLASH))
+                 for heads, S, D, causal in AV_FLASH),
+               *((*shape, "float32", True, None, 1.0)
+                 for shape in MESH_FLASH))
 _C = 64                                            # decode_attention.CHUNK
 # The decoder families' decode caches, (Hq, Hkv), slots, D, lengths:
 # hymba-1.5b's 1,024-slot ring (G 5, D 64), gemma3-1b's 512-slot ring and
@@ -497,14 +529,23 @@ TRAIN = dict(arch="qwen3-4b", steps=20, seq_len=256, batch=8, lr=3e-4,
 # cell's batch), hymba-1.5b's heads (25/5 of 64: a group of 5, its window of
 # 1,024, S 1,100 past the window and no multiple of the 64-row tile), a
 # small float32 case with a window, and Whisper's bidirectional encoder mask
-# in float32. bfloat16 at D 64 and 128 takes the tensor-core kernels, D 256
-# the CUDA-core ones (``flash_attention.bwd_tensor_cores``)
+# in float32, then ``MESH_FLASH`` (float32 at D 128, as mesh_train's ranks
+# run it). bfloat16 at D 64 and 128 takes the tensor-core kernels, D 256
+# and float32 the CUDA-core ones (``flash_attention.bwd_tensor_cores``)
 BWD_CASES = ((TRAIN["batch"], HEADS["Hq"], HEADS["Hkv"], TRAIN["seq_len"],
               HEADS["D"], "bfloat16", True, None),
              (SERVE["batch"], 4, 1, 1000, 256, "bfloat16", True, 512),
              (2, 25, 5, 1100, 64, "bfloat16", True, 1024),
              (2, 4, 2, 130, 64, "float32", True, 48),
-             (2, 4, 1, 70, 32, "float32", False, None))
+             (2, 4, 1, 70, 32, "float32", False, None),
+             *((*shape, "float32", True, None) for shape in MESH_FLASH))
+# The sharded-training cell: qwen3-4b at its published widths cut to
+# MESH_TRAIN["layers"] layers (two data replicas of the weights and AdamW
+# moments in float32 share the one card), the reference SPMD test's
+# optimizer, 3 steps and tolerance; then 2 steps resumed on the shrunk mesh
+MESH_TRAIN = dict(arch="qwen3-4b", layers=2, seq_len=256, batch=8, lr=1e-3,
+                  clip_norm=1.0, steps=3, resumed=2, mesh=(2, 2),
+                  rtol=1e-4, atol=1e-5, budget_s=60.0)
 # kernels that must build without spilling registers: the kernels redesigned
 # for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
@@ -1827,8 +1868,8 @@ def players_rank(fleet: tuple, grid: tuple, warm_fleet: tuple,
     import torch
     import torch.distributed as dist
     from repro_torch.continuum import run_sim_grid, run_sim_players
-    from repro_torch.launch.mesh import (all_reduce, make_continuum_mesh,
-                                         make_grid_mesh)
+    from repro_torch.launch.mesh import make_continuum_mesh, make_grid_mesh
+    from repro_torch.sharding.collectives import all_reduce
     dev = torch.device("cuda", torch.cuda.current_device())
     fmesh, gmesh = make_continuum_mesh(), make_grid_mesh()
 
@@ -2686,6 +2727,283 @@ def phase_train(dev) -> dict:
     return launches
 
 
+def mesh_train_config():
+    """``MESH_TRAIN``'s model: the published config, its depth cut,
+    float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MESH_TRAIN["arch"]),
+                               num_layers=MESH_TRAIN["layers"],
+                               dtype="float32")
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the calls of the three collectives the port makes and the
+    host seconds inside them (the device synchronised first, so the
+    time is the collective's and not the kernels' that made its input):
+    yields ``{name: [calls, seconds]}``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding.collectives import REDUCE_SCATTER
+    names = ("all_reduce", "all_gather_into_tensor", REDUCE_SCATTER)
+    orig = {n: getattr(dist, n) for n in names}
+    got = {n: [0, 0.0] for n in names}
+
+    def wrap(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig[name](*a, **k)
+            got[name][0] += 1
+            got[name][1] += time.perf_counter() - t
+            return out
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield got
+    finally:
+        for n in names:
+            setattr(dist, n, orig[n])
+
+
+def mesh_train_run(steps: int, mesh=None, ckdir: str | None = None,
+                   resume: bool = False) -> dict:
+    """One run of the mesh_train cell on this process's card: the model
+    from seed 0, on ``mesh`` (this rank's blocks) or on one rank;
+    ``resume`` restores ``ckdir``'s latest step first (with the mesh's
+    shardings), else ``ckdir`` takes the state after the last step.
+    Returns the losses, each step's seconds, the kernel launches and
+    collectives of the steps alone, and the peak memory."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.sharding import Sharding, tree_shardings
+    from repro_torch.training import adamw, make_train_step, synthetic_batch
+    from repro_torch.training.optimizer import AdamWState
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mesh_train_config()
+    shape = ShapeConfig("mesh_train", "train", MESH_TRAIN["seq_len"],
+                        MESH_TRAIN["batch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev, seed=0).trainable()
+    opt = adamw(MESH_TRAIN["lr"], clip_norm=MESH_TRAIN["clip_norm"])
+    step_fn = make_train_step(model, opt)
+    out = {}
+    with mesh or contextlib.nullcontext():
+        if mesh is not None:
+            model.shard(mesh)
+        params = dict(model.named_parameters())
+        state = opt.init(params)
+        first = 0
+        if resume:
+            sh = None
+            if mesh is not None:
+                ps = tree_shardings(model.param_axes(), mesh)
+                sh = (ps, AdamWState(step=Sharding(mesh, ()), m=ps, v=ps))
+            t = time.perf_counter()
+            (saved, state), first = Checkpointer(ckdir).restore(
+                (params, state), shardings=sh)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(saved[k])
+            del saved
+            out["restore_s"] = time.perf_counter() - t
+        for fn in all_kernels():
+            fn.launches = 0
+        losses, step_s = [], []
+        with counted_collectives() as coll:
+            for s in range(first, first + steps):
+                t = time.perf_counter()
+                batch = synthetic_batch(cfg, shape, s, dev, mesh=mesh)
+                params, state, m = step_fn(params, state, batch)
+                losses.append(float(m["loss"]))
+                step_s.append(time.perf_counter() - t)
+        out["launches"] = {fn.__name__: fn.launches for fn in all_kernels()}
+        if ckdir is not None and not resume:
+            t = time.perf_counter()
+            Checkpointer(ckdir).save(first + steps, (params, state))
+            out["save_s"] = time.perf_counter() - t
+    out.update(losses=losses, step_s=step_s, first=first,
+               collectives={n: dict(calls=c, seconds=sec)
+                            for n, (c, sec) in coll.items()},
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def mesh_train_rank(ckdir: str, ports: tuple) -> dict:
+    """One of the 4 ranks of mesh_train: (a) on the (2, 2) mesh, saved;
+    (b) the last data row lost, the survivors in a group of their own
+    (``ports[0]``) on the shrunk mesh, resumed. The lost pair forms a
+    group on ``ports[1]``, and its first rank meanwhile resumes alone,
+    on no mesh: the one-rank run (b) is held against. Returns ``{"a":
+    run, "b": the survivor's run, "alone": the lost rank's}`` (None
+    where a rank has none)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.fault import build_mesh, shrink_mesh
+    mesh = build_mesh(4, model_axis=MESH_TRAIN["mesh"][1])
+    a = mesh_train_run(MESH_TRAIN["steps"], mesh, ckdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = shrink_mesh(mesh, 1)
+    rank = dist.get_rank()
+    survivor = rank in small.ranks
+    dist.barrier()
+    dist.destroy_process_group()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{ports[not survivor]}",
+        world_size=2, rank=rank % 2)
+    b = alone = None
+    if survivor:
+        b = mesh_train_run(MESH_TRAIN["resumed"], small, ckdir, resume=True)
+    elif rank % 2 == 0:
+        alone = mesh_train_run(MESH_TRAIN["resumed"], None, ckdir,
+                               resume=True)
+    return {"a": a, "b": b, "alone": alone}
+
+
+def want_launches(steps: int) -> dict:
+    """The kernel launches of ``steps`` mesh_train steps on any rank:
+    flash twice a layer a step (the forward and remat's recomputation),
+    its backward once, no other kernel."""
+    want = {fn.__name__: 0 for fn in all_kernels()}
+    want.update(flash_attention=2 * MESH_TRAIN["layers"] * steps,
+                flash_attention_bwd=MESH_TRAIN["layers"] * steps)
+    return want
+
+
+def check_mesh_losses(what: str, got: list, want: list) -> float:
+    """``got`` within ``MESH_TRAIN``'s tolerance of ``want``; returns the
+    largest relative gap."""
+    got, want = np.asarray(got), np.asarray(want)
+    if not (np.isfinite(got).all() and got.shape == want.shape):
+        raise AssertionError(f"mesh_train {what}: losses {got.tolist()}")
+    if not np.allclose(got, want, rtol=MESH_TRAIN["rtol"],
+                       atol=MESH_TRAIN["atol"]):
+        raise AssertionError(f"mesh_train {what}: {got.tolist()} against "
+                             f"one rank's {want.tolist()}")
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def phase_mesh_train(dev) -> None:
+    """Sharded training and the elastic restart on gloo ranks of the one
+    card, each against one rank on the card (the module docstring)."""
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import _free_port, spawn
+    from repro_torch.serving.router import QEdgeRouter
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = mesh_train_config()
+    layers, steps, resumed = cfg.num_layers, MESH_TRAIN["steps"], \
+        MESH_TRAIN["resumed"]
+    ckdir = tempfile.mkdtemp(prefix="mesh_train_")
+    got: dict = {}
+
+    def ranks_run():
+        try:
+            got["ranks"] = spawn(mesh_train_rank, 4, ckdir,
+                                 (_free_port(), _free_port()),
+                                 every_rank=True,
+                                 timeout=4 * MESH_TRAIN["budget_s"])
+        except BaseException as e:              # raised below, here
+            got["error"] = e
+
+    # the one-rank run (a) on the card while the ranks start
+    try:
+        t1 = time.perf_counter()
+        ranks_thread = threading.Thread(target=ranks_run)
+        ranks_thread.start()
+        one = mesh_train_run(steps + resumed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ranks_thread.join()
+        spawn_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    if "error" in got:
+        raise got["error"]
+    ranks = got["ranks"]
+    one_resumed = next(rk["alone"] for rk in ranks if rk["alone"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_a = check_mesh_losses("(a) 4 ranks", ranks[0]["a"]["losses"],
+                              one["losses"][:steps])
+    err_b = check_mesh_losses("(b) resumed on 2 ranks",
+                              ranks[0]["b"]["losses"],
+                              one_resumed["losses"])
+    err_resumed = check_mesh_losses("(b) resumed against uninterrupted",
+                                    one_resumed["losses"],
+                                    one["losses"][steps:])
+    if any(rk[p]["launches"] != want_launches(n) for rk in ranks
+           for p, n in (("a", steps), ("b", resumed), ("alone", resumed))
+           if rk[p] is not None) or one["launches"] != want_launches(
+               steps + resumed):
+        raise AssertionError(
+            "mesh_train: launches " + json.dumps(
+                [{p: rk[p] and rk[p]["launches"] for p in ("a", "b", "alone")}
+                 for rk in ranks] + [one["launches"]]))
+    if ranks[0]["b"]["first"] != steps:
+        raise AssertionError(f"mesh_train (b): resumed at step "
+                             f"{ranks[0]['b']['first']}, not {steps}")
+    router = QEdgeRouter(2, 2, device=dev)
+    router.mesh_resized(1)
+    if router.state.active.tolist() != [True, False] or \
+            float(router.state.weights[:, 1].abs().max()) != 0.0:
+        raise AssertionError(f"mesh_train: mesh_resized(1) left "
+                             f"{router.state.active.tolist()}")
+
+    def run_fields(run: dict, n: int) -> dict:
+        secs = sum(run["step_s"])
+        calls = {k: v["calls"] / n for k, v in run["collectives"].items()}
+        coll_s = sum(v["seconds"] for v in run["collectives"].values())
+        return dict(losses=run["losses"], step_s=run["step_s"],
+                    steps_per_s=n / secs, collectives_per_step=calls,
+                    collective_share_of_steps=coll_s / secs,
+                    peak_mem_bytes=run["peak_mem_bytes"],
+                    launches=run["launches"],
+                    **{k: run[k] for k in ("save_s", "restore_s") if k in run})
+
+    secs = time.perf_counter() - t0
+    emit(phase="mesh_train", arch=cfg.name, layers=layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.head_dim],
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype=cfg.dtype, tf32=False,
+         params=cfg.param_count(),
+         reduced=dict(num_layers=[get_config(MESH_TRAIN["arch"]).num_layers,
+                                 layers]),
+         seq_len=MESH_TRAIN["seq_len"], batch=MESH_TRAIN["batch"],
+         route="explicit collectives (gloo all-reduce, all-gather and "
+               "reduce-scatter)",
+         mesh=dict(data=MESH_TRAIN["mesh"][0], model=MESH_TRAIN["mesh"][1]),
+         shrunk_mesh=dict(data=1, model=MESH_TRAIN["mesh"][1]),
+         one_rank=run_fields(one, steps + resumed),
+         ranks=[run_fields(rk["a"], steps) for rk in ranks],
+         one_rank_resumed=run_fields(one_resumed, resumed),
+         survivors=[run_fields(rk["b"], resumed) for rk in ranks
+                    if rk["b"] is not None],
+         concurrent="the one-rank run (a) ran while the ranks started; "
+                    "the one-rank resume ran on a lost rank beside the "
+                    "survivors",
+         max_rel_err_a=err_a, max_rel_err_b=err_b,
+         max_rel_err_resumed_vs_uninterrupted=err_resumed,
+         rtol=MESH_TRAIN["rtol"], atol=MESH_TRAIN["atol"],
+         router_after_mesh_resized=router.state.active.tolist(),
+         spawn_seconds=spawn_s, seconds=secs,
+         budget_s=MESH_TRAIN["budget_s"],
+         within_budget=secs <= MESH_TRAIN["budget_s"], card=nvidia_smi())
+
+
 def all_kernels() -> tuple:
     """Every kernel wrapper of the port (each carries ``launches``)."""
     from repro_torch.kernels import ops
@@ -3182,6 +3500,7 @@ def main() -> int:
     families = phase_families(dev)
     phase_audio_vlm(dev)
     trained = phase_train(dev)
+    phase_mesh_train(dev)
     # each kernel's launches on its main path: the simulator kernels in the
     # fleet run, the serving kernels in their serve runs, the flash backward
     # in the train run; the KDE kernel, which no path calls, summed over the

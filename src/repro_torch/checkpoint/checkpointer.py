@@ -14,9 +14,19 @@ The manifest carries a ``schema`` version and the SHA-256 of
 raises ``CheckpointCorruptError`` on a truncated, bit-flipped or
 foreign-version checkpoint. ``save`` snapshots every leaf to numpy on
 the caller's thread, so an async write never races the caller's next
-step; ``keep`` bounds the steps kept on disk. numpy has no bfloat16: a
-bfloat16 leaf is stored as its int16 bits and restored into the
-template's bfloat16.
+step; ``keep`` bounds the steps kept on disk. The payload is written in
+one pass, hashed as it is written (``_Hashed``: ``np.savez`` streams
+into a file it cannot seek), and ``restore`` reads each member in place
+(a memmap of its bytes) and copies only the blocks it keeps. numpy has
+no bfloat16: a bfloat16 leaf is stored as its int16 bits and restored
+into the template's bfloat16.
+
+Sharded state. A leaf that is a rank's block (``sharding.place``, a
+``Model.shard`` weight or its moments) is saved whole: every rank of its
+mesh calls ``save`` with its blocks, the blocks are gathered, and rank 0
+of the process group writes, so a checkpoint does not depend on the
+mesh. ``restore(..., shardings=)`` places each leaf on the mesh of its
+``Sharding`` (a new mesh after an elastic shrink, ``fault.elastic``).
 """
 from __future__ import annotations
 
@@ -24,13 +34,18 @@ import hashlib
 import json
 import os
 import shutil
+import struct
 import threading
+import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.obs.provenance import config_hash  # noqa: F401  (re-export)
+from repro_torch.sharding.collectives import gather_to_first
+from repro_torch.sharding.partitioning import Sharding, sharding_of, tag
 
 _SEP = "/"
 
@@ -56,16 +71,22 @@ def _children(tree):
     return None
 
 
-def _flatten(tree, path: str = "", out: dict | None = None) -> dict:
+def _flatten(tree, path: str = "", out: dict | None = None,
+             keep: bool = True) -> dict:
     """Every leaf as a numpy copy, keyed by its path (``None`` has no
-    leaf)."""
+    leaf); a rank's block is gathered whole onto the first rank of its
+    mesh (the writer) first. Without ``keep`` the leaves are sent and
+    dropped (a rank that does not write)."""
     out = {} if out is None else out
     if tree is None:
         return out
     kids = _children(tree)
     if kids is None:
         if isinstance(tree, torch.Tensor):
-            t = tree.detach().cpu()
+            t = gather_to_first(tree)
+            if not keep:
+                return out
+            t = t.detach().cpu()
             leaf = (t.view(torch.int16) if t.dtype == torch.bfloat16
                     else t).numpy()
         else:
@@ -73,32 +94,78 @@ def _flatten(tree, path: str = "", out: dict | None = None) -> dict:
         out[path] = np.array(leaf, copy=True)
         return out
     for name, child in kids:
-        _flatten(child, f"{path}{_SEP}{name}" if path else name, out)
+        _flatten(child, f"{path}{_SEP}{name}" if path else name, out, keep)
     return out
 
 
-def _unflatten(template, data, path: str = ""):
+def _unflatten(template, data, path: str = "", shardings=None):
     """``template``'s structure with its leaves from ``data``: a tensor
     leaf becomes a tensor on the template's device, any other a numpy
-    array."""
+    array. ``shardings`` (the template's structure, ``Sharding`` leaves
+    or None) makes a leaf this rank's block of it, cut on the host."""
     if template is None:
         return None
     kids = _children(template)
     if kids is None:
         arr = data[path]
         if isinstance(template, torch.Tensor):
+            sh = shardings if isinstance(shardings, Sharding) else None
+            if sh is not None:
+                arr = arr[sh.block(arr.shape)]
             t = torch.from_numpy(np.array(arr, copy=True))
             if template.dtype == torch.bfloat16:
                 t = t.view(torch.bfloat16)
-            return t.to(template.device)
-        return arr
-    vals = [_unflatten(child, data, f"{path}{_SEP}{name}" if path else name)
-            for name, child in kids]
+            return tag(t.to(template.device), sh)
+        return np.array(arr, copy=True)
+    subs = ([None] * len(kids) if shardings is None
+            else [sub for _, sub in _children(shardings)])
+    vals = [_unflatten(child, data, f"{path}{_SEP}{name}" if path else name,
+                       sub) for (name, child), sub in zip(kids, subs)]
     if isinstance(template, dict):
         return dict(zip(template.keys(), vals))
     if hasattr(template, "_fields"):
         return type(template)(*vals)
     return type(template)(vals)
+
+
+def _members(path: str) -> dict:
+    """The arrays of the ``np.savez`` file ``path`` by name, each a
+    read-only memmap of its bytes in the file (its members are stored,
+    not compressed), so a restore copies only the blocks it keeps; the
+    file's integrity is the manifest's checksum, checked first. A member
+    with no elements to map (0-d or empty) is read."""
+    out = {}
+    with zipfile.ZipFile(path) as z, open(path, "rb") as f:
+        for info in z.infolist():
+            name = info.filename.removesuffix(".npy")
+            f.seek(info.header_offset + 26)       # the local header's lengths
+            name_len, extra_len = struct.unpack("<HH", f.read(4))
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            major, _ = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0 if major == 1
+                           else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            if not shape or 0 in shape:
+                out[name] = np.load(z.open(info))
+            else:
+                out[name] = np.memmap(f, dtype=dtype, mode="r",
+                                      offset=f.tell(), shape=shape,
+                                      order="F" if fortran else "C")
+    return out
+
+
+def _is_sharded(tree) -> bool:
+    kids = _children(tree)
+    if kids is None:
+        return sharding_of(tree) is not None
+    return any(_is_sharded(child) for _, child in kids)
+
+
+def _writes() -> bool:
+    """Whether this rank writes a sharded tree: rank 0 of the group."""
+    return not (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_rank() != 0)
 
 
 def _sha256(path: str) -> str:
@@ -107,6 +174,41 @@ def _sha256(path: str) -> str:
         for block in iter(lambda: f.read(1 << 20), b""):
             h.update(block)
     return h.hexdigest()
+
+
+class _Hashed:
+    """A file to write once, front to back, that takes the SHA-256 of
+    what is written (in a thread, beside the writes). It cannot seek, so
+    ``np.savez`` streams its zip in one pass (each member's sizes after
+    its data) and the hash is the file's."""
+
+    def __init__(self, f):
+        self.f, self.h, self.n = f, hashlib.sha256(), 0
+        self.pool = ThreadPoolExecutor(1)
+        self.pending = None
+
+    def write(self, b) -> int:
+        b = bytes(b)
+        if self.pending is not None:
+            self.pending.result()
+        self.pending = self.pool.submit(self.h.update, b)
+        self.n += len(b)
+        return self.f.write(b)
+
+    def tell(self) -> int:
+        return self.n
+
+    def read(self, *args):            # np.savez takes a file that has one
+        raise OSError("a checkpoint's payload is written, not read here")
+
+    def flush(self) -> None:
+        self.f.flush()
+
+    def hexdigest(self) -> str:
+        if self.pending is not None:
+            self.pending.result()
+        self.pool.shutdown()
+        return self.h.hexdigest()
 
 
 class Checkpointer:
@@ -124,8 +226,13 @@ class Checkpointer:
              meta: Optional[dict] = None) -> str:
         """Snapshot on the caller's thread, write (optionally) async.
         ``meta`` is stored verbatim in the manifest; restore ignores
-        it."""
-        arrays = _flatten(tree)
+        it. A tree with ranks' blocks is gathered (every rank calls) and
+        written by rank 0 alone."""
+        final = self._path(step)
+        writes = _writes() or not _is_sharded(tree)
+        arrays = _flatten(tree, keep=writes)
+        if not writes:
+            return final
         manifest = {
             "schema": SCHEMA_VERSION,
             "step": int(step),
@@ -134,17 +241,17 @@ class Checkpointer:
         }
         if meta is not None:
             manifest["meta"] = meta
-        final = self._path(step)
 
         def write():
             tmp = final + ".tmp"
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
-            npz = os.path.join(tmp, "arrays.npz")
-            np.savez(npz, **arrays)
-            # checksum the bytes as they landed on disk
-            manifest["checksum"] = "sha256:" + _sha256(npz)
+            with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
+                out = _Hashed(f)
+                np.savez(out, **arrays)
+                # checksum the bytes as they were written, in one pass
+                manifest["checksum"] = "sha256:" + out.hexdigest()
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -215,13 +322,17 @@ class Checkpointer:
                     f"is truncated or bit-flipped")
         return manifest
 
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None):
         """``(tree, step)``: ``template``'s structure rebuilt from the
-        step's arrays (default the latest), after ``verify``."""
+        step's arrays (default the latest), after ``verify``.
+        ``shardings`` (the template's structure, ``Sharding`` leaves or
+        None) places each leaf on its mesh: pass the new mesh's for an
+        elastic restore."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         self.verify(step)
-        with np.load(os.path.join(self._path(step), "arrays.npz")) as data:
-            tree = _unflatten(template, {k: data[k] for k in data.files})
+        tree = _unflatten(template, _members(
+            os.path.join(self._path(step), "arrays.npz")), shardings=shardings)
         return tree, step

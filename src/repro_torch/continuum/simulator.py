@@ -110,9 +110,10 @@ from repro_torch.core.oracle import step_regret
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import _xla_row_sum, lane_of, lane_rows
-from repro_torch.launch.mesh import MeshAxis, all_reduce, tree_map
+from repro_torch.launch.mesh import MeshAxis, tree_map
 from repro_torch.obs import recorder as obr
 from repro_torch.sharding import logical_to_spec
+from repro_torch.sharding.collectives import all_reduce
 
 
 @dataclass(frozen=True)

@@ -1,25 +1,32 @@
 """Meshes of ranks, and a launcher that starts the ranks.
 
-Port of the continuum meshes of ``repro/launch/mesh.py``. A JAX mesh
-holds devices of one process; here each rank of the default
-``torch.distributed`` process group is a process with one device, and a
-``Mesh`` is a 2-D (``data``, ``players``) grid of ranks with a process
-group along each axis:
+Port of ``repro/launch/mesh.py``. A JAX mesh holds devices of one
+process; here each rank of the default ``torch.distributed`` process
+group is a process with one device, and a ``Mesh`` is a grid of ranks
+with named axes and a process group along each axis (and along each
+set of axes a computation asks for, such as the batch's (``pod``,
+``data``)):
 
-* ``data`` carries independent grid lanes (scenario x seed, the logical
-  ``grid`` axis);
-* ``players`` splits the K load balancers inside each simulation (the
-  logical ``players`` axis; only the per-round arrival sum crosses it).
+* the model meshes, (``data``, ``model``) and (``pod``, ``data``,
+  ``model``) (``make_test_mesh``, ``make_production_mesh``): ``data``
+  and ``pod`` split the batch (data parallel) and the weights' d_model
+  rows (FSDP), ``model`` splits heads, FFN columns, experts and the
+  vocabulary (tensor and expert parallel), as ``sharding``'s rules say;
+* the continuum meshes, (``data``, ``players``) (``make_grid_mesh``,
+  ``make_continuum_mesh``): ``data`` carries independent grid lanes
+  (scenario x seed, the logical ``grid`` axis), ``players`` splits the K
+  load balancers inside each simulation (the logical ``players`` axis;
+  only the per-round arrival sum crosses it).
 
-Without an initialised process group, or with a world of one, a mesh has
-one rank and every entry point runs the plain program. ``spawn`` starts
-D ranks (one process each, a free TCP port on ``localhost``, rank r on
-``cuda:(r % device_count)`` when there is a card) and returns rank 0's
-result.
+``with mesh:`` makes a mesh the active one (``sharding.current_mesh``).
+Without an initialised process group, or with a world of one, a mesh
+has one rank and every entry point runs the plain program. ``spawn``
+starts D ranks (one process each, a free TCP port on ``localhost``,
+rank r on ``cuda:(r % device_count)`` when there is a card) and returns
+rank 0's result.
 
-The collectives are all-reduce (SUM, MAX) only: gloo runs nothing else
-on CUDA tensors, and two ranks sharing one card need gloo (NCCL refuses
-two ranks on one device).
+The ranks join gloo (NCCL refuses two ranks on one device); the
+collectives over a mesh's axes live in ``sharding.collectives``.
 """
 from __future__ import annotations
 
@@ -35,15 +42,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-AXES = ("data", "players")
+from repro_torch.sharding.partitioning import pop_mesh, push_mesh
+
+AXES = ("data", "players")               # the continuum meshes' axes
 
 
 class MeshAxis(NamedTuple):
     """This rank's view of one mesh axis: the process group of the ranks
-    along it (None for an axis of one), its size and this rank's index."""
+    along it (None for an axis of one), its size and this rank's index.
+    ``group_rank[i]`` is the group's number for the rank at index i
+    (torch numbers a group's ranks in ascending global rank; empty where
+    that is i), the order in which a gather delivers the blocks."""
     group: object
     size: int
     index: int
+    group_rank: tuple = ()
 
 
 def _world() -> tuple[int, int]:
@@ -54,29 +67,40 @@ def _world() -> tuple[int, int]:
 
 
 class Mesh:
-    """A (data, players) grid of ranks of the default process group.
+    """A grid of ranks of the default process group with named axes
+    (default the continuum meshes' (``data``, ``players``)).
 
     The axis groups are made on first use, by every rank at the same
     point (each entry point asks for them before its first collective),
     and are not pickled: a mesh made before the ranks start (``spawn``'s
     arguments) makes its groups in each rank."""
 
-    axis_names = AXES
-
-    def __init__(self, ranks: np.ndarray):
-        self.ranks = np.asarray(ranks, dtype=np.int64).reshape(
-            -1, np.asarray(ranks).shape[-1])
-        self._axes = None
+    def __init__(self, ranks: np.ndarray, axis_names: tuple = AXES):
+        ranks = np.asarray(ranks, dtype=np.int64)
+        if axis_names == AXES:
+            ranks = ranks.reshape(-1, ranks.shape[-1])
+        if ranks.ndim != len(axis_names):
+            raise ValueError(f"ranks of shape {ranks.shape} for axes "
+                             f"{axis_names}")
+        self.ranks, self.axis_names = ranks, tuple(axis_names)
+        self._axes: dict | None = None
 
     def __getstate__(self):
-        return {"ranks": self.ranks}
+        return {"ranks": self.ranks, "axis_names": self.axis_names}
 
     def __setstate__(self, state):
-        self.ranks, self._axes = state["ranks"], None
+        self.__init__(state["ranks"], state["axis_names"])
+
+    def __enter__(self) -> "Mesh":
+        push_mesh(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pop_mesh()
 
     @property
     def shape(self) -> dict:
-        return dict(zip(AXES, self.ranks.shape))
+        return dict(zip(self.axis_names, self.ranks.shape))
 
     def size(self) -> int:
         return int(self.ranks.size)
@@ -84,34 +108,49 @@ class Mesh:
     def axis_size(self, name: str) -> int:
         return int(self.shape.get(name, 1))
 
-    def axis(self, name: str) -> MeshAxis:
-        """This rank's ``MeshAxis`` along ``name``."""
-        if self._axes is None:
-            self._axes = self._make_axes()
-        return self._axes[name]
+    def ways(self, names) -> int:
+        """How many blocks the axes ``names`` (a name or a tuple) split a
+        dim into: the product of their sizes."""
+        names = (names,) if isinstance(names, str) else names
+        return int(np.prod([self.axis_size(n) for n in names], dtype=int))
 
-    def _make_axes(self) -> dict:
+    def axis(self, names) -> MeshAxis:
+        """This rank's ``MeshAxis`` along ``names``: one axis, or a tuple
+        of axes taken together (this rank's index row-major over them)."""
+        key = (names,) if isinstance(names, str) else tuple(names)
+        if self._axes is None:
+            self._axes = {}
+            for name in reversed(self.axis_names):
+                self._make_axis((name,))
+        if key not in self._axes:
+            self._make_axis(key)
+        return self._axes[key]
+
+    def _make_axis(self, key: tuple) -> None:
+        if self.ways(key) == 1:
+            self._axes[key] = MeshAxis(None, 1, 0)
+            return
         world, rank = _world()
-        if self.size() == 1:
-            return {a: MeshAxis(None, 1, 0) for a in AXES}
         if world != self.size() or sorted(self.ranks.ravel()) != list(
                 range(world)):
             raise ValueError(
                 f"a mesh over ranks {self.ranks.ravel().tolist()} needs a "
                 f"default process group of exactly those ranks (world "
                 f"{world}; start them with launch.mesh.spawn)")
-        d, p = map(int, np.argwhere(self.ranks == rank)[0])
-        out = {}
-        # every rank makes every group of an axis, in the same order
-        for name, rows, index in (("players", self.ranks, p),
-                                  ("data", self.ranks.T, d)):
-            if rows.shape[1] == 1:
-                out[name] = MeshAxis(None, 1, 0)
-                continue
-            group, _ = dist.new_subgroups_by_enumeration(
-                [r.tolist() for r in rows])
-            out[name] = MeshAxis(group, int(rows.shape[1]), index)
-        return out
+        # the ranks of each group: the axes of ``key`` last, in its order,
+        # so that a rank's index in its group is row-major over them
+        dims = [self.axis_names.index(a) for a in key]
+        rest = [d for d in range(self.ranks.ndim) if d not in dims]
+        rows = self.ranks.transpose(rest + dims).reshape(-1, self.ways(key))
+        # every rank makes every group of the axes, in the same order
+        group, _ = dist.new_subgroups_by_enumeration(
+            [r.tolist() for r in rows])
+        row, index = map(int, np.argwhere(rows == rank)[0])
+        order = np.argsort(np.argsort(rows[row]))          # rank -> number
+        self._axes[key] = MeshAxis(
+            group, int(rows.shape[1]), index,
+            () if (order == np.arange(order.size)).all() else
+            tuple(int(g) for g in order))
 
 
 def _ranks(devices) -> list[int]:
@@ -122,6 +161,30 @@ def _ranks(devices) -> list[int]:
     if isinstance(devices, int):
         return list(range(devices))
     return [int(r) for r in devices]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16 x 16 = 256 ranks (``data``, ``model``); 2 pods = 512 ranks
+    (``pod``, ``data``, ``model``). Raises, as ``jax.make_mesh`` does,
+    unless the default group has exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = _world()[0]
+    if world != int(np.prod(shape)):
+        raise ValueError(f"the mesh {shape} needs {int(np.prod(shape))} "
+                         f"ranks; the default group has {world}")
+    return Mesh(np.arange(world).reshape(shape), axes)
+
+
+def make_test_mesh(data: int = 2, model: int = 2,
+                   pod: int | None = None) -> Mesh:
+    """A small (``data``, ``model``) mesh, or (``pod``, ``data``,
+    ``model``) with ``pod``, over the first ranks."""
+    if pod:
+        return Mesh(np.arange(pod * data * model).reshape(pod, data, model),
+                    ("pod", "data", "model"))
+    return Mesh(np.arange(data * model).reshape(data, model),
+                ("data", "model"))
 
 
 def make_grid_mesh(devices=None) -> Mesh:
@@ -142,18 +205,6 @@ def make_continuum_mesh(players: int | None = None, devices=None) -> Mesh:
         raise ValueError(
             f"players={p} must positively divide the device count {n}")
     return Mesh(np.asarray(devs).reshape(n // p, p))
-
-
-def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """``x`` reduced over ``group`` (SUM or MAX), a new tensor on
-    ``x``'s device; ``group`` None is the identity. The one place the
-    simulator's collectives go through."""
-    if group is None:
-        return x
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=group)
-    return out
 
 
 def _free_port() -> int:

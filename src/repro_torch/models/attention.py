@@ -5,6 +5,15 @@ Port of ``repro/models/attention.py``. The attention itself goes through
 ``repro_torch.kernels.ops``: the CUDA kernels on the card, their plain
 versions on the CPU. q, k and v are made contiguous ``(B, H, S, D)``
 before a kernel sees them (a transposed view is strided).
+
+On a mesh that splits the heads (``sharding``'s rules) a rank holds the
+columns of its query and KV heads in ``wq``, ``wk``, ``wv`` (and the
+biases) and their rows of ``wo``: it attends over its own heads, the
+same kernel, forward and backward, on the local shard, and its output
+projection is a partial sum over the heads' ranks (the reference's
+``constrain`` of the output; ``sharding.collectives``). The query and
+KV heads must split over the same axis, so each rank keeps its heads'
+GQA groups whole.
 """
 from __future__ import annotations
 
@@ -14,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.collectives import axis_of, enter, reduce
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig,
@@ -36,21 +46,51 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig,
     return nn.ParameterDict(p)
 
 
+def axes_attn(cfg: ModelConfig) -> dict:
+    a = {
+        "wq": ("embed_fsdp", "heads"),
+        "wk": ("embed_fsdp", "kv_heads"),
+        "wv": ("embed_fsdp", "kv_heads"),
+        "wo": ("heads", "embed_fsdp"),
+    }
+    if cfg.qkv_bias:
+        a["bq"] = ("heads",)
+        a["bk"] = ("kv_heads",)
+        a["bv"] = ("kv_heads",)
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
+
+
+def heads_axis():
+    """The mesh axis that splits the heads (None off a mesh); the query
+    and KV heads must share it."""
+    ax = axis_of("heads")
+    if axis_of("kv_heads") != ax:
+        raise ValueError("the rules split the query and KV heads over "
+                         "different mesh axes; a rank needs whole GQA "
+                         "groups")
+    return ax
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, rope_cs):
-    """x (B, S, d) -> contiguous q (B, Hq, S, D), k and v (B, Hkv, S, D);
-    ``rope_cs`` is ``layers.rope_tables`` of the positions, or None for
-    no rotary embedding."""
+    """x (B, S, d) -> contiguous q (B, Hq, S, D), k and v (B, Hkv, S, D)
+    of this rank's heads; ``rope_cs`` is ``layers.rope_tables`` of the
+    positions, or None for no rotary embedding."""
     B, S, _ = x.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    ax = heads_axis()
+    x = enter(x, ax)
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, Hq, Dh).transpose(1, 2)
-    k = k.reshape(B, S, Hkv, Dh).transpose(1, 2)
-    v = v.reshape(B, S, Hkv, Dh).transpose(1, 2)
+    q = q.reshape(B, S, -1, Dh).transpose(1, 2)
+    k = k.reshape(B, S, -1, Dh).transpose(1, 2)
+    v = v.reshape(B, S, -1, Dh).transpose(1, 2)
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.rms_eps)
+        q = L.rms_norm(q, enter(p["q_norm"], ax), cfg.rms_eps)
+        k = L.rms_norm(k, enter(p["k_norm"], ax), cfg.rms_eps)
     if rope_cs is not None:
         q = L.apply_rope(q, rope_cs)
         k = L.apply_rope(k, rope_cs)
@@ -65,8 +105,8 @@ def attn_full(p, cfg: ModelConfig, x: torch.Tensor, rope_cs,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, rope_cs)
     o = ops.attention(q, k, v, causal=causal, window=window)
-    o = o.transpose(1, 2).reshape(B, S, cfg.q_dim)
-    return o @ p["wo"], (k, v)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    return reduce(o @ p["wo"], heads_axis()), (k, v)
 
 
 def attn_decode(p, cfg: ModelConfig, x: torch.Tensor, rope_cs,

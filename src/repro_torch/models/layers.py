@@ -7,8 +7,16 @@ and their ``init_*`` functions. Weights keep the reference's layouts
 they are. The reference casts each float32 weight to the compute dtype
 at every use; the port holds matrices in that dtype from the start (a
 cast once at load, which rounds the same way) and keeps norm weights in
-float32. The reference's ``sharding.constrain`` calls are no-ops off a
-mesh and are dropped.
+float32.
+
+Every ``init_*`` has a mirrored ``axes_*`` giving each weight's logical
+axes (``Model.param_axes``). On a mesh of ranks (``launch/mesh.py``) a
+rank holds its blocks of the weights: the embedding and unembedding its
+share of the vocabulary, the MLP its share of the FFN columns. The
+collectives sit at the reference's ``constrain`` points
+(``sharding.collectives``): the embedding's rows summed over the
+vocabulary's ranks, the MLP's output over the FFN's; off a mesh they are
+the identity.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import fmath
+from repro_torch.sharding.collectives import (axis_of, enter, gathered,
+                                              reduce)
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
@@ -108,13 +118,33 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, tie: bool,
     return nn.ParameterDict(p)
 
 
+def axes_embed(tie: bool) -> dict:
+    a = {"tok": ("vocab", "embed")}
+    if not tie:
+        a["unembed"] = ("embed", "vocab")
+    return a
+
+
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    """The tokens' rows of the table. On a mesh that splits the
+    vocabulary each rank looks up the tokens in its share (zeros for
+    the others') and the rows are summed over the vocabulary's ranks."""
+    p, ax = gathered(p), axis_of("vocab")
+    if ax is None:
+        return F.embedding(tokens, p["tok"])
+    V = p["tok"].shape[0]
+    local = tokens - ax.index * V
+    inside = (local >= 0) & (local < V)
+    rows = F.embedding(torch.where(inside, local, 0), p["tok"])
+    return reduce(rows * inside[..., None], ax)
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
+    """The logits; on a mesh that splits the vocabulary, this rank's
+    share of their last dim (``model_zoo._xent`` takes them so)."""
+    p = gathered(p)
     w = p["unembed"] if "unembed" in p else p["tok"].T
-    return x @ w
+    return enter(x, axis_of("vocab")) @ w
 
 
 # ---------------------------------------------------------------------------
@@ -130,10 +160,19 @@ def init_mlp(gen: torch.Generator, d: int, f: int,
     })
 
 
+def axes_mlp() -> dict:
+    return {"wi": ("embed_fsdp", "ffn"), "wg": ("embed_fsdp", "ffn"),
+            "wo": ("ffn", "embed_fsdp")}
+
+
 def mlp(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``silu(g)`` in float32, cast back, times ``h``, as the
     reference casts. PyTorch's ``silu`` on a bfloat16 tensor computes in
-    float32 and rounds once, the same numbers without the two casts."""
+    float32 and rounds once, the same numbers without the two casts.
+    On a mesh that splits the FFN a rank's columns give a partial
+    output, summed over the FFN's ranks."""
+    ax = axis_of("ffn")
+    x = enter(x, ax)
     h = x @ p["wi"]
     g = x @ p["wg"]
-    return (F.silu(g) * h) @ p["wo"]
+    return reduce((F.silu(g) * h) @ p["wo"], ax)

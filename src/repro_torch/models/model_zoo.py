@@ -18,9 +18,25 @@ takes ``{"token": (B, 1), "pos": int}`` plus the cache. ``loss(batch,
 remat=True)`` adds ``"targets"`` (the tokens' shape) to a forward batch:
 the mean token cross-entropy of the float32 logits (the VLM scores its
 text positions only; the MoE adds ``MOE_AUX_WEIGHT`` times its balance
-loss), with ``remat`` checkpointing each layer (``transformer``). The
-reference's ``param_axes``, ``cache_axes`` and ``input_specs`` wait for
-the model rules and the dry run (ROADMAP A11).
+loss), with ``remat`` checkpointing each layer (``transformer``).
+
+Sharding. ``param_axes()`` gives every weight's logical axes keyed by
+its parameter name (the reference's tree without its stacking axes),
+``cache_axes()`` the caches' (stacked, as the reference's), and
+``input_specs(shape)`` the batch's ``(shape, dtype)`` and axes.
+``shard(mesh)`` keeps this rank's block of every weight under
+``sharding``'s rules (``tree_shardings`` of ``param_axes``, each weight
+tagged with its ``Sharding``); under ``with mesh:`` the model then
+computes on its blocks: the batch split over ``data`` (and ``pod``),
+heads, FFN columns, experts and the vocabulary over ``model``, the
+weights' d_model rows over ``data`` (FSDP, gathered per layer). ``loss``
+is then the whole batch's, equal on every rank: each rank's token
+losses are summed over the batch's ranks, and the vocabulary's share
+of each log-sum-exp over the vocabulary's. ``forward``'s logits are the
+rank's share of the vocabulary. The SSM, hybrid and audio families take
+no mesh that splits the heads (their SSM and cross-attention heads are
+not split yet); serving (``prefill``, ``decode``) takes no sharded
+model.
 
 Training. Every weight is made with ``requires_grad`` off, so serving
 builds no autograd graph and its times and memory are what they were
@@ -76,22 +92,65 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import AUDIO, HYBRID, SSM, VLM, ModelConfig
+from repro_torch.configs.base import (AUDIO, HYBRID, SSM, VLM, ModelConfig,
+                                      ShapeConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper
+from repro_torch.sharding.collectives import axis_of, reduce, reduce_max
+from repro_torch.sharding.partitioning import (mesh_axes, place, tag,
+                                               tree_shardings)
 
 MOE_AUX_WEIGHT = 0.01
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy of the logits taken to float32."""
+    """Mean token cross-entropy of the logits taken to float32. On a mesh
+    the logits are this rank's share of the vocabulary and the tokens its
+    share of the batch; the mean is the whole batch's (the module
+    docstring)."""
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    vocab, batch = axis_of("vocab"), axis_of("batch")
+    if vocab is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    else:
+        top = reduce_max(lf.amax(-1), vocab)
+        logz = top + torch.log(reduce(
+            torch.exp(lf - top[..., None]).sum(-1), vocab))
+        local = targets.long() - vocab.index * lf.shape[-1]
+        inside = (local >= 0) & (local < lf.shape[-1])
+        gold = torch.gather(lf, -1, torch.where(inside, local, 0)[..., None])
+        gold = reduce(gold[..., 0] * inside, vocab)
+    if batch is None:
+        return (logz - gold).mean()
+    return reduce((logz - gold).sum(), batch) / (targets.numel() * batch.size)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """``(specs, axes)`` of a batch of ``shape``: each input's ``(shape,
+    dtype)`` and logical axes, as the reference's ``input_specs``."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind not in ("train", "prefill"):
+        return ({"token": ((B, 1), i32), "pos": ((), i32)},
+                {"token": ("batch", None), "pos": ()})
+    if cfg.family == AUDIO:
+        St = min(cfg.max_decode_len, S)
+        specs = {"frames": ((B, S // 2, cfg.d_model), bf16)}
+        axes = {"frames": ("batch", None, None)}
+    elif cfg.family == VLM:
+        St = S - cfg.num_patches
+        specs = {"patches": ((B, cfg.num_patches, cfg.d_model), bf16)}
+        axes = {"patches": ("batch", None, None)}
+    else:
+        St, specs, axes = S, {}, {}
+    specs["tokens"], axes["tokens"] = ((B, St), i32), ("batch", None)
+    if shape.kind == "train":
+        specs["targets"], axes["targets"] = ((B, St), i32), ("batch", None)
+    return specs, axes
 
 
 def _cache_len(cfg: ModelConfig, S: int) -> int:
@@ -209,6 +268,8 @@ class Model(nn.Module):
     eagerly."""
 
     step = staticmethod(T.decode_step)
+    _axes = staticmethod(T.param_axes)
+    _cache_axes = staticmethod(T.cache_axes)
 
     def __init__(self, cfg: ModelConfig, params: T.Params | whisper.Params):
         super().__init__()
@@ -217,6 +278,54 @@ class Model(nn.Module):
         self.layout = self._layout(cfg)
         self.decode_graphs = True
         self._graphs: dict = {}
+        self.mesh = None
+
+    def param_axes(self) -> dict:
+        """``{parameter name: logical axes}`` for every weight (the module
+        docstring)."""
+        tree, out = self._axes(self.cfg), {}
+        for name, _ in self.named_parameters():
+            node = tree
+            for part in name.split(".")[1:]:
+                if not part.isdigit():           # a layer's index
+                    node = node[part]
+            out[name] = node
+        return out
+
+    def cache_axes(self) -> dict:
+        """The caches' logical axes, laid out as ``init_cache``'s dict."""
+        return self._cache_axes(self.cfg)
+
+    def input_specs(self, shape: ShapeConfig):
+        """``(specs, axes)`` of a batch of ``shape`` (``input_specs``)."""
+        return input_specs(self.cfg, shape)
+
+    def shard(self, mesh) -> "Model":
+        """Keep this rank's block of every weight on ``mesh`` under the
+        active rules, each weight tagged with its ``Sharding``; returns
+        the model, which then runs under ``with mesh:`` (the module
+        docstring)."""
+        if self.mesh is not None:
+            raise ValueError("the model is sharded already")
+        heads = mesh.ways(mesh_axes("heads", mesh))
+        if heads > 1 and self.cfg.family in (SSM, HYBRID, AUDIO):
+            raise NotImplementedError(
+                f"the {self.cfg.family} family does not split its heads "
+                f"over ranks yet (a mesh splitting them {heads} ways; "
+                f"ROADMAP A11, sharded serving and heads): give it a "
+                f"model axis of 1")
+        shardings = tree_shardings(self.param_axes(), mesh)
+        for name, p in self.named_parameters():
+            p.data = place(p.data, shardings[name])
+            tag(p, shardings[name])
+        self.mesh = mesh
+        return self
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} of a model sharded over ranks is not ported yet "
+                f"(ROADMAP A11, sharded serving and heads)")
 
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         """The token embeddings, after the VLM's patches (cast to the
@@ -232,7 +341,8 @@ class Model(nn.Module):
 
     def forward(self, batch: dict, remat: bool = False):
         """The batch (the module docstring) -> (logits (B, S, V), aux):
-        S counts the VLM's patches."""
+        S counts the VLM's patches; on a mesh, the rank's rows and share
+        of V."""
         h, aux, _ = T.forward(self.params, self.cfg,
                               self._embed_inputs(batch), remat=remat)
         return T.logits_from_hidden(self.params, self.cfg, h), aux
@@ -259,6 +369,7 @@ class Model(nn.Module):
         patches), the first S filled; ring caches of the window's slots
         (fixed at the window size), position t in slot t % W; SSM states
         as they are (O(1) in S)."""
+        self._refuse_sharded("prefill")
         cfg = self.cfg
         h, _, caches = T.forward(self.params, cfg, self._embed_inputs(batch),
                                  collect_cache=True)
@@ -279,6 +390,7 @@ class Model(nn.Module):
         """One token per row at ``batch["pos"]`` -> (logits (B, 1, V),
         cache), the cache updated in place. A full cache must have a slot
         at pos; a ring takes any pos >= 0."""
+        self._refuse_sharded("decode")
         token, pos = batch["token"], int(batch["pos"])
         for key, kinds in self.layout.items():
             for t, kind in zip(cache[key], kinds):
@@ -343,6 +455,8 @@ class WhisperModel(Model):
     ``{"layers": (k_self, v_self, k_cross, v_cross)}``."""
 
     step = staticmethod(whisper.decode_step)
+    _axes = staticmethod(whisper.param_axes)
+    _cache_axes = staticmethod(whisper.cache_axes)
 
     @staticmethod
     def _layout(cfg: ModelConfig) -> dict:
@@ -364,6 +478,7 @@ class WhisperModel(Model):
         self K/V a ring of ``max_decode_len`` slots, the cross K/V the
         encoder's ``Se``. ``max_len`` is ignored, as the reference
         ignores it."""
+        self._refuse_sharded("prefill")
         cfg = self.cfg
         enc = whisper.encode(self.params, cfg, batch["frames"])
         logits, (k, v, k_x, v_x) = whisper.decode_full(

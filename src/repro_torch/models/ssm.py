@@ -53,6 +53,18 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig,
     })
 
 
+def axes_ssm() -> dict:
+    return {
+        "in_proj": ("embed_fsdp", "heads"),
+        "conv_w": ("conv", "heads"),
+        "conv_b": ("heads",),
+        "A_log": (None,),
+        "dt_bias": (None,),
+        "norm": ("heads",),
+        "out_proj": ("heads", "embed_fsdp"),
+    }
+
+
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     inner, H, P, N, _ = _dims(cfg)
     z = proj[..., :inner]

@@ -26,6 +26,14 @@ recomputed in the backward, as the reference's ``jax.checkpoint`` with
 ``nothing_saveable`` does per scan step; gemma3's global layers run
 plainly, as in the reference. The encoder-decoder (audio) family is
 ``whisper.py``'s.
+
+On a mesh of ranks a layer gathers its FSDP-split weights first
+(``sharding.collectives.gathered``), inside the remat region, so a
+step holds one layer's whole weights at a time and remat gathers them
+again. ``param_axes`` gives each weight's logical axes as the
+reference's does, without its stacking axes (``layers``, ``groups``):
+the port keeps one module a layer; ``cache_axes`` gives the caches',
+which stay stacked.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as E
 from repro_torch.models import ssm as M
+from repro_torch.sharding.collectives import gathered
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -100,6 +109,68 @@ class Layer(nn.Module):
             self.mlp = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
 
 
+def axes_layer(cfg: ModelConfig) -> dict:
+    """A layer's logical axes, laid out as ``Layer``'s weights."""
+    a: dict = {"ln1": (None,)}
+    fam = cfg.family
+    if fam in (DENSE, MOE, HYBRID, VLM):
+        a["attn"] = A.axes_attn(cfg)
+    if fam in (SSM, HYBRID):
+        a["ssm"] = M.axes_ssm()
+    if fam == HYBRID:
+        a["attn_norm"] = (None,)
+        a["ssm_norm"] = (None,)
+    if fam == MOE:
+        a["ln2"] = (None,)
+        a["moe"] = E.axes_moe()
+    elif cfg.d_ff > 0:
+        a["ln2"] = (None,)
+        a["mlp"] = L.axes_mlp()
+    return a
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The reference's ``param_axes`` tree without its stacking axes: one
+    layer's axes under each stack (``layers``, or ``group_local``,
+    ``group_global`` and ``tail_local``)."""
+    axes: dict = {"embed": L.axes_embed(cfg.tie_embeddings),
+                  "final_norm": (None,)}
+    la = axes_layer(cfg)
+    if cfg.local_global_pattern is None:
+        axes["layers"] = la
+        return axes
+    axes["group_local"] = axes["group_global"] = la
+    if groups(cfg)[2]:
+        axes["tail_local"] = la
+    return axes
+
+
+def _kv_axes(stack: tuple) -> tuple:
+    ax = (*stack, "kv_batch", "kv_heads", "ctx", None)
+    return (ax, ax)
+
+
+def _ssm_axes(stack: tuple) -> tuple:
+    return ((*stack, "batch", None, "heads"),
+            (*stack, "batch", "heads", None, None))
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The caches' logical axes, as the reference's ``cache_axes``: the
+    cache dict's keys and, per tensor, its stacking axes first."""
+    if cfg.local_global_pattern is not None:
+        c = {"group_local": _kv_axes(("groups", "layers")),
+             "group_global": _kv_axes(("groups",))}
+        if groups(cfg)[2]:
+            c["tail_local"] = _kv_axes(("layers",))
+        return c
+    if cfg.family == SSM:
+        return {"layers": _ssm_axes(("layers",))}
+    if cfg.family == HYBRID:
+        return {"layers": _kv_axes(("layers",)) + _ssm_axes(("layers",))}
+    return {"layers": _kv_axes(("layers",))}
+
+
 def _stack(gen: torch.Generator, cfg: ModelConfig, n: int) -> nn.ModuleList:
     return nn.ModuleList(init_layer(gen, cfg) for _ in range(n))
 
@@ -147,7 +218,9 @@ def layer_full(lp: Layer, cfg: ModelConfig, x: torch.Tensor, rope_cs,
     sliding window or None). Returns (x, cache or (), aux): the cache is
     (k, v), (conv_state, h_state) or (k, v, conv_state, h_state) by
     family; aux is the MoE layer's balance loss, 0.0 for other
-    layers."""
+    layers. On a mesh, the layer's FSDP-split weights are gathered
+    first."""
+    lp = gathered(lp)
     fam = cfg.family
     aux = 0.0
     h = L.rms_norm(x, lp.ln1, cfg.rms_eps)

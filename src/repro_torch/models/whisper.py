@@ -20,6 +20,12 @@ decode-step attention, self and cross, runs ``decode_attention``. A
 cross-attention of unequal lengths is the reference's float32 grouped
 einsum and softmax, plain PyTorch as the reference computes it outside
 any kernel.
+
+``param_axes`` gives each weight's logical axes as the reference's
+does, without the stacking axis. On a mesh a layer's FSDP-split weights
+are gathered before it runs (``sharding.collectives.gathered``); the
+cross-attention's heads are not split (``Model.shard`` refuses a mesh
+that would split them).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import RING, compute_dtype, decode_slot
+from repro_torch.sharding.collectives import gathered
 
 # a cache tensor that decode only reads (``transformer``'s kinds say what
 # decode writes in the others)
@@ -94,6 +101,29 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return Params(gen, cfg)
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """The reference's ``param_axes`` without its stacking axis: one
+    layer's axes under ``enc_layers`` and ``dec_layers``."""
+    attn = A.axes_attn(cfg)
+    return {
+        "embed": L.axes_embed(True),
+        "enc_layers": {"ln1": (None,), "attn": attn, "ln2": (None,),
+                       "mlp": L.axes_mlp()},
+        "enc_norm": (None,),
+        "dec_layers": {"ln1": (None,), "self_attn": attn, "ln_x": (None,),
+                       "cross_attn": attn, "ln2": (None,),
+                       "mlp": L.axes_mlp()},
+        "final_norm": (None,),
+    }
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The caches' logical axes (the reference's bare tuple, under
+    ``"layers"``)."""
+    ax = ("layers", "kv_batch", "kv_heads", "ctx", None)
+    return {"layers": (ax,) * 4}
+
+
 def _heads(t: torch.Tensor, H: int, Dh: int) -> torch.Tensor:
     """(B, S, H * Dh) -> contiguous (B, H, S, Dh)."""
     B, S, _ = t.shape
@@ -142,6 +172,7 @@ def encode(params: Params, cfg: ModelConfig,
     x = frames.to(dtype) + L.sinusoidal_positions(
         Se, cfg.d_model, frames.device).to(dtype)[None]
     for lp in params.enc_layers:
+        lp = gathered(lp)
         h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
         x = x + A.attn_full(lp.attn, cfg, h, None, causal=False)[0]
         x = x + L.mlp(lp.mlp, L.rms_norm(x, lp.ln2, cfg.rms_eps))
@@ -158,6 +189,7 @@ def decode_full(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = x + L.sinusoidal_positions(Sd, cfg.d_model, x.device).to(x.dtype)[None]
     per_layer = []
     for lp in params.dec_layers:
+        lp = gathered(lp)
         h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
         a, self_kv = A.attn_full(lp.self_attn, cfg, h, None, causal=True)
         x = x + a

@@ -11,8 +11,7 @@ The bandit state lives on the router's device and goes through the
 port's ``core.bandit``: on the card, ``maintenance`` runs the CUDA
 maintenance kernel. Every membership change lands in ``self.events``
 as ``(t_seconds, kind, entity, value)``, and ``export_trace`` writes it
-as a Chrome trace; ``mesh_resized`` (needs ``fault/elastic.py``) is not
-ported yet.
+as a Chrome trace.
 """
 from __future__ import annotations
 
@@ -100,8 +99,15 @@ class QEdgeRouter:
         self.replicas_changed(act)
 
     def mesh_resized(self, surviving_rows: int):
-        raise NotImplementedError("mesh_resized needs fault/elastic.py, "
-                                  "which is not ported (ROADMAP A11)")
+        """Elastic re-mesh hook (``fault/elastic.py`` step 3): after the
+        runtime shrinks the data axis, mask every replica beyond the
+        surviving rows so no microbatch routes to a dead replica group:
+        Alg 4 at once, not after the error-count cooldown trips.
+        Growing back to ``M`` rows re-enters replicas through the Alg 3
+        zero-weight ramp."""
+        from repro_torch.fault.elastic import surviving_replicas
+        self._log("mesh_resized", -1, float(surviving_rows))
+        self.replicas_changed(surviving_replicas(self.M, surviving_rows))
 
     def export_trace(self, path: str) -> dict:
         """Write the membership log as a Chrome trace (one ``router``

@@ -2,9 +2,9 @@
 
 Port of ``repro/training``: AdamW with its cosine schedule and global
 norm clipping, the train step (remat, microbatch accumulation, int8
-gradient compression) and the numpy-seeded synthetic batches, on
-tensors on one device (the model rules and data-parallel ranks are the
-next slice, ROADMAP A11).
+gradient compression) and the numpy-seeded synthetic batches, on one
+device or on a mesh of ranks (each rank's blocks of a ``Model.shard``
+model, its gradients summed over the batch's ranks).
 """
 from repro_torch.training.data import prefetch_iterator, synthetic_batch
 from repro_torch.training.optimizer import (

@@ -4,9 +4,10 @@ Port of ``repro/training/data.py``. A step's batch comes from a numpy
 generator seeded by the step, draw for draw as the reference draws it
 (the LCG token stream, the VLM's patch embeddings, the audio frames),
 so the two packages train on equal arrays; the arrays become tensors on
-the device last. A background thread prefetches the next batch while a
-step runs. The reference's ``mesh`` argument (each host builds its
-shard) waits for the model rules (ROADMAP A11).
+the device last. With a ``mesh``, a rank keeps its block of each array
+under the training batch's axes (``model_zoo.input_specs``: rows split
+over the batch's axes), as the reference builds each host's shard. A
+background thread prefetches the next batch while a step runs.
 """
 from __future__ import annotations
 
@@ -14,18 +15,24 @@ import queue
 import threading
 from typing import Iterator
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import TRAIN, ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.model_zoo import input_specs
+from repro_torch.sharding.partitioning import (Sharding, logical_to_spec,
+                                               place)
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
-                    device=None) -> dict:
+                    device=None, mesh=None) -> dict:
     """One deterministic batch in the model's layout (``model_zoo``'s
     module docstring) with its ``"targets"``: int32 tokens and targets,
-    float32 patches or frames, on ``device`` (default ``cuda``)."""
+    float32 patches or frames, on ``device`` (default ``cuda``); with
+    ``mesh``, this rank's block of each."""
     B, S = shape.global_batch, shape.seq_len
     rng = np.random.default_rng(np.uint64(0x9E3779B9) * np.uint64(step + 1))
 
@@ -54,7 +61,12 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
         toks, tgts = lm_pair(B, S)
         batch = {"tokens": toks, "targets": tgts}
     dev = resolve_device(device)
-    return {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+    if mesh is None:
+        return {k: torch.from_numpy(a).to(dev) for k, a in batch.items()}
+    axes = input_specs(cfg, dataclasses.replace(shape, kind=TRAIN))[1]
+    return {k: place(torch.from_numpy(a), Sharding(
+        mesh, logical_to_spec(axes[k], mesh))).to(dev)
+        for k, a in batch.items()}
 
 
 def prefetch_iterator(cfg: ModelConfig, shape: ShapeConfig, device=None,

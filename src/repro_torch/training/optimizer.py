@@ -16,6 +16,12 @@ qwen3-4b, on top of ~48 GB of bfloat16 parameters and gradients and
 float32 moments). The schedule, the step count and the bias corrections
 stay on the parameters' device, so an update reads nothing back to the
 host.
+
+On a mesh of ranks the parameters are this rank's blocks (each tagged
+with its ``Sharding``, ``Model.shard``): the moments take the same
+blocks and tags, the update is elementwise on them, and the clip's
+global norm sums each leaf's squares over the ranks that split it, so
+every rank clips by the whole model's norm.
 """
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.partitioning import sharding_of, tag
 
 
 class AdamWState(NamedTuple):
@@ -55,12 +64,17 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """The float32 L2 norm of every leaf together: the leaves' sums of
-    squares added in leaf order, one leaf's float32 copy at a time."""
+    squares added in leaf order, one leaf's float32 copy at a time.
+    ``shardings`` (one per leaf, None for a whole one) makes a leaf's sum
+    that of its blocks on every rank that splits it."""
+    leaves = _leaves(tree)
     total = None
-    for x in _leaves(tree):
+    for x, s in zip(leaves, shardings or [None] * len(leaves)):
         sq = torch.sum(torch.square(x.to(torch.float32)))
+        if s is not None and s.split_axes():
+            sq = all_reduce(sq, s.mesh.axis(s.split_axes()).group)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -93,16 +107,21 @@ def adamw(
 
     def init(params: dict) -> AdamWState:
         dev = next(iter(params.values())).device
-        zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for k, p in params.items()}
+
+        def zeros():
+            return {k: tag(torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device), sharding_of(p))
+                    for k, p in params.items()}
+
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                          m=zeros,
-                          v={k: torch.zeros_like(z) for k, z in zeros.items()})
+                          m=zeros(), v=zeros())
 
     @torch.no_grad()
     def update(grads: dict, state: AdamWState, params: dict):
-        scale = (_clip_scale(global_norm([grads[k] for k in params]),
-                             clip_norm) if clip_norm is not None else None)
+        scale = (_clip_scale(global_norm(
+            [grads[k] for k in params],
+            [sharding_of(p) for p in params.values()]), clip_norm)
+            if clip_norm is not None else None)
         step = state.step + 1
         stepf = step.to(torch.float32)
         lr_t = lr_fn(step)

@@ -13,6 +13,13 @@ Port of ``repro/training/train_step.py``:
     emulated end to end.
 Parameters and moments are updated in place (the reference donates
 their buffers).
+
+On a mesh of ranks (``Model.shard``, run under ``with mesh:``) each rank
+takes the loss of the whole batch (``model_zoo``) and the gradients of
+its blocks; a weight's gradient is then summed over the batch's axes
+that do not split it (the FSDP-split ones were summed by their
+gather's backward), so every rank updates its blocks as one device
+would. The int8 scale is the maximum over a gradient's every block.
 """
 from __future__ import annotations
 
@@ -20,18 +27,39 @@ from typing import Callable
 
 import torch
 
+from repro_torch.sharding.collectives import all_reduce
+from repro_torch.sharding.partitioning import mesh_axes, sharding_of
 from repro_torch.training.optimizer import AdamWState, Optimizer
 
 
-def int8_compress(tree: dict) -> dict:
+def int8_compress(tree: dict, shardings: dict | None = None) -> dict:
     """Per-leaf symmetric int8 quantize -> dequantize (lossy), float32
-    out; rounds half to even, as the reference does."""
-    def q(g):
+    out; rounds half to even, as the reference does. ``shardings`` (by
+    key) takes each split leaf's scale from all its blocks."""
+    def q(g, s):
         gf = g.to(torch.float32)
-        scale = torch.clamp_min(gf.abs().max(), 1e-12) / 127.0
+        top = gf.abs().max()
+        if s is not None and s.split_axes():
+            top = all_reduce(top, s.mesh.axis(s.split_axes()).group, "max")
+        scale = torch.clamp_min(top, 1e-12) / 127.0
         qi = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         return qi.to(torch.float32) * scale
-    return {k: q(g) for k, g in tree.items()}
+    shardings = shardings or {}
+    return {k: q(g, shardings.get(k)) for k, g in tree.items()}
+
+
+def reduce_gradients(grads: dict, params: dict) -> dict:
+    """Each gradient summed over the batch's mesh axes that do not split
+    its weight (the identity for a whole weight, off a mesh)."""
+    out = {}
+    for k, g in grads.items():
+        s = sharding_of(params[k])
+        if s is not None:
+            axes = tuple(a for a in mesh_axes("batch", s.mesh)
+                         if a not in s.split_axes())
+            g = all_reduce(g, s.mesh.axis(axes).group)
+        out[k] = g
+    return out
 
 
 def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
@@ -69,8 +97,10 @@ def make_train_step(model, optimizer: Optimizer, accum_steps: int = 1,
 
     def train_step(params: dict, opt_state: AdamWState, batch: dict):
         loss, grads = grads_of(params, batch)
+        grads = reduce_gradients(grads, params)
         if compress_grads:
-            grads = int8_compress(grads)
+            grads = int8_compress(grads, {k: sharding_of(p)
+                                          for k, p in params.items()})
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, {"loss": loss}
 

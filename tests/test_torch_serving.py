@@ -164,9 +164,13 @@ def test_router_failover_and_rejoin():
 
 
 def test_router_hooks_of_unported_layers_raise():
+    # every hook is ported now: mesh_resized masks the replicas past the
+    # surviving rows (tests/test_torch_elastic.py holds it to the reference)
     router = QEdgeRouter(2, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        router.mesh_resized(2)
+    router.mesh_resized(2)
+    assert router.state.active.tolist() == [True, True, False]
+    assert [e[1] for e in router.events] == ["mesh_resized",
+                                             "replicas_changed"]
 
 
 # ---------------------------------------------------------------------------
