@@ -4,6 +4,8 @@
     python3 chip_smoke.py                       # the check: one card, minutes
     python3 chip_smoke.py --profile build/prof  # also profiler breakdowns
     python3 chip_smoke.py --fleet-only 3 [--profile DIR]  # the fleet alone
+    python3 chip_smoke.py --plant-faults         # kernels, then what
+                                                 # mesh_serve's bound catches
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -19,7 +21,14 @@ Phases, one JSON line each; any failure exits non-zero:
                 cross cache and 448-slot self ring, InternVL2's prefill
                 over 256 patches and 1,000 tokens and its 1,272-slot
                 cache, a group of 7; mesh_train's float32 attention at
-                D 128 on each mesh's local heads) and at small ones; the
+                D 128 on each mesh's local heads; mesh_serve's bf16
+                prefill on a rank's rows and local heads, and its decode
+                on a rank's slice of the slots with the lengths clipped
+                to it, 0 and a partial slice included) and at small ones;
+                ``decode_attention`` also with its log-sum-exp output
+                (``with_lse``) within ``LSE_TOL`` of its plain
+                version's, -inf at length 0, its output bit-identical to
+                the call without it (timed beside it in ``times``); the
                 round kernel
                 also at K past a wave of resident warps, M above 64 and
                 one arm taking every request, each case with
@@ -32,7 +41,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 signed zeros, with none or one sample, R from 1 to past
                 1024, the maintenance kernel's mu and q bit for bit
                 (``MAINT_TOL``) at R 64, at every such R and at
-                ``MU_ORDER_R`` (the KDE sum's orders at R 11..32); the flash
+                ``MU_ORDER_R`` (the KDE sum's orders at R 11..32, the row sums'
+                windows past 32); the flash
                 backward (``flash_attention_bwd``, a kernel of the port
                 alone) against ``ref.attention_grads`` at ``BWD_CASES``
                 (the training shape with a strided dO, gemma3's local
@@ -247,6 +257,26 @@ Phases, one JSON line each; any failure exits non-zero:
                 step and their share of the step (host time inside them,
                 the device synchronised first), peak memory, the
                 phase's seconds (budget 60 s).
+   mesh_serve -- sharded serving, in the same 4 ranks after mesh_train
+                frees its state (a fresh group of 4): qwen3-4b at its
+                published width and depth (36 layers, bf16, seed 0).
+                (a) On the (data 2, model 2) mesh under the reference
+                dry run's decode rules (``hybrid``: the caches' rows over
+                model, their slots over data), a microbatch of 4
+                requests of 1,000 prompt tokens, then 16 decode steps;
+                (b) context-parallel decode: batch 1, an 8,192-token
+                prompt, the caches' slots over all 4 ranks (the
+                long-context rules), 8 steps. Each against one rank on
+                the card (the same weights, the same fed tokens): every
+                call's logits within ``MESH_SERVE``'s bound of one
+                rank's and their greedy tokens agreeing at its share;
+                flash once a layer a prefill and decode once a layer a
+                step on every rank, no other kernel. (c) One dry-run
+                cell (``launch.dryrun.run_cell``, qwen3-4b x decode_32k
+                x pod16x16 on a fake process group) and its roofline
+                terms. Each call's seconds, each rank's collectives a
+                step with their share, peak memory a rank, the phase's
+                seconds (budget 60 s).
 10. times    -- each kernel, its plain version, the one PyTorch call that
                 computes the same function (where there is one) and its
                 bound, at the main paths' shapes (``times``; the flash
@@ -290,8 +320,14 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores (data sheet)
+sys.path.insert(0, str(ROOT / "src"))
+# the roofs and the kernels' work formulas the dry run counts with too
+from repro_torch.roofline import hw as _hw  # noqa: E402
+from repro_torch.roofline.analysis import (attention_work,  # noqa: E402
+                                           decode_work, kernel_bound_s,
+                                           nbytes, ssd_work)
+
+BF16_FLOP_PER_S = _hw.PEAK_FLOPS_BF16   # H100 SXM dense bf16 (data sheet)
 
 # mu against its plain version: bit equality, as ROUND_RTOL holds the round
 # kernel. The kernel computes mu op for op as ref.bandit_maintenance_stats
@@ -376,7 +412,7 @@ SERVE = dict(replicas=3, frontends=4, requests=30, batch=4, prompt_len=1000,
              decode_steps=16, tau=1.0, slow_replica=2)
 # the decoder families' serve runs: the serve cell with fewer rounds (the
 # script's clock)
-FAMILY_REQUESTS = 5
+FAMILY_REQUESTS = 2
 HEADS = dict(Hq=32, Hkv=8, D=128)                  # qwen3-4b attention
 # Attention against its plain version: float32 to max |kernel - plain| <=
 # 1e-5 at unit-scale inputs (sums reassociated, CUDA's expf); bfloat16
@@ -414,12 +450,20 @@ AV_FLASH = (((6, 6), 1500, 64, False), ((6, 6), 4, 64, True),
 MESH_FLASH = tuple((8 // data, HEADS["Hq"] // model, HEADS["Hkv"] // model,
                     256, HEADS["D"])
                    for data, model in ((2, 2), (1, 2), (1, 1)))
+# The mesh_serve cell's attention as a rank of its (data 2, model 2) mesh
+# runs it (``MESH_SERVE``, bf16), (B, Hq, Hkv, S, D): the prefill on the
+# rank's rows and half the heads, run (a) 2 of the 4 rows over 1,000
+# tokens, run (b) its one row over 8,192
+MESH_SERVE_FLASH = ((4 // 2, HEADS["Hq"] // 2, HEADS["Hkv"] // 2, 1000,
+                     HEADS["D"]),
+                    (1, HEADS["Hq"] // 2, HEADS["Hkv"] // 2, 8192, HEADS["D"]))
 # (B, Hq, Hkv, S, D, dtype, causal, window, q_mul): the serve prefill
 # first, then the same with q x 4 (peaked rows: the online softmax rescales
 # at large logits); a window of 48 at D=64, non-causal with a group of 4
 # at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S;
 # then ``FAMILY_FLASH`` and ``AV_FLASH`` at the serve cell's batch, and
-# ``MESH_FLASH`` in float32 (``flash_f32_kernel`` at D 128)
+# ``MESH_FLASH`` in float32 (``flash_f32_kernel`` at D 128), then
+# ``MESH_SERVE_FLASH``
 FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                 HEADS["D"], "bfloat16", True, None, 1.0),
                (SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
@@ -435,7 +479,12 @@ FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                *((SERVE["batch"], *heads, S, D, "bfloat16", causal, None, 1.0)
                  for heads, S, D, causal in AV_FLASH),
                *((*shape, "float32", True, None, 1.0)
-                 for shape in MESH_FLASH))
+                 for shape in MESH_FLASH),
+               *((*shape, "bfloat16", True, None, 1.0)
+                 for shape in MESH_SERVE_FLASH))
+# decode_attention's log-sum-exp (float32 from float32 logits in both; the
+# kernel sums its splits in another order and takes CUDA's expf and logf)
+LSE_TOL = dict(rtol=1e-5, atol=1e-5)
 _C = 64                                            # decode_attention.CHUNK
 # The decoder families' decode caches, (Hq, Hkv), slots, D, lengths:
 # hymba-1.5b's 1,024-slot ring (G 5, D 64), gemma3-1b's 512-slot ring and
@@ -453,11 +502,24 @@ FAMILY_DECODE = (((25, 5), 1024, 64, (1, _C, _C + 1, 1024)),
 AV_DECODE = (((6, 6), 1500, 64, (0, 1, _C + 1, 1500)),
              ((6, 6), 448, 64, (0, 1, _C + 1, 448)),
              ((14, 2), 1272, 64, (0, 1, _C + 1, 1272)))
+# mesh_serve's decode as a rank runs it (bf16, the query re-laid into the
+# cache's layout: every query head), (B, Hq, Hkv, slots, D, lengths), on the
+# rank's slice of the slots with the lengths clipped to it: run (a)'s
+# caches, their 4 rows over model (2 a rank) and 1,016 slots over data (508
+# a rank): a slice none of whose slots is live yet (0) beside the second
+# slice at the first step (1,001 - 508 = 493), and two full slices; run
+# (b)'s 8,200 slots over all 4 ranks (2,050 a rank): the last slice at the
+# first step (8,193 - 6,150 = 2,043), and a full one
+MESH_SERVE_DECODE = ((2, HEADS["Hq"], HEADS["Hkv"], 508, HEADS["D"], (0, 493)),
+                     (2, HEADS["Hq"], HEADS["Hkv"], 508, HEADS["D"],
+                      (508, 508)),
+                     (1, HEADS["Hq"], HEADS["Hkv"], 2050, HEADS["D"], (2043,)),
+                     (1, HEADS["Hq"], HEADS["Hkv"], 2050, HEADS["D"], (2050,)))
 # (B, Hq, Hkv, S, D, dtype, lengths): the serve decode cache first, at
 # lengths 1, one split (64), one past it and the whole cache, then with a
 # row of length 0 (exactly zero, where the plain version gives the mean of
 # V); then small float32 caches; then ``FAMILY_DECODE`` and ``AV_DECODE``
-# at the serve cell's batch
+# at the serve cell's batch, then ``MESH_SERVE_DECODE``
 DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                  SERVE["prompt_len"] + SERVE["decode_steps"], HEADS["D"],
                  "bfloat16", (1, _C, _C + 1, 1016)),
@@ -467,7 +529,9 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
                 (2, 8, 2, 100, 64, "float32", (1, 64)),
                 (2, 4, 1, 40, 16, "float32", (40, 17)),
                 *((SERVE["batch"], *heads, S, D, "bfloat16", lengths)
-                  for heads, S, D, lengths in (*FAMILY_DECODE, *AV_DECODE)))
+                  for heads, S, D, lengths in (*FAMILY_DECODE, *AV_DECODE)),
+                *((*case[:5], "bfloat16", case[5])
+                  for case in MESH_SERVE_DECODE))
 # SSD, element by element (|out - plain| <= atol + rtol |plain|): float32
 # to tests/test_kernels.py's rtol = atol = 1e-3 (the chunked form
 # reassociates the decays); a bfloat16 output to one bfloat16 step of
@@ -477,7 +541,6 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
 # magnitude ~10 differ by ~1e-4
 SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
            "bfloat16": dict(rtol=2.0 ** -7, atol=1e-2)}
-SSD_WORK_TILE = 32   # rows per tile of the SSD work the bound counts
 SSM = dict(H=64, P=64, N=128, chunk=256)           # mamba2-1.3b SSD
 # (B, S, H, P, N, chunk, dtype, model-made inputs): the serve prefill
 # first; then tests/test_kernels.py's mamba2-like case, a ragged S at the
@@ -506,7 +569,7 @@ KDE_LONG_R = 1027
 # R where the maintenance KDE sum takes its other two orders (ref.
 # _xla_kde_sum: 11..16 padded to two eights, 17..32 whole eights and a
 # tail): mu bit for bit there too
-MU_ORDER_R = (13, 20, 24)
+MU_ORDER_R = (13, 20, 21, 24, 40)
 # The flash backward against ref.attention_grads (float32 autograd through the
 # plain attention), element by element, |grad - plain| <= atol + rtol |plain|:
 # bfloat16, rtol 2**-7 is one bfloat16 step of the gradient's own magnitude
@@ -546,6 +609,41 @@ BWD_CASES = ((TRAIN["batch"], HEADS["Hq"], HEADS["Hkv"], TRAIN["seq_len"],
 MESH_TRAIN = dict(arch="qwen3-4b", layers=2, seq_len=256, batch=8, lr=1e-3,
                   clip_norm=1.0, steps=3, resumed=2, mesh=(2, 2),
                   rtol=1e-4, atol=1e-5, budget_s=60.0)
+# The sharded-serving cell (mesh_serve): bf16 partial sums over the model
+# axis and the slots' merge round in another order than one rank's, and 36
+# layers carry the rounding on. Every call's max |sharded - one rank| must
+# stay within ``max_abs_over_scale`` of one rank's max |logit|, and the
+# greedy tokens agree at ``token_agree`` of the picks (random weights leave
+# near-tied top logits: 0.868 in (a) on the card). The bound lies between
+# the card's sound runs (every call's gap 2.13-2.93 %, the same on every
+# run) and the faults ``--plant-faults`` plants: one slot slice dropped
+# from the merge (32.7 % in (a), 8.1 % in (b)) and the slices merged
+# unweighted (4.66 %, 4.08 %) fail it; the new K/V written on every rank
+# (3.62 %, 3.31 %: one live slot a rank a step) passes, and the CPU test
+# at float32 catches it.
+MESH_SERVE = dict(arch="qwen3-4b", batch=4, prompt_len=1000, steps=16,
+                  long_prompt=8192, long_steps=8, mesh=(2, 2),
+                  max_abs_over_scale=0.04, token_agree=0.75,
+                  dry=("qwen3-4b", "decode_32k"), budget_s=60.0)
+# Faults planted in mesh_serve's decode (``--plant-faults``) to read what
+# its bound tells apart: (name, a line of ``models.attention.decode_attend``,
+# the line that replaces it in a copy made in memory). One rank's slice of
+# the slots left out of the merge, the slices merged without their
+# exp(lse - max) weights, and the new token's K/V written on every rank (a
+# rank that does not hold slot pos writes its nearest slot)
+MERGE_FAULTS = (
+    ("slice_dropped",
+     '    top = all_reduce(lse, mesh.axis(slots).group, "max")\n',
+     '    if mesh.axis(slots).index == 1:\n'
+     '        lse = torch.full_like(lse, -float("inf"))\n'
+     '    top = all_reduce(lse, mesh.axis(slots).group, "max")\n'),
+    ("unweighted_merge",
+     "    w = torch.exp(lse - top)[..., None]\n",
+     "    w = torch.ones_like(lse)[..., None]\n"),
+    ("kv_written_on_every_rank",
+     "        mine = (slot >= 0) & (slot < Sl)\n",
+     "        mine = torch.ones_like(slot, dtype=torch.bool)\n"),
+)
 # kernels that must build without spilling registers: the kernels redesigned
 # for Hopper
 SSD_PASSES = ("ssd_cb_kernel", "ssd_state_kernel", "ssd_pass_kernel",
@@ -628,14 +726,6 @@ def share(part: float | None, whole: float) -> float | None:
     """``part / whole``; None where ``part`` was not measured."""
     return None if part is None else part / whole
 
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-# ---------------------------------------------------------------------------
-# Inputs, made from a seed.
-# ---------------------------------------------------------------------------
 
 def maintenance_inputs(rows: int, R: int, seed: int, dev):
     """Latency windows with ties, empty rows and full rows."""
@@ -862,10 +952,12 @@ def phase_kernels(dev) -> dict:
         if not bool((out[~live] == 0).all()):
             raise AssertionError(f"decode_attention {case}: a row of length 0 "
                                  f"is not exactly zero")
+        lse_err = check_lse(case, q, k, v, length, out)
         errs.setdefault("decode_attention", res["max_abs_err"])
         emit(phase="kernels", kernel="decode_attention", B=B, Hq=Hq,
              Hkv=Hkv, S=S, D=D, dtype=dtype, lengths=list(lengths),
-             zero_rows_exact=int((~live).sum()), **res, **ATTN_TOL[dtype])
+             zero_rows_exact=int((~live).sum()), lse_max_abs_err=lse_err,
+             lse_tol=LSE_TOL, **res, **ATTN_TOL[dtype])
 
     from repro_torch.kernels import ssd
     for seed, case in enumerate(SSD_CASES, 40):
@@ -906,6 +998,28 @@ def phase_kernels(dev) -> dict:
     errs["flash_attention_bwd"] = check_flash_bwd(dev)
     check_grad_refusal(dev)
     return errs
+
+
+def check_lse(case, q, k, v, length, out) -> float:
+    """``decode_attention``'s log-sum-exp output (``with_lse``) against
+    its plain version's: within ``LSE_TOL`` where a row has slots, -inf
+    where it has none; the output beside it bit-identical to the call
+    without it. Returns the largest error."""
+    import torch
+    from repro_torch.kernels import decode_attention, ref
+    out2, lse = decode_attention.decode_attention(q, k, v, length,
+                                                  with_lse=True)
+    _, plain = ref.decode_attention(q, k, v, length, with_lse=True)
+    torch.cuda.synchronize()
+    live = length > 0
+    err = (lse[live] - plain[live]).abs().max().item() if live.any() else 0.0
+    tol = LSE_TOL["atol"] + LSE_TOL["rtol"] * plain[live].abs()
+    if not (torch.equal(out2, out) and lse.dtype == torch.float32
+            and bool(((lse[live] - plain[live]).abs() <= tol).all())
+            and bool(torch.isneginf(lse[~live]).all())):
+        raise AssertionError(f"decode_attention {case}: log-sum-exp error "
+                             f"{err} (tol {LSE_TOL}), or its output moved")
+    return err
 
 
 def check_mu_bits(mu, mu_p, where: str) -> float:
@@ -2746,7 +2860,8 @@ def counted_collectives():
     import torch
     import torch.distributed as dist
     from repro_torch.sharding.collectives import REDUCE_SCATTER
-    names = ("all_reduce", "all_gather_into_tensor", REDUCE_SCATTER)
+    names = ("all_reduce", "all_gather_into_tensor", REDUCE_SCATTER,
+             "all_to_all_single")
     orig = {n: getattr(dist, n) for n in names}
     got = {n: [0, 0.0] for n in names}
 
@@ -2841,9 +2956,10 @@ def mesh_train_rank(ckdir: str, ports: tuple) -> dict:
     (b) the last data row lost, the survivors in a group of their own
     (``ports[0]``) on the shrunk mesh, resumed. The lost pair forms a
     group on ``ports[1]``, and its first rank meanwhile resumes alone,
-    on no mesh: the one-rank run (b) is held against. Returns ``{"a":
-    run, "b": the survivor's run, "alone": the lost rank's}`` (None
-    where a rank has none)."""
+    on no mesh: the one-rank run (b) is held against. Then the 4 ranks
+    join a new group (``ports[2]``) for mesh_serve. Returns ``{"a":
+    run, "b": the survivor's run, "alone": the lost rank's, "serve":
+    mesh_serve_rank's}`` (None where a rank has none)."""
     import torch
     import torch.distributed as dist
     from repro_torch.fault import build_mesh, shrink_mesh
@@ -2865,7 +2981,304 @@ def mesh_train_rank(ckdir: str, ports: tuple) -> dict:
     elif rank % 2 == 0:
         alone = mesh_train_run(MESH_TRAIN["resumed"], None, ckdir,
                                resume=True)
-    return {"a": a, "b": b, "alone": alone}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{ports[2]}", world_size=4,
+        rank=rank)
+    return {"a": a, "b": b, "alone": alone, "serve": mesh_serve_rank()}
+
+
+def card():
+    """This process's card."""
+    import torch
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def mesh_serve_inputs(cfg, dev, long: bool) -> tuple:
+    """(batch, fed tokens (B, steps), first decode position) of run (a)
+    or (b), drawn from numpy seeds: the same on every rank."""
+    import torch
+    B, P, T = ((1, MESH_SERVE["long_prompt"], MESH_SERVE["long_steps"])
+               if long else (MESH_SERVE["batch"], MESH_SERVE["prompt_len"],
+                             MESH_SERVE["steps"]))
+    rng = np.random.default_rng(7 if long else 5)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)))
+    fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)))
+    return {"tokens": prompt.to(dev)}, fed.to(dev), P
+
+
+def mesh_serve_rules(cfg, mesh, long: bool) -> dict:
+    """The reference dry run's decode rules for run (a) (``hybrid``) or
+    (b) (the long-context rules, the caches' rows and KV heads whole so
+    that the slots take every rank)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.sharding import rules_for
+    _, fed, P = mesh_serve_inputs(cfg, "cpu", long)
+    B, T = fed.shape
+    over = rules_for(cfg, ShapeConfig("mesh_serve", "decode", P + T, B),
+                      mesh, "hybrid")
+    if long:
+        over.update(kv_batch=(), kv_heads=())
+    return over
+
+
+def mesh_serve_run(long: bool, mesh=None) -> dict:
+    """Run (a) or (b) of mesh_serve on this process's card, on ``mesh``
+    (the rank's rows and blocks) or on one rank: the prefill, then one
+    decode a fed token. Returns every call's logits (the rows whole, on
+    the host in bf16), their greedy tokens, each call's seconds, the
+    launches of the prefill and of the decode steps, the collectives of
+    the decode steps and the peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import rule_overrides
+    from repro_torch.sharding.collectives import batch_axes, relay
+    dev = card()
+    cfg = get_config(MESH_SERVE["arch"])
+    batch, fed, start = mesh_serve_inputs(cfg, dev, long)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev, seed=0)
+    rules = mesh_serve_rules(cfg, mesh, long) if mesh is not None else {}
+    logits_out, call_s = [], []
+    with rule_overrides(**rules), mesh or contextlib.nullcontext():
+        if mesh is not None:
+            model.shard(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        weights = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)       # the serving's peak
+
+        def local(b: dict) -> dict:
+            return b if mesh is None else model.shard_batch(b)
+
+        def keep(lg) -> None:
+            if mesh is not None:
+                lg = relay(lg, (batch_axes(),), ((),))
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t)
+            logits_out.append(lg[:, -1].to(torch.bfloat16).cpu())
+
+        for fn in all_kernels():
+            fn.launches = 0
+        t = time.perf_counter()
+        lg, cache = model.prefill(local(batch), max_len=start + fed.shape[1])
+        keep(lg)
+        prefill_launches = {fn.__name__: fn.launches for fn in all_kernels()}
+        for fn in all_kernels():
+            fn.launches = 0
+        with counted_collectives() as coll:
+            for i in range(fed.shape[1]):
+                t = time.perf_counter()
+                lg, cache = model.decode(cache, local(
+                    {"token": fed[:, i:i + 1].to(torch.int32),
+                     "pos": start + i}))
+                keep(lg)
+        decode_launches = {fn.__name__: fn.launches for fn in all_kernels()}
+    del model, cache
+    logits = torch.stack(logits_out)                   # (calls, B, V)
+    return dict(logits=logits, tokens=logits.float().argmax(-1),
+                call_s=call_s, prefill_launches=prefill_launches,
+                decode_launches=decode_launches,
+                collectives={n: dict(calls=c, seconds=sec)
+                             for n, (c, sec) in coll.items()},
+                weights_bytes=weights,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+
+
+def mesh_serve_rank() -> dict:
+    """mesh_serve's runs (a) and (b) on this rank of the (2, 2) mesh;
+    the phase's seconds on this rank."""
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(*MESH_SERVE["mesh"])
+    a = mesh_serve_run(False, mesh)
+    b = mesh_serve_run(True, mesh)
+    return {"a": a, "b": b, "seconds": time.perf_counter() - t0}
+
+
+def planted(fault: tuple):
+    """``models.attention.decode_attend`` with ``fault``'s line replaced,
+    compiled in memory against the module's globals."""
+    import inspect
+    from repro_torch.models import attention
+    name, old, new = fault
+    src = inspect.getsource(attention.decode_attend)
+    if src.count(old) != 1:
+        raise AssertionError(f"--plant-faults {name}: the line {old!r} is "
+                             f"not in decode_attend once")
+    scope = dict(vars(attention))
+    exec(compile(src.replace(old, new), attention.__file__, "exec"), scope)
+    return scope["decode_attend"]
+
+
+def planted_rank() -> dict:
+    """mesh_serve's runs (a) and (b) on this rank of the (2, 2) mesh,
+    sound and with each of ``MERGE_FAULTS`` planted: ``{(fault or
+    "sound", run): logits and tokens}``."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention
+    mesh = make_test_mesh(*MESH_SERVE["mesh"])
+    sound = attention.decode_attend
+    out = {}
+    for key, long in (("a", False), ("b", True)):
+        for fault in (None, *MERGE_FAULTS):
+            attention.decode_attend = sound if fault is None else \
+                planted(fault)
+            try:
+                run = mesh_serve_run(long, mesh)
+            finally:
+                attention.decode_attend = sound
+            out[(fault[0] if fault else "sound", key)] = {
+                k: run[k] for k in ("logits", "tokens")}
+    return out
+
+
+def phase_planted_faults() -> None:
+    """``--plant-faults``: each of mesh_serve's runs (a) and (b) on the 4
+    ranks, sound and with each of ``MERGE_FAULTS``, against one rank:
+    the gaps and token agreement that ``MESH_SERVE``'s bound has to tell
+    apart, beside it."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    got = spawn(planted_rank, 4, timeout=1200.0)
+    one = {"a": mesh_serve_run(False), "b": mesh_serve_run(True)}
+    torch.cuda.empty_cache()
+    for (fault, key), run in got.items():
+        res = mesh_serve_gaps(f"({key}) {fault}", run, one[key])
+        emit(phase="planted_faults", run=key, fault=fault,
+             largest_gap=max(res["max_abs_over_scale"]),
+             **res, caught=max(res["max_abs_over_scale"])
+             > MESH_SERVE["max_abs_over_scale"]
+             or res["token_agreement"] < MESH_SERVE["token_agree"],
+             tolerance={k: MESH_SERVE[k] for k in ("max_abs_over_scale",
+                                                   "token_agree")},
+             card=nvidia_smi())
+
+
+def mesh_serve_launches(layers: int, steps: int) -> tuple:
+    """(prefill, decode steps) launches of a mesh_serve run on any rank:
+    flash once a layer, decode once a layer a step, nothing else."""
+    pre = {fn.__name__: 0 for fn in all_kernels()}
+    dec = dict(pre)
+    pre["flash_attention"] = layers
+    dec["decode_attention"] = layers * steps
+    return pre, dec
+
+
+def mesh_serve_gaps(what: str, got: dict, want: dict) -> dict:
+    """``got``'s logits against one rank's ``want``: each call's largest
+    |gap| over one rank's largest |logit|, and the share of greedy tokens
+    that agree."""
+    g, w = got["logits"].float(), want["logits"].float()
+    if g.shape != w.shape or not bool(g.isfinite().all()):
+        raise AssertionError(f"mesh_serve {what}: logits {tuple(g.shape)} "
+                             f"against {tuple(w.shape)}, or not finite")
+    gap = ((g - w).abs().amax(dim=(1, 2))
+           / w.abs().amax(dim=(1, 2))).tolist()   # a call's largest gap
+    agree = float((got["tokens"] == want["tokens"]).float().mean())
+    return dict(max_abs_over_scale=gap, token_agreement=agree)
+
+
+def check_mesh_serve(what: str, got: dict, want: dict) -> dict:
+    """``mesh_serve_gaps`` within ``MESH_SERVE``'s bound and token
+    agreement; returns them."""
+    res = mesh_serve_gaps(what, got, want)
+    gap, agree = res["max_abs_over_scale"], res["token_agreement"]
+    if max(gap) > MESH_SERVE["max_abs_over_scale"] or \
+            agree < MESH_SERVE["token_agree"]:
+        raise AssertionError(f"mesh_serve {what}: gaps {gap} (bound "
+                             f"{MESH_SERVE['max_abs_over_scale']}), tokens "
+                             f"agree {agree}")
+    return res
+
+
+def mesh_serve_fields(run: dict) -> dict:
+    """A run's report: prefill and decode seconds, collectives a decode
+    step and their share of the steps, peak memory."""
+    steps = len(run["call_s"]) - 1
+    dec_s = sum(run["call_s"][1:])
+    coll_s = sum(v["seconds"] for v in run["collectives"].values())
+    return dict(prefill_s=run["call_s"][0], decode_step_s=run["call_s"][1:],
+                collectives_per_step={k: v["calls"] / steps for k, v in
+                                      run["collectives"].items()},
+                collective_share_of_steps=coll_s / dec_s,
+                weights_bytes=run["weights_bytes"],
+                peak_mem_bytes=run["peak_mem_bytes"],
+                prefill_launches=run["prefill_launches"],
+                decode_launches=run["decode_launches"])
+
+
+def phase_mesh_serve(ranks: list, one: dict, dry: dict) -> None:
+    """mesh_serve's checks and report (the module docstring): the ranks'
+    runs against one rank's ``one`` (``{"a", "b"}``) and the dry-run
+    cell ``dry``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_SERVE["arch"])
+    errs = {}
+    for key, steps in (("a", MESH_SERVE["steps"]),
+                       ("b", MESH_SERVE["long_steps"])):
+        want_pre, want_dec = mesh_serve_launches(cfg.num_layers, steps)
+        for r, rk in enumerate(ranks):
+            run = rk["serve"][key]
+            if (run["prefill_launches"] != want_pre
+                    or run["decode_launches"] != want_dec):
+                raise AssertionError(
+                    f"mesh_serve ({key}) rank {r}: launches "
+                    f"{run['prefill_launches']} and "
+                    f"{run['decode_launches']}")
+            if not torch_equal(run["tokens"], ranks[0]["serve"][key]["tokens"]):
+                raise AssertionError(f"mesh_serve ({key}): rank {r} picks "
+                                     f"other tokens than rank 0")
+        errs[key] = check_mesh_serve(key, ranks[0]["serve"][key], one[key])
+    if dry.get("status") != "ok":
+        raise AssertionError(f"mesh_serve (c): dry-run cell {dry}")
+    seconds = max(rk["serve"]["seconds"] for rk in ranks) + dry["wall_s"]
+    emit(phase="mesh_serve", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, mesh=dict(zip(("data", "model"),
+                                        MESH_SERVE["mesh"])),
+         a=dict(batch=MESH_SERVE["batch"], prompt_len=MESH_SERVE["prompt_len"],
+                steps=MESH_SERVE["steps"], layout="hybrid",
+                ranks=[mesh_serve_fields(rk["serve"]["a"]) for rk in ranks],
+                one_rank=mesh_serve_fields(one["a"]) | {"collectives_per_step":
+                                                       None}, **errs["a"]),
+         b=dict(batch=1, prompt_len=MESH_SERVE["long_prompt"],
+                steps=MESH_SERVE["long_steps"],
+                layout="long-context, the slots over (data, model)",
+                ranks=[mesh_serve_fields(rk["serve"]["b"]) for rk in ranks],
+                one_rank=mesh_serve_fields(one["b"]) | {"collectives_per_step":
+                                                       None}, **errs["b"]),
+         c={k: dry[k] for k in ("arch", "shape", "mesh", "status", "memory",
+                                "cost", "collectives", "roofline", "rules",
+                                "timing", "wall_s")},
+         tolerance={k: MESH_SERVE[k] for k in ("max_abs_over_scale",
+                                               "token_agree")},
+         rank_seconds=[rk["serve"]["seconds"] for rk in ranks],
+         seconds=seconds, budget_s=MESH_SERVE["budget_s"],
+         within_budget=seconds <= MESH_SERVE["budget_s"], card=nvidia_smi())
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a, b))
+
+
+def mesh_serve_dry() -> dict:
+    """mesh_serve (c): the dry-run cell, traced on the host."""
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    try:
+        out = dryrun.run_cell(*MESH_SERVE["dry"], False)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t
+    return out
 
 
 def want_launches(steps: int) -> dict:
@@ -2913,7 +3326,7 @@ def phase_mesh_train(dev) -> None:
     def ranks_run():
         try:
             got["ranks"] = spawn(mesh_train_rank, 4, ckdir,
-                                 (_free_port(), _free_port()),
+                                 (_free_port(), _free_port(), _free_port()),
                                  every_rank=True,
                                  timeout=4 * MESH_TRAIN["budget_s"])
         except BaseException as e:              # raised below, here
@@ -2927,6 +3340,11 @@ def phase_mesh_train(dev) -> None:
         one = mesh_train_run(steps + resumed)
         gc.collect()
         torch.cuda.empty_cache()
+        # mesh_serve's one-rank runs and its dry-run cell meanwhile
+        one_serve = {"a": mesh_serve_run(False), "b": mesh_serve_run(True)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry = mesh_serve_dry()
         ranks_thread.join()
         spawn_s = time.perf_counter() - t1
     finally:
@@ -2974,7 +3392,9 @@ def phase_mesh_train(dev) -> None:
                     launches=run["launches"],
                     **{k: run[k] for k in ("save_s", "restore_s") if k in run})
 
-    secs = time.perf_counter() - t0
+    # the phase's seconds without mesh_serve's, which ran in its ranks after
+    secs = time.perf_counter() - t0 - max(rk["serve"]["seconds"]
+                                          for rk in ranks)
     emit(phase="mesh_train", arch=cfg.name, layers=layers,
          d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads,
                                      cfg.head_dim],
@@ -3002,6 +3422,7 @@ def phase_mesh_train(dev) -> None:
          spawn_seconds=spawn_s, seconds=secs,
          budget_s=MESH_TRAIN["budget_s"],
          within_budget=secs <= MESH_TRAIN["budget_s"], card=nvidia_smi())
+    phase_mesh_serve(ranks, one_serve, dry)
 
 
 def all_kernels() -> tuple:
@@ -3010,53 +3431,16 @@ def all_kernels() -> tuple:
     return ops.WRAPPERS
 
 
-def attention_work(q, k, v, window=None, causal: bool = True) -> tuple:
-    """(bytes, operations) of prefill attention: q, k and v read once,
-    the output (q's size) written once; 4 D operations a (query, key)
-    pair that the causal mask and the window keep (every pair, non
-    causal)."""
-    B, Hq, S, D = q.shape
-    pairs = (sum(min(t + 1, window or S) for t in range(S)) if causal
-             else S * S)
-    return 2 * nbytes(q) + nbytes(k, v), 4 * B * Hq * D * pairs
-
-
-def decode_work(q, k, v, length) -> tuple:
-    """(bytes, operations) of one decode query against the cache: q and
-    the cache read once, the output written once (the lengths are the
-    caches' whole; 4 D operations a live slot)."""
-    _, Hq, D = q.shape
-    return (2 * nbytes(q) + nbytes(k, v, length),
-            4 * Hq * D * int(length.sum()))
-
-
-def ssd_work(x, dt, A, Bm, Cm, tile: int = SSD_WORK_TILE) -> tuple:
-    """(bytes, operations) of the SSD scan: the inputs read once, y (x's
-    size) written once; the work, whatever implements it, is the chunked
-    algorithm at ``tile``-row tiles, per tile and head the scores
-    (2T^2 N), the intra term (2T^2 P), C.h and the state update (2TNP
-    each). At 32-row tiles bytes bound it; the TPU kernel's chunk of 256
-    needs ~3x as many, and the tensor-core passes issue their own count
-    (padding and split terms included)."""
-    B, S, H, P = x.shape
-    N = Bm.shape[-1]
-    return (nbytes(x, dt, A, Bm, Cm) + nbytes(x),
-            B * H * -(-S // tile) * (2 * tile * tile * (N + P)
-                                    + 4 * tile * N * P))
-
-
 def time_row(kernel, plain, library, work: tuple, iters: int) -> dict:
     """``kernel``'s, its plain version's (unqueued, a tenth as many calls)
     and the library call's times by ``cuda_ms``, and the bound: the
     larger of ``work``'s bytes over the memory rate and its operations
-    over the bf16 tensor-core rate."""
-    by, ops = work
-    bytes_ms = by / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_FLOP_PER_S * 1e3
+    over the bf16 tensor-core rate (``roofline.analysis.kernel_bound_s``,
+    the dry run's)."""
+    bound_s, bound_by = kernel_bound_s(work)
     return dict(ms=cuda_ms(kernel, iters),
                 plain_ms=cuda_ms(plain, max(iters // 10, 3), queued=False),
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_ms=bound_s * 1e3, bound_by=bound_by,
                 library_ms=None if library is None else cuda_ms(library,
                                                                 iters))
 
@@ -3161,6 +3545,10 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
                           s_args[0].dtype]} if name == "ssd" else
                      round_launch_fields(K, M, C, dev)
                      if name == "round_step_swrr" else {})
+        if name == "decode_attention":       # the log-sum-exp beside it
+            extra = dict(ms_with_lse=cuda_ms(lambda: kern(
+                *args, with_lse=True), iters), lse_bytes=dq.shape[0]
+                * dq.shape[1] * 4)
         emit(phase="times", bytes=work[0], flops=work[1], **extra,
              **rows_out[-1])
     # the round kernel with a lane axis: the lanes phase's shape and the
@@ -3449,6 +3837,12 @@ def main() -> int:
                          "the fleet phase, N times after a warm-up (with "
                          "--profile DIR, also its profile): to compare two "
                          "trees on one card")
+    ap.add_argument("--plant-faults", action="store_true",
+                    help="build the kernels, run the kernels phase, then "
+                         "mesh_serve's runs (a) and (b) on 4 ranks sound and "
+                         "with each of MERGE_FAULTS planted in a copy of "
+                         "decode_attend made in memory, each against one "
+                         "rank: what MESH_SERVE's bound tells apart")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -3480,6 +3874,9 @@ def main() -> int:
     if spilled:
         raise AssertionError(f"kernels that spill registers: {spilled}")
     errs = phase_kernels(dev)
+    if args.plant_faults:
+        phase_planted_faults()
+        return 0
     phase_testbed(dev)
     launches, fleet_steps_per_s = phase_fleet(dev)
     phase_lifecycle_fleet(dev, fleet_steps_per_s)

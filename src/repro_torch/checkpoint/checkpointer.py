@@ -10,9 +10,12 @@ leaves. Layout per step::
         arrays.npz        # the leaves, keyed by their path in the tree
 
 The manifest carries a ``schema`` version and the SHA-256 of
-``arrays.npz``; ``restore`` checks both before it parses any leaf and
-raises ``CheckpointCorruptError`` on a truncated, bit-flipped or
-foreign-version checkpoint. ``save`` snapshots every leaf to numpy on
+``arrays.npz``; ``restore`` checks the schema before it parses any leaf
+and hashes the payload in a thread beside the reads that rebuild the
+tree, returning it only once the hash matches, and raises
+``CheckpointCorruptError`` on a truncated, bit-flipped or
+foreign-version checkpoint (before any other error the parse of a
+corrupt payload raises). ``save`` snapshots every leaf to numpy on
 the caller's thread, so an async write never races the caller's next
 step; ``keep`` bounds the steps kept on disk. The payload is written in
 one pass, hashed as it is written (``_Hashed``: ``np.savez`` streams
@@ -293,6 +296,12 @@ class Checkpointer:
         raises ``CheckpointCorruptError`` on an unreadable manifest, a
         newer schema, or an ``arrays.npz`` whose SHA-256 differs from
         the recorded one."""
+        manifest = self._manifest(step)
+        self._check_sum(step, manifest, self._digest(step))
+        return manifest
+
+    def _manifest(self, step: int) -> dict:
+        """The step's manifest, its schema checked."""
         path = self._path(step)
         try:
             with open(os.path.join(path, "manifest.json")) as f:
@@ -307,20 +316,31 @@ class Checkpointer:
             raise CheckpointCorruptError(
                 f"checkpoint {path}: schema version {schema!r} is newer "
                 f"than this code understands (<= {SCHEMA_VERSION})")
-        recorded = manifest.get("checksum")
-        if recorded is not None:
-            try:
-                actual = "sha256:" + _sha256(os.path.join(path, "arrays.npz"))
-            except OSError as e:
-                raise CheckpointCorruptError(
-                    f"checkpoint {path}: cannot read arrays.npz ({e})"
-                ) from e
-            if actual != recorded:
-                raise CheckpointCorruptError(
-                    f"checkpoint {path}: arrays.npz checksum mismatch "
-                    f"(manifest {recorded}, file {actual}): the payload "
-                    f"is truncated or bit-flipped")
         return manifest
+
+    def _digest(self, step: int):
+        """``"sha256:<hex>"`` of the step's ``arrays.npz``, or the
+        ``OSError`` reading it raised."""
+        try:
+            return "sha256:" + _sha256(os.path.join(self._path(step),
+                                                    "arrays.npz"))
+        except OSError as e:
+            return e
+
+    def _check_sum(self, step: int, manifest: dict, actual) -> None:
+        recorded = manifest.get("checksum")
+        if recorded is None:
+            return
+        path = self._path(step)
+        if isinstance(actual, OSError):
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: cannot read arrays.npz ({actual})"
+            ) from actual
+        if actual != recorded:
+            raise CheckpointCorruptError(
+                f"checkpoint {path}: arrays.npz checksum mismatch "
+                f"(manifest {recorded}, file {actual}): the payload "
+                f"is truncated or bit-flipped")
 
     def restore(self, template: Any, step: Optional[int] = None,
                 shardings: Any = None):
@@ -332,7 +352,16 @@ class Checkpointer:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        self.verify(step)
-        tree = _unflatten(template, _members(
-            os.path.join(self._path(step), "arrays.npz")), shardings=shardings)
+        manifest = self._manifest(step)
+        # the payload hashed beside the reads that rebuild the tree; the
+        # tree is returned only once the hash matches the manifest's
+        with ThreadPoolExecutor(1) as pool:
+            digest = pool.submit(self._digest, step)
+            try:
+                tree = _unflatten(template, _members(os.path.join(
+                    self._path(step), "arrays.npz")), shardings=shardings)
+            except Exception:
+                self._check_sum(step, manifest, digest.result())
+                raise
+            self._check_sum(step, manifest, digest.result())
         return tree, step

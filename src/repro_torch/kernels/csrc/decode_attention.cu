@@ -33,10 +33,14 @@
 //   and reads nothing.
 // - decode_combine_kernel, one CTA per (b, query head): M = max m_i, L =
 //   sum l_i e^(m_i - M), O = sum acc_i e^(m_i - M) / max(L, 1e-30). A row
-//   with length 0 has only empty splits, so L = 0 and O = 0.
+//   with length 0 has only empty splits, so L = 0 and O = 0. Where the
+//   caller asks for it, it also writes the row's log-sum-exp of the
+//   scaled logits, M + log L in float32 (-inf where L = 0): ranks that
+//   each attend over a slice of one cache merge their outputs by it.
 // Two launches a call; a last-CTA combine with a self-resetting counter
 // would save the second, but needs a buffer shared across calls and
 // streams.
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -221,8 +225,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml, T* __restrict__ o, int G, int D,
-                      int splits) {
+                      const float* __restrict__ part_ml, T* __restrict__ o,
+                      float* __restrict__ lse, int G, int D, int splits) {
   extern __shared__ float weight[];  // splits
   __shared__ float total;
   const int g = blockIdx.x;
@@ -240,7 +244,10 @@ decode_combine_kernel(const float* __restrict__ part_acc,
       L += ml[2 * s * G + 1] * w;
     }
     L = warp_sum(L);
-    if (lane == 0) total = fmaxf(L, 1e-30f);
+    if (lane == 0) {
+      total = fmaxf(L, 1e-30f);
+      if (lse != nullptr) lse[row * G + g] = L > 0.f ? M + logf(L) : -INFINITY;
+    }
   }
   __syncthreads();
   const float* acc = part_acc + (static_cast<size_t>(row) * splits * G + g) * D;
@@ -255,7 +262,8 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* length, void* o,
-           float* work, int B, int Hkv, int G, int S, float scale, cudaStream_t stream) {
+           float* lse, float* work, int B, int Hkv, int G, int S, float scale,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(G);
   auto split = decode_split_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -271,20 +279,20 @@ int launch(const void* q, const void* k, const void* v, const int* length, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<T><<<dim3(G, B * Hkv), kCombineThreads, splits * sizeof(float),
                              stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), G, D, splits);
+      part_acc, part_ml, static_cast<T*>(o), lse, G, D, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, const int* length, void* o,
-             float* work, int B, int Hkv, int G, int S, int D, float scale,
+             float* lse, float* work, int B, int Hkv, int G, int S, int D, float scale,
              cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, length, o, work, B, Hkv, G, S, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, length, o, work, B, Hkv, G, S, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, length, o, work, B, Hkv, G, S, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, length, o, work, B, Hkv, G, S, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, length, o, work, B, Hkv, G, S, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, length, o, lse, work, B, Hkv, G, S, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, length, o, lse, work, B, Hkv, G, S, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, length, o, lse, work, B, Hkv, G, S, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, length, o, lse, work, B, Hkv, G, S, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, length, o, lse, work, B, Hkv, G, S, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -293,18 +301,20 @@ int launch_d(const void* q, const void* k, const void* v, const int* length, voi
 
 // q (B, Hkv * G, D), k and v (B, Hkv, S, D), length (B,) int32, o like q,
 // contiguous, of one dtype (0: float32, 1: bfloat16); D in {16, 32, 64,
-// 128, 256}; work holds B * Hkv * max(1, ceil(S / 64)) * G * (D + 2)
-// float32.
+// 128, 256}; lse (B, Hkv * G) float32, or null for none; work holds B *
+// Hkv * max(1, ceil(S / 64)) * G * (D + 2) float32.
 // Launches both passes on `stream`; returns the cudaError_t.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const int* length, void* o, void* work,
+                                       const int* length, void* o, void* lse,
+                                       void* work,
                                        int dtype, int B, int Hkv, int G, int S, int D,
                                        float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(work);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, length, o, w, B, Hkv, G, S, D, scale, st);
+    return launch_d<float>(q, k, v, length, o, l, w, B, Hkv, G, S, D, scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, length, o, w, B, Hkv, G, S, D, scale, st);
+    return launch_d<__nv_bfloat16>(q, k, v, length, o, l, w, B, Hkv, G, S, D, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,9 +34,9 @@
 //   (ref.bandit_maintenance_stats, which rounds as XLA:CPU does), so the
 //   two agree bit for bit: each lane stages its samples' terms in shared
 //   memory and the row's sums run in the plain version's order
-//   (xla_row_sum: blocks of 32 columns, each left to right, lane b adding
-//   block b, then the block sums in order; xla_kde_sum: the KDE's order,
-//   which depends on R); n^-0.2 comes from the plain version's table of
+//   (xla_row_sum: windows of 32 columns as XLA pads them, each left to
+//   right, lane b adding window b, then the window sums in order;
+//   xla_kde_sum: the KDE's order, which depends on R); n^-0.2 comes from the plain version's table of
 //   glibc's powf (CUDA's powf is not glibc's); the root is correctly
 //   rounded, every division IEEE; erf is core/fmath.py's rational
 //   polynomial, each Horner step rounded through float64 as the plain
@@ -167,20 +167,24 @@ __device__ __forceinline__ float mask_of(uint32_t valid, int v) {
   return ((valid >> v) & 1u) ? 1.f : 0.f;
 }
 
-// The sum of a row's R staged values in ref._xla_row_sum's order: blocks of
-// 32 columns (one block of R where R <= 32), each added left to right (the
-// last block's columns past R as +0.0), then the block sums in order. Lane b
-// of the row adds block b (R <= 4 * L * CH gives at most L blocks); every
-// lane returns the total.
+// The sum of a row's R staged values in ref._xla_row_sum's order: one block
+// of R where R <= 32, else windows of 32 over the row padded with (-R) % 32
+// zeros split between its ends (the smaller half first, as XLA's
+// reduce-window rewrite pads it), each added left to right (a padding
+// column as +0.0), then the window sums in order. Lane b of the row adds
+// window b (R <= 4 * L * CH gives at most L windows); every lane returns
+// the total.
 __device__ __forceinline__ float xla_row_sum(const float* rbuf, float* rpart, int R,
                                              int l) {
   const int width = R <= 32 ? R : 32;
   const int blocks = (R + width - 1) / width;
+  const int lo = R <= 32 ? 0 : ((32 - R % 32) % 32) / 2;  // front padding
   if (l < blocks) {
-    float acc = rbuf[l * width];
+    const int c0 = l * width - lo;
+    float acc = c0 >= 0 ? rbuf[c0] : 0.f;
     for (int j = 1; j < width; ++j) {
-      const int c = l * width + j;
-      acc = __fadd_rn(acc, c < R ? rbuf[c] : 0.f);
+      const int c = c0 + j;
+      acc = __fadd_rn(acc, c >= 0 && c < R ? rbuf[c] : 0.f);
     }
     rpart[l] = acc;
   }
@@ -192,7 +196,10 @@ __device__ __forceinline__ float xla_row_sum(const float* rbuf, float* rpart, in
 }
 
 // The KDE's sum of a row's R staged terms in ref._xla_kde_sum's order: that
-// of xla_row_sum where R <= 10 or R > 32; between, eight accumulators
+// of xla_row_sum where R <= 10 or R > 32; at R = 20..23 ref._vec4x4_sum's
+// (four 4-lane accumulators over the first 16 columns, each added onto the
+// sum of the ones before, halved twice; columns 16..19 with that sum in
+// lane 0, halved twice; the rest left to right); else eight accumulators
 // (column j into j % 8, over the first 16 columns zero-padded where R <= 16,
 // else over the whole eights), halved three times, then the columns past
 // the eights left to right. Every lane adds the row alone (the row's slots
@@ -200,6 +207,19 @@ __device__ __forceinline__ float xla_row_sum(const float* rbuf, float* rpart, in
 __device__ __forceinline__ float xla_kde_sum(const float* rbuf, float* rpart, int R,
                                              int l) {
   if (R <= 10 || R > 32) return xla_row_sum(rbuf, rpart, R, l);
+  if (R >= 20 && R <= 23) {
+    float r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = rbuf[i];
+      for (int k = 1; k < 4; ++k) r[i] = __fadd_rn(rbuf[4 * k + i], r[i]);
+    }
+    float total = __fadd_rn(__fadd_rn(r[0], r[2]), __fadd_rn(r[1], r[3]));
+    const float t0 = __fadd_rn(total, rbuf[16]);
+    total = __fadd_rn(__fadd_rn(t0, rbuf[18]), __fadd_rn(rbuf[17], rbuf[19]));
+    for (int j = 20; j < R; ++j) total = __fadd_rn(total, rbuf[j]);
+    return total;
+  }
   const int eights = R <= 16 ? 2 : R / 8;
   float acc[8];
 #pragma unroll

@@ -7,8 +7,11 @@ its first ``length[b]`` slots, softmax in float32. The work is bound by
 bytes (the cache is read once), so ``csrc/decode_attention.cu`` spreads
 each (batch row, kv head) over ``ceil(S / CHUNK)`` CTAs that write
 partial (max, normaliser, output) to a float32 workspace, and a second
-kernel combines them; its header says more. ``ref.decode_attention`` is
-its plain PyTorch version.
+kernel combines them; its header says more. The combine kernel also
+writes each row's log-sum-exp where it is asked for (``with_lse``): a
+rank that holds a slice of the cache's slots attends over it, and the
+ranks merge their outputs by it (``models/attention.py``).
+``ref.decode_attention`` is its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ CHUNK = 64                     # cache slots per split
 @functools.cache
 def _launcher():
     return _build.function("decode_attention_launch", [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P])
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+        _P])
 
 
 def _require(ok: bool, what: str) -> None:
@@ -58,11 +62,13 @@ def _workspace_floats(B: int, Hkv: int, G: int, S: int, D: int) -> int:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: torch.Tensor,
-                     scale: float | None = None) -> torch.Tensor:
+                     length: torch.Tensor, scale: float | None = None,
+                     with_lse: bool = False):
     """One-token attention against the cache, as ``ref.decode_attention``
     for every ``length[b] >= 1`` (a row with length 0 gets zeros here,
-    as the TPU kernel gives).
+    as the TPU kernel gives). ``with_lse``: also the (B, Hq) float32
+    log-sum-exp of each row's scaled logits over its live slots (-inf
+    at length 0), returned as ``(out, lse)``.
 
     ``q`` (B, Hq, D), ``k`` and ``v`` (B, Hkv, S, D), one dtype (float32
     or bfloat16), ``length`` (B,) int32, contiguous on one CUDA device,
@@ -91,18 +97,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
                  for t in (q, k, v, length)), "tensors must be contiguous")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     scale = scale if scale is not None else D ** -0.5
     work = torch.empty(_workspace_floats(B, Hkv, Hq // Hkv, S, D),
                        dtype=torch.float32, device=q.device)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                 out.data_ptr(), work.data_ptr(), DTYPES[q.dtype], B, Hkv,
+                 out.data_ptr(), lse.data_ptr() if with_lse else None,
+                 work.data_ptr(), DTYPES[q.dtype], B, Hkv,
                  Hq // Hkv, S, D, scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention_launch")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 decode_attention.launches = 0

@@ -106,11 +106,13 @@ def attention(q, k, v, causal: bool = True, window: int | None = None,
     return FlashAttention.apply(q, k, v, causal, window, scale)
 
 
-def decode_attention(q, k, v, length, scale: float | None = None):
+def decode_attention(q, k, v, length, scale: float | None = None,
+                     with_lse: bool = False):
     """One-token GQA attention against a KV cache, each batch row masked
-    to its first ``length[b]`` slots. (B,Hq,D) -> (B,Hq,D)."""
+    to its first ``length[b]`` slots. (B,Hq,D) -> (B,Hq,D); ``with_lse``
+    also gives each row's (B,Hq) float32 log-sum-exp: ``(out, lse)``."""
     fn = ref.decode_attention if _on_host(q) else _dec.decode_attention
-    return fn(q, k, v, length, scale=scale)
+    return fn(q, k, v, length, scale=scale, with_lse=with_lse)
 
 
 def ssd(x, dt, A, Bm, Cm, chunk: int = 128):

@@ -84,11 +84,14 @@ def decode_attention(
     v: torch.Tensor,            # (B, Hkv, S, D)
     length: torch.Tensor,       # (B,) valid cache entries
     scale: float | None = None,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """One query token per head against the first ``length[b]`` cache
     slots of batch row b. (B, Hq, D) in q's dtype; a row with length 0
     is zeros, as the TPU kernel and the CUDA kernel give (a softmax over
-    all-masked logits would average V)."""
+    all-masked logits would average V). ``with_lse``: also the (B, Hq)
+    float32 log-sum-exp of the row's scaled logits over its live slots
+    (-inf at length 0), returned as ``(out, lse)``."""
     B, Hq, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -96,11 +99,16 @@ def decode_attention(
     qf = (q.float() * scale).reshape(B, Hkv, G, D)
     logits = torch.einsum("bhgd,bhkd->bhgk", qf, k.float())
     valid = torch.arange(S, device=q.device)[None, :] < length[:, None]
-    p = torch.softmax(torch.where(valid[:, None, None, :], logits, _NEG),
-                      dim=-1)
+    masked = torch.where(valid[:, None, None, :], logits, _NEG)
+    p = torch.softmax(masked, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
-    out = torch.where((length > 0)[:, None, None, None], out, 0.0)
-    return out.reshape(B, Hq, D).to(q.dtype)
+    live = (length > 0)[:, None, None, None]
+    out = torch.where(live, out, 0.0).reshape(B, Hq, D).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(live[..., 0], torch.logsumexp(masked, dim=-1),
+                      float("-inf")).reshape(B, Hq)
+    return out, lse
 
 
 # ---------------------------------------------------------------------------
@@ -188,21 +196,26 @@ def kde_success_prob(
 # rows around it (lanes, subsets).
 # ---------------------------------------------------------------------------
 
-def _blocks(x: torch.Tensor) -> torch.Tensor:
+def _blocks(x: torch.Tensor, centered: bool = False) -> torch.Tensor:
     """(..., R) as (..., ceil(R/32), min(R, 32)): blocks of 32 columns,
-    the last padded with zeros (a sum plus +0.0 is the sum)."""
+    the last padded with zeros (a sum plus +0.0 is the sum); ``centered``:
+    the padding split between the two ends, the smaller half first."""
     R = x.shape[-1]
     if R <= 32:
         return x[..., None, :]
-    x = torch.nn.functional.pad(x, (0, (-R) % 32))
+    pad = (-R) % 32
+    lo = pad // 2 if centered else 0
+    x = torch.nn.functional.pad(x, (lo, pad - lo))
     return x.reshape(*x.shape[:-1], -1, 32)
 
 
 def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in XLA:CPU's order for a float32 row:
-    blocks of 32 columns, each added left to right, then the block sums
-    in order (a row of at most 32 is one block)."""
-    cols = _blocks(x).unbind(-1)
+    """Sum over the last axis in XLA:CPU's order for a float32 row: a
+    row of at most 32 left to right; a longer one as XLA's reduce-window
+    rewrite cuts it, windows of 32 over the row padded with zeros at both
+    ends (``(-R) % 32`` of them, the smaller half first), each window
+    added left to right, then the window sums in order."""
+    cols = _blocks(x, centered=True).unbind(-1)
     acc = cols[0]
     for c in cols[1:]:                   # every block at once, in order
         acc = acc + c
@@ -213,6 +226,35 @@ def _xla_row_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _halve(acc: torch.Tensor) -> torch.Tensor:
+    """A vector's lanes summed as LLVM reduces them: the upper half
+    onto the lower, until one lane is left."""
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
+
+
+def _vec4x4_sum(x: torch.Tensor) -> torch.Tensor:
+    """The row sum of LLVM's loop vectorised by 4 lanes and interleaved
+    by 4 (XLA:CPU's KDE sum at R = 20..23): the first 16 columns as four
+    4-lane accumulators (columns 4k..4k+3), added last first onto the
+    first (``a3 + (a2 + (a1 + a0))``) and halved; then the next 4
+    columns in a 4-lane epilogue whose lane 0 carries that sum, halved;
+    then the columns past them left to right."""
+    acc = [x[..., 4 * k:4 * k + 4] for k in range(4)]
+    r = acc[0]
+    for a in acc[1:]:
+        r = a + r
+    total = _halve(r)
+    tail = x[..., 16:20].clone()
+    tail[..., 0] = total + tail[..., 0]
+    total = _halve(tail)
+    for c in x[..., 20:].unbind(-1):
+        total = total + c
+    return total
+
+
 def _xla_kde_sum(x: torch.Tensor) -> torch.Tensor:
     """The KDE's sum of a row's masked CDFs in XLA:CPU's order inside
     the maintenance program. A row of more than 32 or at most 10 takes
@@ -220,11 +262,15 @@ def _xla_kde_sum(x: torch.Tensor) -> torch.Tensor:
     eight accumulators, column j into ``j % 8``, then halved three times
     (``a[:4] + a[4:]``, ...). At R = 11..16 the tail rides in the
     vector, padded with zeros (a sum plus +0.0 is the sum); at R =
-    17..32 the whole eights are vectorised and the rest added left to
-    right after them. The maintenance's ``mu`` equals the reference's
-    bits at R = 1..19, 24..32, 64, 96 and 128; at R = 20..23 and 33..63
-    XLA takes orders this does not replay (``mu`` a few ULPs away)."""
+    17..19 and 24..32 the whole eights are vectorised and the rest added
+    left to right after them. At R = 20..23 LLVM vectorises by four with
+    four accumulators (``_vec4x4_sum``). These are the loops of XLA's
+    optimised LLVM IR (``--xla_dump_to``) at each R; the maintenance's
+    ``mu`` equals the reference's bits at every R checked, 1..64 and
+    past it."""
     R = x.shape[-1]
+    if 20 <= R <= 23:
+        return _vec4x4_sum(x)
     if R <= 10 or R > 32:
         return _xla_row_sum(x)
     if R <= 16:

@@ -23,6 +23,18 @@ tokens alone, which the Whisper and VLM models cannot take.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
       --smoke --device cpu --prompt-len 4   # within max_decode_len (32)
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --mesh 2x2 --requests 8
+
+``--mesh DATAxMODEL`` serves each replica sharded over a (``data``,
+``model``) mesh of DATA x MODEL ranks, which it starts
+(``launch.mesh.spawn``, gloo; on the card every rank shares the card
+``r % count``), under the reference dry run's decode rules for the
+serve shape (``sharding.rules_for``: the ``hybrid`` layout unless
+``REPRO_DECODE_LAYOUT`` says otherwise). Every rank runs the router on
+the same inputs; each microbatch's latency is the slowest rank's and
+rank 0's clock decides the maintenance, so the ranks route alike.
+Rank 0 prints.
 
 The last line of output is one JSON object with the run's counts and
 per-call times (host clock, each call ending in a device synchronize).
@@ -30,17 +42,24 @@ per-call times (host clock, each call ending in a device synchronize).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_NAMES, AUDIO, VLM, ModelConfig, get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import BanditParams
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import _world, make_test_mesh, spawn
 from repro_torch.models import build_model
 from repro_torch.serving import QEdgeRouter, ServingEngine
+from repro_torch.sharding import rule_overrides, rules_for
+from repro_torch.sharding.collectives import all_reduce
 
 
 def decode_start(cfg: ModelConfig, prompt_len: int) -> int:
@@ -64,6 +83,28 @@ def request_batch(cfg: ModelConfig, prompt: torch.Tensor,
     return {key: stub, "tokens": prompt}
 
 
+def _rank(argv):
+    """One rank of ``--mesh``: ``main`` in the rank's process group, its
+    output kept by rank 0 alone."""
+    if dist.get_rank() == 0:
+        return main(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return main(argv)
+
+
+def _mesh_shape(text: str) -> tuple:
+    data, model = (int(n) for n in text.lower().split("x"))
+    return data, model
+
+
+def _agreed(x: float) -> float:
+    """The largest of every rank's ``x`` (itself on one rank)."""
+    if _world()[0] == 1:
+        return x
+    return float(all_reduce(torch.tensor([x], dtype=torch.float64),
+                            dist.group.WORLD, "max")[0])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_NAMES)
@@ -79,7 +120,15 @@ def main(argv=None):
     ap.add_argument("--tau", type=float, default=0.5)
     ap.add_argument("--slow-replica", type=int, default=-1,
                     help="index of a replica with +tau extra latency")
+    ap.add_argument("--mesh", type=_mesh_shape, default=None,
+                    metavar="DATAxMODEL",
+                    help="serve each replica on a (data, model) mesh of "
+                         "ranks, started here (gloo)")
     args = ap.parse_args(argv)
+    if args.mesh is not None and _world()[0] == 1:
+        return spawn(_rank, args.mesh[0] * args.mesh[1], argv,
+                     timeout=86400.0, threads=1 if args.device == "cpu"
+                     else None)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.smoke)
@@ -91,6 +140,18 @@ def main(argv=None):
     model = build_model(cfg, device=dev)
     first = decode_start(cfg, args.prompt_len)
     max_len = first + args.decode_steps
+    mesh, rules = None, {}
+    if args.mesh is not None:
+        mesh = make_test_mesh(*args.mesh)
+        rules = rules_for(cfg, ShapeConfig("serve", "decode", max_len,
+                                            args.batch), mesh)
+    with rule_overrides(**rules), mesh or contextlib.nullcontext():
+        if mesh is not None:
+            model.shard(mesh)
+        return _serve(args, cfg, dev, model, first, max_len)
+
+
+def _serve(args, cfg: ModelConfig, dev, model, first: int, max_len: int):
 
     engines = []
     for m in range(args.replicas):
@@ -118,18 +179,19 @@ def main(argv=None):
             finite &= bool(logits.isfinite().all())
             prefill_s.append(lat_p - engines[m].extra_latency)
             lat = lat_p
-            tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=dev)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
             for i in range(args.decode_steps):
                 logits, cache, lat_d = engines[m].decode(cache, tok,
                                                          first + i)
                 finite &= bool(logits.isfinite().all())
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
                 decode_s.append(lat_d - engines[m].extra_latency)
                 lat += lat_d
-            lats[k] = lat
+            lats[k] = _agreed(lat)
             total += 1
-            ok += int(lat <= args.tau)
+            ok += int(lats[k] <= args.tau)
         router.feedback(choices, lats)
-        if time.monotonic() - t_last_maint > 1.0:
+        if _agreed(float(time.monotonic() - t_last_maint > 1.0)):
             router.maintenance()
             maint += 1
             t_last_maint = time.monotonic()
@@ -145,7 +207,9 @@ def main(argv=None):
     print("replica QoS estimates:")
     print(router.qos_estimates.round(3))
     print(json.dumps({
-        "arch": cfg.name, "device": str(dev), "microbatches": total,
+        "arch": cfg.name, "device": str(dev),
+        "mesh": None if model.mesh is None else model.mesh.shape,
+        "microbatches": total,
         "qos_ok": ok, "prefills": len(prefill_s), "decodes": len(decode_s),
         "maintenance_calls": maint, "logits_finite": finite,
         "prefill_s": prefill_s, "decode_s": decode_s}))

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import fmath
-from repro_torch.sharding.collectives import (axis_of, enter, gathered,
-                                              reduce)
+from repro_torch.sharding.collectives import (dim_axis, enter, gathered,
+                                              gathers, reduce)
 
 
 def _dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
@@ -129,7 +129,8 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     """The tokens' rows of the table. On a mesh that splits the
     vocabulary each rank looks up the tokens in its share (zeros for
     the others') and the rows are summed over the vocabulary's ranks."""
-    p, ax = gathered(p), axis_of("vocab")
+    p = gathered(p)
+    ax = dim_axis(p["tok"], 0)
     if ax is None:
         return F.embedding(tokens, p["tok"])
     V = p["tok"].shape[0]
@@ -139,12 +140,19 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     return reduce(rows * inside[..., None], ax)
 
 
+def vocab_axis(p):
+    """The mesh axis that splits the logits' vocabulary (the
+    unembedding's, unless ``gathered`` gathers it whole), or None."""
+    w, dim = (p["unembed"], 1) if "unembed" in p else (p["tok"], 0)
+    return None if gathers(w, dim) else dim_axis(w, dim)
+
+
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
     """The logits; on a mesh that splits the vocabulary, this rank's
     share of their last dim (``model_zoo._xent`` takes them so)."""
     p = gathered(p)
     w = p["unembed"] if "unembed" in p else p["tok"].T
-    return enter(x, axis_of("vocab")) @ w
+    return enter(x, vocab_axis(p)) @ w
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +179,7 @@ def mlp(p, x: torch.Tensor) -> torch.Tensor:
     float32 and rounds once, the same numbers without the two casts.
     On a mesh that splits the FFN a rank's columns give a partial
     output, summed over the FFN's ranks."""
-    ax = axis_of("ffn")
+    ax = dim_axis(p["wi"], 1)
     x = enter(x, ax)
     h = x @ p["wi"]
     g = x @ p["wg"]

@@ -33,10 +33,21 @@ weights' d_model rows over ``data`` (FSDP, gathered per layer). ``loss``
 is then the whole batch's, equal on every rank: each rank's token
 losses are summed over the batch's ranks, and the vocabulary's share
 of each log-sum-exp over the vocabulary's. ``forward``'s logits are the
-rank's share of the vocabulary. The SSM, hybrid and audio families take
-no mesh that splits the heads (their SSM and cross-attention heads are
-not split yet); serving (``prefill``, ``decode``) takes no sharded
-model.
+rank's share of the vocabulary. A dim that its mesh axes do not divide
+stays whole (``fit_spec``, as the reference's dry run fits its specs);
+the SSM's packed columns split by head group (``ssm.head_order``).
+
+Serving on a mesh. ``prefill`` and ``decode`` take the rank's rows of
+the batch (``shard_batch``) and return their logits gathered over the
+vocabulary, so every rank of a row's group picks the same token. The
+caches are laid out by ``cache_axes`` under the active rules
+(``tree_shardings``, fitted), each tagged with its ``Sharding``:
+prefill computes its rows' K/V on its heads and re-lays them so
+(``collectives.relay``), and decode attends in that layout, over a
+slice of the slots where the rules split them (``ctx``; the reference
+dry run's decode layouts, ``attention.decode_attend``). Its
+collectives go through gloo on the host, so a sharded model's decode
+runs eagerly, never as a CUDA graph.
 
 Training. Every weight is made with ``requires_grad`` off, so serving
 builds no autograd graph and its times and memory are what they were
@@ -99,20 +110,26 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import whisper
-from repro_torch.sharding.collectives import axis_of, reduce, reduce_max
-from repro_torch.sharding.partitioning import (mesh_axes, place, tag,
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as M
+from repro_torch.sharding.collectives import (all_gather, axis_of,
+                                              batch_axes, gathers, reduce,
+                                              reduce_max, relay)
+from repro_torch.sharding.partitioning import (Sharding, fitted,
+                                               place, spec_axes, tag,
                                                tree_shardings)
 
 MOE_AUX_WEIGHT = 0.01
 
 
-def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+def _xent(logits: torch.Tensor, targets: torch.Tensor,
+          vocab=None) -> torch.Tensor:
     """Mean token cross-entropy of the logits taken to float32. On a mesh
-    the logits are this rank's share of the vocabulary and the tokens its
-    share of the batch; the mean is the whole batch's (the module
-    docstring)."""
+    the logits are this rank's share of the vocabulary (split over the
+    mesh axis ``vocab``) and the tokens its share of the batch; the mean
+    is the whole batch's (the module docstring)."""
     lf = logits.float()
-    vocab, batch = axis_of("vocab"), axis_of("batch")
+    batch = axis_of("batch")
     if vocab is None:
         logz = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, targets[..., None].long())[..., 0]
@@ -307,25 +324,98 @@ class Model(nn.Module):
         docstring)."""
         if self.mesh is not None:
             raise ValueError("the model is sharded already")
-        heads = mesh.ways(mesh_axes("heads", mesh))
-        if heads > 1 and self.cfg.family in (SSM, HYBRID, AUDIO):
-            raise NotImplementedError(
-                f"the {self.cfg.family} family does not split its heads "
-                f"over ranks yet (a mesh splitting them {heads} ways; "
-                f"ROADMAP A11, sharded serving and heads): give it a "
-                f"model axis of 1")
-        shardings = tree_shardings(self.param_axes(), mesh)
+        shardings = self.param_shardings(mesh)
         for name, p in self.named_parameters():
             p.data = place(p.data, shardings[name])
             tag(p, shardings[name])
         self.mesh = mesh
         return self
 
-    def _refuse_sharded(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} of a model sharded over ranks is not ported yet "
-                f"(ROADMAP A11, sharded serving and heads)")
+    def param_shardings(self, mesh) -> dict:
+        """``{parameter name: Sharding}`` of every weight on ``mesh`` under
+        the active rules, each fitted to its shape (``fitted``); the SSM's
+        packed columns in ``ssm.head_order`` where its heads split so
+        (else as fitted, and gathered whole at use: ``ssm.usable``)."""
+        shapes = {n: tuple(p.shape) for n, p in self.named_parameters()}
+        out = tree_shardings(self.param_axes(), mesh, shapes=shapes)
+        packed = {"in_proj": (1, "in_proj"), "conv_w": (1, "conv"),
+                  "conv_b": (0, "conv")}
+        for name, s in out.items():
+            parts = name.split(".")
+            if "ssm" not in parts or parts[-1] not in packed:
+                continue
+            dim, kind = packed[parts[-1]]
+            ways = mesh.ways(spec_axes(s.spec[dim]))
+            if ways > 1 and M.can_split(self.cfg, ways):
+                out[name] = s._replace(order=(dim, M.head_order(
+                    self.cfg, ways, kind)))
+        return out
+
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's rows of a whole batch (``prefill``'s or
+        ``decode``'s) on the active mesh: each input placed by its
+        ``input_specs`` axes; ``pos`` as it is."""
+        axes = {"tokens": ("batch", None), "token": ("batch", None),
+                "patches": ("batch", None, None),
+                "frames": ("batch", None, None)}
+        return {k: place(v, fitted(v.shape, axes[k])) if k in axes else v
+                for k, v in batch.items()}
+
+    def _serve_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The rank's logits gathered over the vocabulary (the module
+        docstring)."""
+        ax = L.vocab_axis(self.params.embed)
+        return logits if ax is None else all_gather(logits, ax, -1)
+
+    def _place_caches(self, caches: dict) -> dict:
+        """The rank's caches as prefill leaves them (``_cache_src``)
+        re-laid into ``cache_axes``' layout and tagged; the identity off
+        a mesh. The SSM's states stay as its weights hold them."""
+        if self.mesh is None:
+            return caches
+        out = {}
+        for key, tensors in caches.items():
+            placed = []
+            for i, t in enumerate(tensors):
+                src = self._cache_src(key, i)
+                whole = [n * self.mesh.ways(spec_axes(e))
+                         for n, e in zip(t.shape, src.spec)]
+                dst = src if self.layout[key][i] == T.STATE else fitted(
+                    whole, self.cache_axes()[key][i])
+                placed.append(tag(relay(t, src.spec, dst.spec), dst))
+            out[key] = tuple(placed)
+        return out
+
+    def _cache_src(self, key: str, i: int) -> Sharding:
+        """The layout of the rank's cache tensor ``i`` under ``key`` as
+        prefill computes it: its rows split by the batch's axes, its
+        heads as its weights split them (the attention's KV heads where
+        they are whole heads, ``attention.Heads``; the SSM's heads and
+        conv columns, in ``ssm.head_order``)."""
+        ax, kind = self.cache_axes()[key][i], self.layout[key][i]
+        names = [n for n, _ in self.named_parameters()]
+        if kind == T.STATE:
+            w = self.get_parameter(next(n for n in names
+                                        if n.endswith("ssm.in_proj")))
+            split = spec_axes(w.sharding.spec[1])
+            if gathers(w, 1) or not M.can_split(self.cfg,
+                                                self.mesh.ways(split)):
+                split = ()
+        else:
+            wq, wk = (self.get_parameter(next(n for n in names
+                                              if n.endswith(leaf)))
+                      for leaf in (".wq", ".wk"))
+            hd = A.heads_of({"wq": wq, "wk": wk}, self.cfg)
+            split = hd.names if not gathers(wk, 1) and hd.kv_local else ()
+        rows = batch_axes()
+        spec = tuple((rows or None) if name in ("batch", "kv_batch")
+                     else (split or None) if name in ("heads", "kv_heads")
+                     else None for name in ax)
+        order = ()
+        if kind == T.STATE and split and ax[-1] == "heads":   # conv state
+            order = (len(ax) - 1, M.head_order(
+                self.cfg, self.mesh.ways(split), "conv"))
+        return Sharding(self.mesh, spec, order)
 
     def _embed_inputs(self, batch: dict) -> torch.Tensor:
         """The token embeddings, after the VLM's patches (cast to the
@@ -353,7 +443,7 @@ class Model(nn.Module):
         logits, aux = self.forward(batch, remat=remat)
         if self.cfg.family == VLM:       # only text positions carry labels
             logits = logits[:, self.cfg.num_patches:]
-        loss = _xent(logits, batch["targets"])
+        loss = _xent(logits, batch["targets"], L.vocab_axis(self.params.embed))
         if self.cfg.is_moe:
             loss = loss + MOE_AUX_WEIGHT * aux
         return loss
@@ -369,11 +459,11 @@ class Model(nn.Module):
         patches), the first S filled; ring caches of the window's slots
         (fixed at the window size), position t in slot t % W; SSM states
         as they are (O(1) in S)."""
-        self._refuse_sharded("prefill")
         cfg = self.cfg
         h, _, caches = T.forward(self.params, cfg, self._embed_inputs(batch),
                                  collect_cache=True)
-        logits = T.logits_from_hidden(self.params, cfg, h[:, -1:])
+        logits = self._serve_logits(T.logits_from_hidden(self.params, cfg,
+                                                         h[:, -1:]))
         W = cfg.sliding_window
         if cfg.local_global_pattern is not None:
             caches = {key: (_pad_seq(kv, max_len) if key == "group_global"
@@ -384,20 +474,28 @@ class Model(nn.Module):
             kv = _to_ring(c[:2], W) if W is not None else _pad_seq(c[:2],
                                                                    max_len)
             caches = {"layers": kv + c[2:]}
-        return logits, caches
+        return logits, self._place_caches(caches)
 
     def decode(self, cache: dict, batch: dict):
         """One token per row at ``batch["pos"]`` -> (logits (B, 1, V),
         cache), the cache updated in place. A full cache must have a slot
-        at pos; a ring takes any pos >= 0."""
-        self._refuse_sharded("decode")
+        at pos; a ring takes any pos >= 0. On a mesh, the rank's rows
+        and caches, eagerly (the module docstring)."""
         token, pos = batch["token"], int(batch["pos"])
         for key, kinds in self.layout.items():
             for t, kind in zip(cache[key], kinds):
+                slots = t.shape[-2]
+                lay = A.kv_layout(t) if kind != T.STATE else None
+                if lay is not None and lay.slots:
+                    slots *= self.mesh.ways(lay.slots)
                 if kind in (T.RING, T.FULL) and (pos < 0 or kind == T.FULL
-                                                 and pos >= t.shape[-2]):
+                                                 and pos >= slots):
                     raise IndexError(f"position {pos} outside the {key} "
-                                     f"cache's {t.shape[-2]} slots")
+                                     f"cache's {slots} slots")
+        if self.mesh is not None:
+            logits, cache = self.step(self.params, self.cfg, cache, token,
+                                      pos)
+            return self._serve_logits(logits), cache
         if token.is_cuda and self.decode_graphs:
             key = (tuple(token.shape), token.dtype,
                    *((tuple(t.shape), t.dtype)
@@ -412,7 +510,16 @@ class Model(nn.Module):
     def init_cache(self, B: int, S: int) -> dict:
         """Zero caches for B rows, as the reference's ``init_cache(B, S)``:
         KV caches of S slots (``min(S, window)`` for a ring), the SSM conv
-        (compute dtype) and state (float32) caches."""
+        (compute dtype) and state (float32) caches. On a mesh, the rank's
+        blocks of them in ``cache_axes``' layout, tagged (``prefill``'s)."""
+        whole = self._init_cache(B, S)
+        if self.mesh is None:
+            return whole
+        return self._place_caches(
+            {k: tuple(place(t, self._cache_src(k, i))
+                      for i, t in enumerate(ts)) for k, ts in whole.items()})
+
+    def _init_cache(self, B: int, S: int) -> dict:
         cfg = self.cfg
 
         def kv(stack: tuple, slots: int) -> tuple:
@@ -471,22 +578,22 @@ class WhisperModel(Model):
 
     def loss(self, batch: dict, remat: bool = True) -> torch.Tensor:
         """The decoder's token cross-entropy (the module docstring)."""
-        return _xent(self.forward(batch)[0], batch["targets"])
+        return _xent(self.forward(batch)[0], batch["targets"],
+                     L.vocab_axis(self.params.embed))
 
     def prefill(self, batch: dict, max_len: int | None = None):
         """The batch -> (last position's logits (B, 1, V), caches): the
         self K/V a ring of ``max_decode_len`` slots, the cross K/V the
         encoder's ``Se``. ``max_len`` is ignored, as the reference
         ignores it."""
-        self._refuse_sharded("prefill")
         cfg = self.cfg
         enc = whisper.encode(self.params, cfg, batch["frames"])
         logits, (k, v, k_x, v_x) = whisper.decode_full(
             self.params, cfg, batch["tokens"], enc, collect_cache=True)
-        return logits[:, -1:], {
-            "layers": _to_ring((k, v), cfg.max_decode_len) + (k_x, v_x)}
+        return self._serve_logits(logits[:, -1:]), self._place_caches({
+            "layers": _to_ring((k, v), cfg.max_decode_len) + (k_x, v_x)})
 
-    def init_cache(self, B: int, S: int) -> dict:
+    def _init_cache(self, B: int, S: int) -> dict:
         """Zero caches for B rows, as the reference's ``init_cache(B, S)``:
         a self ring of ``min(S, max_decode_len)`` slots, cross K/V of
         ``cross_kv_len``."""

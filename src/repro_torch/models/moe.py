@@ -42,8 +42,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.sharding.collectives import (all_gather, axis_of, enter,
-                                              gather, reduce)
+from repro_torch.sharding.collectives import (all_gather, axis_of,
+                                              dim_axis, enter, gather,
+                                              reduce)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig,
@@ -137,9 +138,10 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor,
     B, S, d = x.shape
     k = cfg.experts_per_token
     T = B * S
-    ax = axis_of("experts")
+    ax = dim_axis(p["wi"], 0)
     xt = x.reshape(T, d)
-    r = route({"router": gather(p["router"], ax, 1)}, cfg, xt,
+    r = route({"router": gather(p["router"], dim_axis(p["router"], 1), 1)},
+              cfg, xt,
               capacity_factor, axis_of("batch"))
     cap = r.cap
     se = r.topi.reshape(-1)[r.order]

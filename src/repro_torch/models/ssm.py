@@ -11,6 +11,21 @@ Weights: the reference casts ``in_proj``, ``out_proj``, ``conv_w`` and
 ``conv_b`` to the compute dtype at every use; the port holds them in
 that dtype (one cast at load rounds the same way). ``A_log``,
 ``dt_bias`` and ``norm`` are read in float32 and stay float32.
+
+On a mesh that splits the heads (``model``) a rank holds its heads'
+share of every packed column group: of ``in_proj``'s z, x, B, C and dt
+columns, of ``conv_w``'s and ``conv_b``'s x, B and C columns (and so of
+the conv cache), ``norm``'s and ``out_proj``'s inner rows, the SSD
+state of its heads (``head_order`` gives the whole tensors' columns in
+that order, ``Model.shard`` cuts the blocks from it). The conv is
+depthwise, so a rank convolves its own columns; B and C (ngroups = 1,
+shared by every head) are then gathered whole, the gated RMSNorm's sum
+of squares is summed over the heads' ranks, and the output projection
+is a partial sum, as the attention's is. ``A_log`` and ``dt_bias`` stay
+whole on every rank, which takes its heads' entries. Where the heads or
+B/C do not split so (hymba's 25 heads over 16 ranks), the weights are
+split as ``fit_spec`` cuts their dims and gathered whole at use
+(``usable``), as the reference's GSPMD gathers them.
 """
 from __future__ import annotations
 
@@ -21,6 +36,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.collectives import (_gather_summed, dim_axis,
+                                              enter, reduce)
 
 
 def _dims(cfg: ModelConfig):
@@ -65,8 +82,55 @@ def axes_ssm() -> dict:
     }
 
 
-def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
+def head_order(cfg: ModelConfig, ways: int, packed: str) -> tuple:
+    """The whole ``in_proj`` columns (``packed="in_proj"``) or conv
+    columns (``"conv"``) in the order whose ``ways`` contiguous blocks
+    are each rank's heads' share of every group (the module
+    docstring)."""
     inner, H, P, N, _ = _dims(cfg)
+    sizes = ((inner, inner, N, N, H) if packed == "in_proj"
+             else (inner, N, N))
+    starts = [sum(sizes[:i]) for i in range(len(sizes))]
+    out = []
+    for r in range(ways):
+        for a, n in zip(starts, sizes):
+            out.extend(range(a + r * n // ways, a + (r + 1) * n // ways))
+    return tuple(out)
+
+
+def can_split(cfg: ModelConfig, ways: int) -> bool:
+    """Whether the heads, the inner width and B/C split ``ways`` ways."""
+    inner, H, P, N, _ = _dims(cfg)
+    return H % ways == 0 and N % ways == 0
+
+
+_PACKED = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "norm": 0, "out_proj": 0}
+
+
+def usable(p, cfg: ModelConfig):
+    """The block's weights as the rank computes with them: ``p`` itself,
+    or, where their split is not by head group (``can_split``), each
+    split weight gathered whole."""
+    ax = dim_axis(p["in_proj"], 1) or dim_axis(p["out_proj"], 0)
+    if ax is None or (dim_axis(p["in_proj"], 1) is not None
+                      and can_split(cfg, ax.size)):
+        return p
+    out = {k: p[k] for k in ("A_log", "dt_bias")}
+    for k, dim in _PACKED.items():
+        a = dim_axis(p[k], dim)
+        out[k] = p[k] if a is None else _gather_summed(p[k], a, dim)
+    return out
+
+
+def _local(cfg: ModelConfig, ax):
+    """(inner, H, N) of this rank's share (the whole off a split)."""
+    inner, H, P, N, _ = _dims(cfg)
+    m = 1 if ax is None else ax.size
+    return inner // m, H // m, N // m
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor, ax=None):
+    inner, H, N = _local(cfg, ax)
     z = proj[..., :inner]
     xin = proj[..., inner:2 * inner]
     Bc = proj[..., 2 * inner:2 * inner + N]
@@ -75,12 +139,35 @@ def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
     return z, xin, Bc, Cc, dt
 
 
-def _gated_out(p, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor):
+def _heads_slice(w: torch.Tensor, ax) -> torch.Tensor:
+    """This rank's heads' entries of a whole per-head weight."""
+    if ax is None:
+        return w
+    n = w.shape[0] // ax.size
+    return enter(w, ax).narrow(0, ax.index * n, n)
+
+
+def _whole_bc(t: torch.Tensor, ax) -> torch.Tensor:
+    """B or C columns of the rank gathered whole over the heads' ranks."""
+    return t if ax is None else _gather_summed(t, ax, -1)
+
+
+def _gated_out(p, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+               ax=None):
     """Gated RMSNorm then the output projection. ``F.silu`` on a
     bfloat16 gate computes in float32 and rounds once, as the
-    reference's cast, silu, cast."""
-    y = L.rms_norm(y * F.silu(z), p["norm"], cfg.rms_eps)
-    return y @ p["out_proj"]
+    reference's cast, silu, cast. Split over ``ax``, the norm's mean
+    square is the whole inner width's and the product a partial sum."""
+    g = y * F.silu(z)
+    if ax is None:
+        return L.rms_norm(g, p["norm"], cfg.rms_eps) @ p["out_proj"]
+    gf = g.float()
+    # every rank's columns read the sum: its gradient summed back (enter)
+    ms = enter(reduce(gf.square().sum(-1, keepdim=True), ax),
+               ax) / cfg.ssm_inner
+    y = (gf * torch.rsqrt(ms + cfg.rms_eps)
+         * (1.0 + p["norm"].float())).to(g.dtype)
+    return reduce(y @ p["out_proj"], ax)
 
 
 def ssm_full(p, cfg: ModelConfig, x: torch.Tensor,
@@ -88,9 +175,12 @@ def ssm_full(p, cfg: ModelConfig, x: torch.Tensor,
     """x: (B, S, d) in the compute dtype -> out (B, S, d)
     [, (conv_state (B, ck-1, conv_dim), h_state (B, H, N, P) float32)]."""
     B, S, _ = x.shape
-    inner, H, P, N, _ = _dims(cfg)
-    proj = x @ p["in_proj"]
-    z, xin, Bc, Cc, dt_raw = _split_proj(cfg, proj)
+    p = usable(p, cfg)
+    ax = dim_axis(p["in_proj"], 1)
+    inner, H, N = _local(cfg, ax)
+    P = cfg.ssm_head_dim
+    proj = enter(x, ax) @ p["in_proj"]
+    z, xin, Bc, Cc, dt_raw = _split_proj(cfg, proj, ax)
 
     # causal depthwise conv over (x, B, C): the reference's sum, term by
     # term in the compute dtype, then silu in float32
@@ -103,14 +193,15 @@ def ssm_full(p, cfg: ModelConfig, x: torch.Tensor,
         conv = conv + padded[:, i:i + S] * w[i]
     conv = F.silu(conv + p["conv_b"])
     xin = conv[..., :inner]
-    Bc = conv[..., inner:inner + N].float().contiguous()
-    Cc = conv[..., inner + N:].float().contiguous()
+    Bc = _whole_bc(conv[..., inner:inner + N], ax).float().contiguous()
+    Cc = _whole_bc(conv[..., inner + N:], ax).float().contiguous()
+    N = Bc.shape[-1]
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])            # (B,S,H)
-    A = -torch.exp(p["A_log"])                                # (H,)
+    dt = F.softplus(dt_raw.float() + _heads_slice(p["dt_bias"], ax))
+    A = -torch.exp(_heads_slice(p["A_log"], ax))              # (H,)
     xh = xin.reshape(B, S, H, P).contiguous()
     y = ops.ssd(xh, dt, A, Bc, Cc, chunk=cfg.ssm_chunk)
-    out = _gated_out(p, cfg, y.reshape(B, S, inner), z)
+    out = _gated_out(p, cfg, y.reshape(B, S, inner), z, ax)
     if not return_state:
         return out
 
@@ -133,9 +224,12 @@ def ssm_decode(p, cfg: ModelConfig, x: torch.Tensor,
     states as new tensors."""
     B = x.shape[0]
     dtype = x.dtype
-    inner, H, P, N, _ = _dims(cfg)
-    proj = (x @ p["in_proj"])[:, 0]
-    z, xin, Bc, Cc, dt_raw = _split_proj(cfg, proj)
+    p = usable(p, cfg)
+    ax = dim_axis(p["in_proj"], 1)
+    inner, H, N = _local(cfg, ax)
+    P = cfg.ssm_head_dim
+    proj = (enter(x, ax) @ p["in_proj"])[:, 0]
+    z, xin, Bc, Cc, dt_raw = _split_proj(cfg, proj, ax)
 
     conv_in = torch.cat([xin, Bc, Cc], dim=-1)                # (B, conv_dim)
     window = torch.cat([conv_state, conv_in[:, None]], dim=1)  # (B, ck, C)
@@ -144,12 +238,12 @@ def ssm_decode(p, cfg: ModelConfig, x: torch.Tensor,
     conv = (window.float() * p["conv_w"].float()).sum(1).to(dtype)
     conv = F.silu(conv + p["conv_b"])
     xin = conv[..., :inner]
-    Bc = conv[..., inner:inner + N]
-    Cc = conv[..., inner + N:]
+    Bc = _whole_bc(conv[..., inner:inner + N], ax)
+    Cc = _whole_bc(conv[..., inner + N:], ax)
 
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])            # (B,H)
-    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt_raw.float() + _heads_slice(p["dt_bias"], ax))
+    A = -torch.exp(_heads_slice(p["A_log"], ax))
     h_state, y = ops.ssd_decode_step(
         h_state, xin.reshape(B, H, P).float(), dt, A, Bc.float(), Cc.float())
-    out = _gated_out(p, cfg, y.reshape(B, inner).to(dtype), z)
+    out = _gated_out(p, cfg, y.reshape(B, inner).to(dtype), z, ax)
     return out[:, None], window[:, 1:], h_state

@@ -48,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as E
 from repro_torch.models import ssm as M
 from repro_torch.sharding.collectives import gathered
+from repro_torch.sharding.partitioning import sharding_of
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -252,14 +253,17 @@ def layer_decode(lp: Layer, cfg: ModelConfig, x: torch.Tensor, cache: tuple,
     """One layer, one token. ``cache`` is this layer's slice of the
     stacked caches ((k, v), (conv_state, h_state) or (k, v, conv_state,
     h_state)), updated in place and returned; ``rope_cs`` and ``slot``
-    (``decode_slot``'s (write index, lengths) of this layer's K/V cache,
-    None for an SSM stack) are built once per step by ``decode_step``."""
+    (``decode_slot``'s (write index, lengths) of this layer's K/V cache
+    and its ``attention.KVLayout`` on a mesh, None for an SSM stack) are
+    built once per step by ``decode_step``. On a mesh, the layer's
+    FSDP-split weights are gathered first."""
+    lp = gathered(lp)
     fam = cfg.family
     h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
     if fam in (DENSE, MOE, HYBRID, VLM):
-        write_idx, lengths = slot
+        write_idx, lengths, layout = slot
         a_out, _, _ = A.attn_decode(lp.attn, cfg, h, rope_cs, cache[0],
-                                    cache[1], lengths, write_idx)
+                                    cache[1], lengths, write_idx, layout)
     if fam in (SSM, HYBRID):
         conv_st, h_st = cache[-2], cache[-1]
         s_out, conv_new, h_new = M.ssm_decode(lp.ssm, cfg, h, conv_st, h_st)
@@ -348,8 +352,12 @@ def decode_slot(pos: torch.Tensor, k_cache: torch.Tensor, ring: bool,
                 B: int):
     """The K/V slot a token at ``pos`` writes (``pos % W`` in a W-slot
     ring, ``pos`` in a full cache) and the (B,) int32 lengths it attends
-    over (``min(pos + 1, W)``), both computed on pos's device."""
+    over (``min(pos + 1, W)``), both computed on pos's device. On a mesh
+    that splits the cache's slots W counts every rank's."""
+    layout = A.kv_layout(k_cache)
     W = k_cache.shape[-2]
+    if layout is not None and layout.slots:
+        W *= sharding_of(k_cache).mesh.ways(layout.slots)
     write_idx = torch.remainder(pos, W) if ring else pos
     lengths = torch.clamp(pos + 1, max=W).to(torch.int32).repeat(B)
     return write_idx, lengths
@@ -387,8 +395,11 @@ def decode_step(params: Params, cfg: ModelConfig, caches: dict,
     layout = cache_layout(cfg)
 
     def slot(key: str):
-        return (None if layout[key][0] == STATE else
-                decode_slot(pos, caches[key][0], layout[key][0] == RING, B))
+        if layout[key][0] == STATE:
+            return None
+        k0 = caches[key][0]
+        return (*decode_slot(pos, k0, layout[key][0] == RING, B),
+                A.kv_layout(k0))
 
     if cfg.local_global_pattern is None:
         x = _decode_stack(params.layers, cfg, x, caches["layers"], rope_cs,

@@ -23,9 +23,10 @@ any kernel.
 
 ``param_axes`` gives each weight's logical axes as the reference's
 does, without the stacking axis. On a mesh a layer's FSDP-split weights
-are gathered before it runs (``sharding.collectives.gathered``); the
-cross-attention's heads are not split (``Model.shard`` refuses a mesh
-that would split them).
+are gathered before it runs (``sharding.collectives.gathered``), and
+every attention, the cross-attention too, runs on the rank's heads
+(``attention.Heads``), its caches laid out by ``cache_axes`` as the
+decoders' are (``attention.decode_attend``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import RING, compute_dtype, decode_slot
 from repro_torch.sharding.collectives import gathered
+from repro_torch.sharding.partitioning import sharding_of
 
 # a cache tensor that decode only reads (``transformer``'s kinds say what
 # decode writes in the others)
@@ -124,42 +126,43 @@ def cache_axes(cfg: ModelConfig) -> dict:
     return {"layers": (ax,) * 4}
 
 
-def _heads(t: torch.Tensor, H: int, Dh: int) -> torch.Tensor:
-    """(B, S, H * Dh) -> contiguous (B, H, S, Dh)."""
-    B, S, _ = t.shape
-    return t.reshape(B, S, H, Dh).transpose(1, 2).contiguous()
-
-
 def _cross_attn_full(p, cfg: ModelConfig, x: torch.Tensor,
                      enc_out: torch.Tensor):
     """Queries from x (B, Sd, d), keys and values from enc_out (B, Se, d).
-    Returns (out (B, Sd, d), (k, v) (B, Hkv, Se, D) for caching)."""
+    Returns (out (B, Sd, d), (k, v) (B, Hkv, Se, D) for caching); on a
+    mesh, the rank's heads (``attention.attn_full``)."""
     B, Sd, _ = x.shape
-    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _heads(x @ p["wq"], Hq, Dh)
-    k = _heads(enc_out @ p["wk"], Hkv, Dh)
-    v = _heads(enc_out @ p["wv"], Hkv, Dh)
+    Dh = cfg.head_dim
+    hd = A.heads_of(p, cfg)
+    q, k, v = A._project_qkv(p, cfg, x, None, x_kv=enc_out, hd=hd)
+    kq = A._kv_for_queries(k, hd, cfg.num_heads)
+    vq = A._kv_for_queries(v, hd, cfg.num_heads)
     if Sd == enc_out.shape[1]:
-        o = ops.attention(q, k, v, causal=False)
+        o = ops.attention(q, kq, vq, causal=False)
     else:  # ragged cross shape: the reference's grouped float32 path
+        Hq, Hkv = q.shape[1], kq.shape[1]
         G = Hq // Hkv
         qg = (q.float() * Dh ** -0.5).reshape(B, Hkv, G, Sd, Dh)
-        logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float())
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kq.float())
         o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(logits, -1),
-                         v.float())
+                         vq.float())
         o = o.reshape(B, Hq, Sd, Dh).to(x.dtype)
-    o = o.transpose(1, 2).reshape(B, Sd, cfg.q_dim)
-    return o @ p["wo"], (k, v)
+    o = o.transpose(1, 2).reshape(B, Sd, -1)
+    return A._out_proj(p, o, hd), (k, v)
 
 
 def _cross_attn_decode(p, cfg: ModelConfig, x: torch.Tensor,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
-    """One token's queries (x (B, 1, d)) against the whole cross cache."""
+                       lengths: torch.Tensor,
+                       layout: A.KVLayout | None = None) -> torch.Tensor:
+    """One token's queries (x (B, 1, d)) against the whole cross cache
+    (in ``layout`` on a mesh), which it only reads."""
     B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, cfg.num_heads, cfg.head_dim)
-    o = ops.decode_attention(q, k_cache, v_cache, lengths)
-    return (o.reshape(B, cfg.q_dim) @ p["wo"])[:, None]
+    hd = A.heads_of(p, cfg)
+    q = A.project_q(p, cfg, x, hd)
+    o = A.decode_attend(q[:, :, 0], None, None, k_cache, v_cache, lengths,
+                        None, hd, layout, cfg.num_heads)
+    return A._out_proj(p, o.reshape(B, -1), hd)[:, None]
 
 
 def encode(params: Params, cfg: ModelConfig,
@@ -229,15 +232,19 @@ def decode_step(params: Params, cfg: ModelConfig, caches: dict,
     x = x + row.to(x.dtype)[None]
     k_self, v_self, k_cross, v_cross = caches["layers"]
     write_idx, lengths = decode_slot(pos, k_self, True, B)
-    cross_len = torch.full((B,), k_cross.shape[-2], dtype=torch.int32,
-                           device=x.device)
+    self_layout, cross_layout = A.kv_layout(k_self), A.kv_layout(k_cross)
+    Se = k_cross.shape[-2]
+    if cross_layout is not None and cross_layout.slots:
+        Se *= sharding_of(k_cross).mesh.ways(cross_layout.slots)
+    cross_len = torch.full((B,), Se, dtype=torch.int32, device=x.device)
     for l, lp in enumerate(params.dec_layers):
+        lp = gathered(lp)
         h = L.rms_norm(x, lp.ln1, cfg.rms_eps)
         x = x + A.attn_decode(lp.self_attn, cfg, h, None, k_self[l],
-                              v_self[l], lengths, write_idx)[0]
+                              v_self[l], lengths, write_idx, self_layout)[0]
         h = L.rms_norm(x, lp.ln_x, cfg.rms_eps)
         x = x + _cross_attn_decode(lp.cross_attn, cfg, h, k_cross[l],
-                                   v_cross[l], cross_len)
+                                   v_cross[l], cross_len, cross_layout)
         x = x + L.mlp(lp.mlp, L.rms_norm(x, lp.ln2, cfg.rms_eps))
     x = L.rms_norm(x, params.final_norm, cfg.rms_eps)
     return L.unembed(params.embed, x), caches

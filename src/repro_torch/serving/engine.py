@@ -5,6 +5,12 @@ replica's executor; the ``QEdgeRouter`` (router.py) distributes
 microbatches across engines and consumes their measured latencies as
 bandit feedback. The reference takes ``(model, params)``; the port's
 ``Model`` holds its weights, so the engine takes the model alone.
+
+A replica may be a model sharded over a mesh of ranks (``Model.shard``,
+run under ``with mesh:``): every rank then runs the engine on the whole
+microbatch, the engine hands the model the rank's rows
+(``Model.shard_batch``) and gathers the logits' rows back, so every rank
+sees every row's logits and picks the same tokens.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import time
 import torch
 
 from repro_torch.models import Model
+from repro_torch.sharding.collectives import batch_axes, relay
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -30,15 +37,27 @@ class ServingEngine:
         self.max_len = max_len
         self.extra_latency = extra_latency    # emulated network distance
 
+    def _local(self, batch: dict) -> dict:
+        return batch if self.model.mesh is None \
+            else self.model.shard_batch(batch)
+
+    def _whole(self, logits: torch.Tensor) -> torch.Tensor:
+        return logits if self.model.mesh is None \
+            else relay(logits, (batch_axes(),), ((),))
+
     def prefill(self, batch):
         t0 = time.monotonic()
-        logits, cache = self.model.prefill(batch, max_len=self.max_len)
+        logits, cache = self.model.prefill(self._local(batch),
+                                           max_len=self.max_len)
+        logits = self._whole(logits)
         _sync(logits)
         return logits, cache, time.monotonic() - t0 + self.extra_latency
 
     def decode(self, cache, token, pos):
         t0 = time.monotonic()
-        logits, cache = self.model.decode(cache, {"token": token, "pos": pos})
+        logits, cache = self.model.decode(cache, self._local(
+            {"token": token, "pos": pos}))
+        logits = self._whole(logits)
         _sync(logits)
         return logits, cache, time.monotonic() - t0 + self.extra_latency
 

@@ -23,14 +23,27 @@ tensor parallelism, plus FSDP's weight gathers):
 
 ``axis_of(logical)`` is the mesh axis the active mesh splits a logical
 axis over, or None; every function here is the identity for None, so
-off a mesh the model runs the plain program. ``gather_whole`` and
+off a mesh the model runs the plain program. ``dim_axis(w, dim)`` is
+the axis that splits a weight's dim by its ``Sharding`` tag (None
+where ``fit_spec`` left the dim whole or ``gathered`` gathered it): the
+model reads its splits from its weights.
+
+Serving moves a rank's blocks between layouts outside autograd:
+``relay(x, src, dst)`` takes this rank's block of a tensor split by the
+mesh axes ``src`` (one tuple a dim) to its block under ``dst``, with an
+all-to-all where one dim's split moves to another, all-gathers where a
+split goes, and local slices where one comes (or a reduce-scatter,
+where the blocks are also summed over those axes). Decode re-lays its
+query into the KV cache's layout and its output back with it
+(``models/attention.py``). ``gather_whole`` and
 ``gather_to_first`` gather placed state (not activations) whole, on
 every rank or on the mesh's first.
 
 All of them go through the raw collectives at the end of this module,
 which the model, the trainer and the simulator call directly where no
-autograd is involved: ``all_reduce`` (SUM, MAX), ``all_gather`` and
-``reduce_scatter`` over a ``launch.mesh.MeshAxis``. Two ranks sharing
+autograd is involved: ``all_reduce`` (SUM, MAX), ``all_gather``,
+``reduce_scatter`` and ``all_to_all`` over a ``launch.mesh.MeshAxis``
+(``roofline.collective_trace`` records their calls). Two ranks sharing
 one card need gloo (NCCL refuses two ranks on one device); gloo runs
 all three on CUDA tensors (PyTorch 2.11 on an H100), and a collective
 that fails raises.
@@ -43,7 +56,8 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.sharding.partitioning import (current_mesh, mesh_axes,
-                                               sharding_of, spec_axes)
+                                               ordered, sharding_of,
+                                               spec_axes, tag)
 
 
 def axis_of(logical: str):
@@ -57,6 +71,26 @@ def axis_of(logical: str):
     if not axes or mesh.ways(axes) == 1:
         return None
     return mesh.axis(axes)
+
+
+def batch_axes() -> tuple:
+    """The mesh axes that split the batch's rows on the active mesh
+    (``()`` where none does)."""
+    return mesh_axes("batch") if axis_of("batch") is not None else ()
+
+
+def dim_axis(w: torch.Tensor, dim: int):
+    """The ``MeshAxis`` of the mesh axes that split dim ``dim`` of the
+    weight ``w`` (its ``Sharding`` tag), or None: untagged, whole on
+    that dim, or split over axes of size 1."""
+    s = sharding_of(w)
+    if s is None:
+        return None
+    spec = tuple(s.spec) + (None,) * w.ndim
+    axes = spec_axes(spec[dim % w.ndim])
+    if not axes or s.mesh.ways(axes) == 1:
+        return None
+    return s.mesh.axis(axes)
 
 
 class _Enter(torch.autograd.Function):
@@ -133,7 +167,7 @@ def gather_whole(x: torch.Tensor) -> torch.Tensor:
         axes = spec_axes(entry)
         if axes:
             out = all_gather(out, s.mesh.axis(axes), dim)
-    return out
+    return ordered(out, s, inverse=True)
 
 
 def gather_to_first(x: torch.Tensor):
@@ -175,7 +209,7 @@ def gather_to_first(x: torch.Tensor):
                 i = i * mesh.axis_size(a) + int(at.get(a, 0))
             index.append(slice(i * n, (i + 1) * n))
         whole[tuple(index)] = blk
-    return whole
+    return ordered(whole, s, inverse=True)
 
 
 def _fsdp_dims(p: torch.Tensor, batch: tuple) -> list:
@@ -194,6 +228,23 @@ def _fsdp_dims(p: torch.Tensor, batch: tuple) -> list:
     return out
 
 
+def _gathered_axes(mesh) -> tuple:
+    """The mesh axes whose splits ``gathered`` gathers: the batch's and
+    the FSDP rows' (``()`` off a mesh)."""
+    if mesh is None:
+        return ()
+    return tuple(dict.fromkeys(mesh_axes("batch", mesh)
+                               + mesh_axes("embed_fsdp", mesh)))
+
+
+def gathers(w: torch.Tensor, dim: int) -> bool:
+    """Whether ``gathered`` gathers dim ``dim`` of the weight ``w`` whole
+    on the active mesh."""
+    axes = _gathered_axes(current_mesh())
+    return bool(axes) and any(d == dim % w.ndim
+                              for d, _ in _fsdp_dims(w, axes))
+
+
 class _View:
     """A module's weights as read by the model code: attributes, and
     ``[]`` and ``in`` for a parameter dict."""
@@ -209,20 +260,32 @@ class _View:
 
 
 def gathered(module: nn.Module):
-    """``module`` with each weight split over the batch's axes (FSDP)
-    gathered whole on those dims; the module itself when none is (off a
-    mesh, or no FSDP split). A ``ModuleList`` becomes a list, any other
-    module an object with the same attribute (and key) names."""
+    """``module`` with each weight split over the batch's axes or the
+    FSDP axes (``embed_fsdp``'s) gathered whole on those dims; the
+    module itself when none is (off a mesh, or no such split). Where the
+    batch takes the ``model`` axis (the reference's ``batchmodel`` decode
+    layout) the tensor-parallel weights are so gathered too. A
+    ``ModuleList`` becomes a list, any other module an object with the
+    same attribute (and key) names."""
     mesh = current_mesh()
-    batch = mesh_axes("batch", mesh) if mesh is not None else ()
+    batch = _gathered_axes(mesh)
     if not batch or not any(_fsdp_dims(p, batch)
                             for p in module.parameters()):
         return module
 
     def leaf(p):
-        for dim, axes in _fsdp_dims(p, batch):
+        dims = _fsdp_dims(p, batch)
+        if not dims:
+            return p
+        s = sharding_of(p)
+        spec = list(s.spec)
+        for dim, axes in dims:
             p = _gather_summed(p, mesh.axis(axes), dim)
-        return p
+            spec[dim] = None
+        if s.order and s.order[0] in [d for d, _ in dims]:
+            p = ordered(p, s, inverse=True)     # the whole's own order
+            s = s._replace(order=())
+        return tag(p, s._replace(spec=tuple(spec)))
 
     def view(mod):
         if isinstance(mod, nn.ModuleList):
@@ -289,3 +352,80 @@ def reduce_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     out = x.new_empty((n, *blocks[0].shape[1:]))
     getattr(dist, REDUCE_SCATTER)(out, torch.cat(blocks), group=axis.group)
     return out.movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, axis, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``x`` cut into ``axis.size`` blocks on ``split_dim``, block i sent
+    to the rank at index i of ``axis``; the blocks received, one from
+    each rank, concatenated on ``cat_dim`` in the axis's order."""
+    if axis.group is None:
+        return x
+    blocks = x.movedim(split_dim, 0).split(x.shape[split_dim] // axis.size)
+    if axis.group_rank:              # block i to the group's rank of index i
+        numbered = [None] * axis.size
+        for i, g in enumerate(axis.group_rank):
+            numbered[g] = blocks[i]
+        blocks = numbered
+    send = torch.cat([b.contiguous() for b in blocks])
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=axis.group)
+    got = in_axis_order(list(recv.split(send.shape[0] // axis.size)), axis)
+    return torch.cat([b.movedim(0, split_dim) for b in got], dim=cat_dim)
+
+
+def _axes(spec, ndim: int) -> list:
+    return [spec_axes(e) for e in tuple(spec) + (None,) * (ndim - len(spec))]
+
+
+def relay(x: torch.Tensor, src, dst, summed: tuple = (),
+          mesh=None) -> torch.Tensor:
+    """This rank's block of a whole tensor split by ``src`` (for each dim
+    its mesh axes, ``logical_to_spec``'s form) -> its block of the same
+    tensor split by ``dst``; with ``summed`` (mesh axes), of the sum of
+    the ranks' tensors along those axes. Outside autograd. A dim whose
+    axes move whole to a dim that ``src`` leaves whole goes by one
+    all-to-all; any other split that goes is all-gathered; a split that
+    comes is a local slice, or a reduce-scatter where it is ``summed``'s
+    axes; a sum no dim so takes is an all-reduce, before any slice."""
+    mesh = mesh if mesh is not None else current_mesh()
+    x = x.detach()
+    src, dst = _axes(src, x.ndim), _axes(dst, x.ndim)
+    summed = tuple(summed)
+
+    def moves(i: int):
+        """The dim that ``src[i]``'s axes move to by an all-to-all."""
+        if not src[i] or dst[i]:
+            return None
+        return next((j for j in range(x.ndim) if j != i and not src[j]
+                     and dst[j] == src[i]), None)
+
+    for i in range(x.ndim):
+        if src[i] and src[i] != dst[i] and moves(i) is None:
+            x = all_gather(x, mesh.axis(src[i]), i)
+            src[i] = ()
+    for i in range(x.ndim):
+        j = moves(i)
+        if j is not None:
+            x = all_to_all(x, mesh.axis(src[i]), split_dim=j, cat_dim=i)
+            src[j], src[i] = src[i], ()
+        elif src[i] and src[i] != dst[i]:
+            x = all_gather(x, mesh.axis(src[i]), i)
+            src[i] = ()
+    if summed and not any(dst[i] == summed and not src[i]
+                          for i in range(x.ndim)):
+        # no dim to reduce-scatter: sum before any slice by those axes
+        if mesh.ways(summed) > 1:
+            x = all_reduce(x, mesh.axis(summed).group)
+        summed = ()
+    for i in range(x.ndim):
+        if dst[i] and not src[i]:
+            ax = mesh.axis(dst[i])
+            if summed and dst[i] == summed:
+                x = reduce_scatter(x, ax, i)
+                summed = ()
+            else:
+                n = x.shape[i] // ax.size
+                x = x.narrow(i, ax.index * n, n)
+            src[i] = dst[i]
+    return x.contiguous()

@@ -41,6 +41,7 @@ them; it moves a placed tensor to another spec.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -148,13 +149,66 @@ def mesh_axes(logical: str, mesh=None) -> tuple:
     return spec_axes(logical_to_spec((logical,), mesh)[0])
 
 
+def fit_spec(shape: Sequence[int], spec: tuple, mesh) -> tuple:
+    """``spec`` with, for each dim, the innermost mesh axes dropped until
+    the rest divide the dim (the reference dry run's ``_fit_spec``)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = list(spec_axes(entry))
+        while axes and dim % mesh.ways(tuple(axes)):
+            axes.pop()            # drop the innermost axis and retry
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else tuple(axes))
+    return tuple(out)
+
+
+def rules_for(cfg, shape, mesh, layout: str | None = None) -> dict:
+    """The logical-axis rule overrides of a (config, ``ShapeConfig``,
+    mesh) cell, as the reference dry run's ``_rules_for``: FSDP rows over
+    ``data`` where the config asks; the batch over the batch axes where
+    it divides them, and then for a decode the layout ``layout``
+    (default ``REPRO_DECODE_LAYOUT``, else ``hybrid``) places the KV
+    cache's rows (``kv_batch``) and slots (``ctx``); a batch too small
+    for them puts the slots over every axis (long context)."""
+    over = {"embed_fsdp": ("data",) if cfg.fsdp else ()}
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    batch_ways = 1
+    for a in batch_axes:
+        batch_ways *= mesh.shape[a]
+    if shape.global_batch % batch_ways == 0 and shape.global_batch >= batch_ways:
+        layout = layout or os.environ.get("REPRO_DECODE_LAYOUT", "hybrid")
+        if shape.kind == "decode" and layout == "batchmodel":
+            # batch on the TP axis, cache seq on the data axis
+            over["batch"] = ("model",)
+            over["ctx"] = batch_axes
+            over["kv_batch"] = ("model",)
+        elif shape.kind == "decode" and layout == "hybrid":
+            # projections stay TP (batch on data); the attention runs in
+            # the cache's layout (cache batch on model, seq on data)
+            over["batch"] = batch_axes
+            over["kv_batch"] = ("model",)
+            over["ctx"] = batch_axes
+        else:
+            over["batch"] = batch_axes
+            over["kv_batch"] = batch_axes
+            over["ctx"] = ("model",) if shape.kind == "decode" else ()
+    else:
+        # long-context mode: batch unshardable -> full context parallelism
+        over["batch"] = ()
+        over["ctx"] = batch_axes + ("model",)
+    return over
+
+
 class Sharding(NamedTuple):
     """The port's ``NamedSharding``: a mesh and, per tensor dim, the mesh
     axes that split it (``logical_to_spec``'s form). A rank holds the
     block of each split dim at its row-major index over that dim's
-    axes."""
+    axes. ``order`` (empty, or ``(dim, indices)``) puts the whole
+    tensor's ``dim`` in that order before the blocks are cut (the module
+    docstring)."""
     mesh: object
     spec: tuple
+    order: tuple = ()
 
     def split_axes(self) -> tuple:
         """Every mesh axis that splits some dim, in spec order."""
@@ -183,10 +237,33 @@ class Sharding(NamedTuple):
         return tuple(out)
 
 
+def fitted(shape: Sequence[int], logical: Sequence[Optional[str]],
+           mesh=None) -> Sharding:
+    """The ``Sharding`` of a whole tensor of ``shape`` with logical axes
+    ``logical`` on ``mesh`` (default the active one), each dim's axes
+    fitted to its size (``fit_spec``)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return Sharding(mesh, fit_spec(shape, logical_to_spec(logical, mesh),
+                                   mesh))
+
+
+def ordered(x: torch.Tensor, sharding: Sharding,
+            inverse: bool = False) -> torch.Tensor:
+    """The whole tensor ``x`` in ``sharding``'s ``order`` (``inverse``:
+    back from it); ``x`` itself without one."""
+    if not sharding.order:
+        return x
+    dim, idx = sharding.order
+    idx = torch.tensor(idx, device=x.device)
+    if inverse:
+        idx = torch.argsort(idx)
+    return x.index_select(dim, idx)
+
+
 def place(x: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     """This rank's block of the whole tensor ``x`` under ``sharding``, a
     new contiguous tensor tagged with it (``sharding_of``)."""
-    block = x.detach()[sharding.block(x.shape)]
+    block = ordered(x.detach(), sharding)[sharding.block(x.shape)]
     return tag(block.clone(memory_format=torch.contiguous_format), sharding)
 
 
@@ -242,11 +319,16 @@ def tree_map_axes(fn, tree):
     raise TypeError(f"not a logical-axes tree: {type(tree)}")
 
 
-def tree_shardings(logical_tree, mesh=None):
+def tree_shardings(logical_tree, mesh=None, shapes=None):
     """Map a tree of logical-axis tuples to ``Sharding``s on ``mesh``
-    (default the active mesh)."""
+    (default the active mesh); with ``shapes`` (a dict of the tree's
+    keys to whole shapes, for a flat dict tree) each fitted to its
+    tensor's shape (``fitted``)."""
     mesh = mesh if mesh is not None else current_mesh()
     if mesh is None:
         raise ValueError("no active mesh")
+    if shapes is not None:
+        return {k: fitted(shapes[k], ax, mesh)
+                for k, ax in logical_tree.items()}
     return tree_map_axes(
         lambda ax: Sharding(mesh, logical_to_spec(ax, mesh)), logical_tree)

@@ -250,20 +250,27 @@ def test_maintenance_kernel_selection_is_bit_exact(R):
 
 
 # The maintenance kernel's mu (csrc/maintenance.cu), replayed in numpy: its
-# row sums as the kernel orders them (xla_row_sum: lane b adds block b of
-# 32, then the block sums; xla_kde_sum: eight accumulators between R 11 and
-# 32), its erf's float64 Horner steps, n ** -0.2 from the table the wrapper
+# row sums as the kernel orders them (xla_row_sum: lane b adds window b of
+# 32, the row padded at both ends, then the window sums; xla_kde_sum: eight
+# accumulators between R 11 and 32, four 4-lane ones at R 20..23), its
+# erf's float64 Horner steps, n ** -0.2 from the table the wrapper
 # passes. The card holds the kernel to the plain version at a few R
 # (chip_smoke.py); this holds the kernel's order at every R.
 
 def _kernel_row_sum(v: np.ndarray, R: int) -> np.float32:
     f32 = np.float32
     width = R if R <= 32 else 32
+    lo = 0 if R <= 32 else (-R % 32) // 2        # the windows' front padding
+
+    def at(c):
+        return v[c] if 0 <= c < R else f32(0.0)
+
     parts = []
     for b in range(-(-R // width)):
-        acc = v[b * width]
-        for c in range(b * width + 1, (b + 1) * width):
-            acc = f32(acc + (v[c] if c < R else f32(0.0)))
+        c0 = b * width - lo
+        acc = at(c0)
+        for c in range(c0 + 1, c0 + width):
+            acc = f32(acc + at(c))
         parts.append(acc)
     total = parts[0]
     for part in parts[1:]:
@@ -275,6 +282,17 @@ def _kernel_kde_sum(v: np.ndarray, R: int) -> np.float32:
     f32 = np.float32
     if R <= 10 or R > 32:
         return _kernel_row_sum(v, R)
+    if 20 <= R <= 23:                            # 4 lanes x 4 accumulators
+        r = list(v[:4])
+        for i in range(4):
+            for k in range(1, 4):
+                r[i] = f32(v[4 * k + i] + r[i])
+        total = f32(f32(r[0] + r[2]) + f32(r[1] + r[3]))
+        t0 = f32(total + v[16])
+        total = f32(f32(t0 + v[18]) + f32(v[17] + v[19]))
+        for j in range(20, R):
+            total = f32(total + v[j])
+        return total
     eights = 2 if R <= 16 else R // 8
     acc = list(v[:8])
     for i in range(8):

@@ -10,9 +10,11 @@ samples whose ``|z|`` passes erf's clamp. Its parts each equal XLA's:
 ``core/fmath.py::erf`` (the clamp point, |x| up to 12, a denormal),
 the ``powf`` table of ``n ** -0.2``, the row sums' order, and
 ``fmath.sqrt`` (correctly rounded, where torch's vectorised float32
-``sqrt`` is not). At R = 20..23 XLA sums the KDE in an order not
-replayed: ``q`` stays exact and ``mu`` a few ULPs away. At any R the
-KDE's sum is a sum of the whole row.
+``sqrt`` is not). The orders are those of XLA's optimised program at
+each R (``--xla_dump_to``): at R = 20..23 the KDE's loop vectorised by
+four with four accumulators, past 32 the rows cut into windows of 32
+padded at both ends; ``mu`` equals the reference's bits at every R in
+1..64. At any R the KDE's sum is a sum of the whole row.
 """
 import jax
 import jax.numpy as jnp
@@ -61,7 +63,7 @@ def test_sqrt_is_correctly_rounded():
         bits(fmath.sqrt(torch.from_numpy(x)).numpy()), bits(want))
 
 
-@pytest.mark.parametrize("R", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("R", [16, 32, 40, 64, 96, 100, 128])
 def test_row_sum_order_is_xlas(R):
     x = np.random.default_rng(R).normal(60.0, 30.0, (3000, R)).astype(
         np.float32)
@@ -115,10 +117,27 @@ def run_both(R: int, tau: float):
 
 @pytest.mark.parametrize("R", [20, 23])
 def test_maintenance_stats_at_20_to_23_are_ulps_from_the_references(R):
+    """Zero ULPs since the KDE's sum replays XLA's 4 x 4 vector loop."""
     _, _, want, got = run_both(R, 0.08)
     np.testing.assert_array_equal(bits(got[1].numpy()), bits(want[1]))
     apart = np.abs(bits(got[0].numpy()).astype(np.int64) - bits(want[0]))
-    assert apart.max() <= 4
+    assert apart.max() == 0
+
+
+@pytest.mark.parametrize("first", [1, 17, 33, 49])
+def test_mu_is_xlas_at_every_window_to_64(first):
+    """``mu`` and ``q`` bit for bit at every R in 1..64, 16 widths a
+    case (300 rows each)."""
+    for R in range(first, first + 16):
+        lat, mask, rtt = maintenance_rows(300, R, R)
+        want = jax.jit(lambda a, b, c: jref.bandit_maintenance_stats(
+            a, b, c, 0.08, 0.9))(lat, mask, rtt)
+        got = ref.bandit_maintenance_stats(
+            torch.from_numpy(lat), torch.from_numpy(mask),
+            torch.from_numpy(rtt), 0.08, 0.9)
+        for w, g, name in zip(want, got, ("mu", "q")):
+            np.testing.assert_array_equal(bits(g.numpy()), bits(w),
+                                          err_msg=f"{name} at R={R}")
 
 
 @pytest.mark.parametrize("tau", [0.08, 0.15])

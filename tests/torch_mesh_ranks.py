@@ -23,6 +23,22 @@ def call_all(calls) -> list:
     return [fn(*args, **kwargs) for fn, args, kwargs in calls]
 
 
+def then_in_pairs(calls: list, pair_calls: tuple, ports: tuple) -> tuple:
+    """``call_all(calls)`` on a spawn of 4 ranks; then the ranks leave
+    the group and form two of 2 (ranks 0 and 1 on ``ports[0]``, 2 and 3
+    on ``ports[1]``), and pair p makes ``call_all(pair_calls[p])``: one
+    spawn's start for the 4-rank and the 2-rank runs. Returns (the first
+    results, the pair's)."""
+    first = call_all(calls)
+    rank = dist.get_rank()
+    dist.barrier()
+    dist.destroy_process_group()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{ports[rank // 2]}",
+        world_size=2, rank=rank % 2)
+    return first, call_all(pair_calls[rank // 2])
+
+
 def state_shardings(model, mesh) -> tuple:
     """The ``Sharding``s of ``(parameters, AdamWState)`` on ``mesh``."""
     ps = tree_shardings(model.param_axes(), mesh)
@@ -169,4 +185,36 @@ def reduce_scatter_cases() -> list:
         n = x.shape[dim] // ax.size
         want = all_reduce(x, ax.group).narrow(dim, ax.index * n, n)
         out.append(torch.equal(reduce_scatter(x, ax, dim), want))
+    return out
+
+
+def serve(cfg, weights: dict, batch: dict, tokens, start: int, max_len: int,
+          mesh=None, rules=None) -> list:
+    """``prefill`` of the whole ``batch`` then one ``decode`` a column of
+    ``tokens`` (B, steps) from position ``start``, on ``mesh`` (each rank
+    its rows, ``Model.shard_batch``) under the rule overrides ``rules``,
+    or on one rank. Returns each call's logits (B, 1, V), the rows
+    gathered whole."""
+    from repro_torch.sharding import rule_overrides
+    from repro_torch.sharding.collectives import batch_axes, relay
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(weights)
+    out = []
+    with rule_overrides(**(rules or {})), mesh or contextlib.nullcontext():
+
+        def local(b: dict) -> dict:
+            return b if mesh is None else model.shard_batch(b)
+
+        def whole(logits):
+            return logits if mesh is None else relay(
+                logits, (batch_axes(),), ((),))
+
+        if mesh is not None:
+            model.shard(mesh)
+        logits, cache = model.prefill(local(batch), max_len=max_len)
+        out.append(whole(logits))
+        for i in range(tokens.shape[1]):
+            logits, cache = model.decode(cache, local(
+                {"token": tokens[:, i:i + 1], "pos": start + i}))
+            out.append(whole(logits))
     return out
