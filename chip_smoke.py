@@ -6,6 +6,9 @@
     python3 chip_smoke.py --fleet-only 3 [--profile DIR]  # the fleet alone
     python3 chip_smoke.py --plant-faults         # kernels, then what
                                                  # mesh_serve's bound catches
+    python3 chip_smoke.py --ssd-witness          # mamba2-1.3b's gradients
+                                                 # against the plain scan's
+    python3 chip_smoke.py --save-only 2          # mesh_train's save alone
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -48,11 +51,24 @@ Phases, one JSON line each; any failure exits non-zero:
                 (the training shape with a strided dO, gemma3's local
                 window at D 256, hymba's 25/5 heads of 64 with its window
                 over an S that is no multiple of the tile, two small
-                float32 cases, one non causal, and mesh_train's float32
-                shapes at D 128, ``MESH_FLASH``), dQ, dK and dV within
-                ``BWD_TOL`` and a second call bit-identical; ``ops.ssd``,
-                which has no backward, refusing an input that requires
-                grad.
+                float32 cases, one non causal, mesh_train's float32
+                shapes at D 128, ``MESH_FLASH``, and --train-100m's
+                heads of 80 in bf16 and a float32 case at D 80,
+                ``TRAIN_100M_FLASH``, and hymba-1.5b's as train_ssm runs
+                it, ``TRAIN_HYMBA_FLASH``, whose forwards the flash cases
+                hold too), dQ, dK and dV within ``BWD_TOL`` and a second
+                call bit-identical; the SSD forward also at train_ssm's
+                scans (``TRAIN_SSM_SSD``); the SSD backward (``ssd_bwd``,
+                a kernel of the port alone) against ``ref.ssd_grads`` at
+                ``SSD_BWD_CASES`` (mamba2-1.3b's and hymba-1.5b's
+                training shapes, hymba's 25 heads over an S of 300 with
+                a strided dy, a small float32 case), dx, ddt, dA, dB and
+                dC within ``SSD_BWD_TOL`` and a second call
+                bit-identical, and ``ops.ssd`` under grad mode
+                (``SSDScan``) giving the kernels' own bits at the
+                training shapes and the small case;
+                ``ops.decode_attention``, which has
+                no backward, refusing an input that requires grad.
 4. testbed   -- ``run_sim_stream("qedgeproxy")`` at the paper's 30x10
                 testbed for 180 s; at least 90% of clients must reach rho.
 5. fleet     -- the K=1000 x M=50 anchor cell for 300 steps; both
@@ -238,6 +254,20 @@ Phases, one JSON line each; any failure exits non-zero:
                 backward), no other kernel. Gates: every loss finite, the
                 last five's mean below the first, peak under the card's
                 memory (budget 90 s, the model's build included).
+   train_ssm -- the SSM and hybrid families and --train-100m trained on
+                the card through ``launch.train`` as ``train`` runs
+                qwen3-4b (``TRAIN_SSM``, ``TRAIN_100M``; random weights
+                from seed 0, AdamW on the cosine schedule, remat), one at
+                a time: (a) mamba2-1.3b at its published width and depth
+                (48 layers, d_model 2,048, 64 SSD heads of 64, N 128,
+                bf16), ``ssd`` 96 and ``ssd_bwd`` 48 launches a step and
+                no other kernel; (b) hymba-1.5b at its published width and
+                depth (32 layers), ``ssd`` and flash 64 a step, their
+                backwards 32; (c) --train-100m (8 layers of 8/4 heads of
+                80) at seq 512 x batch 8, flash 16 and its backward 8 a
+                step at D 80. Each run's gates and readings as ``train``'s
+                (every loss finite, the mean of the last five below the
+                first); the phase's seconds (budget 60 s).
    mesh_train -- sharded training on ranks of the one card (gloo,
                 ``launch.mesh.spawn``): qwen3-4b at its published width
                 cut to 2 layers, float32 (TF32 off), seq 256 x batch 8,
@@ -282,8 +312,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 bound, at the main paths' shapes (``times``; the flash
                 backward at the training shape beside SDPA's backward
                 through ``torch.autograd.grad``, its bound 2.5 x the
-                forward's operations) and at the
+                forward's operations; ``ssd_bwd`` at mamba2-1.3b's
+                training shape, no library call) and at the
                 families', Whisper's and InternVL2's (``times_families``),
+                and at train_ssm's other shapes (``times_train``:
+                ``ssd_bwd`` at hymba's heads, flash and its backward at D
+                80 beside SDPA and SDPA's backward),
                 by CUDA events (kernel and
                 library calls queued behind a device sleep, so the host's
                 enqueue rate does not enter), the maintenance kernels also
@@ -312,6 +346,7 @@ import functools
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -325,7 +360,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.roofline import hw as _hw  # noqa: E402
 from repro_torch.roofline.analysis import (attention_work,  # noqa: E402
                                            decode_work, kernel_bound_s,
-                                           nbytes, ssd_work)
+                                           nbytes, ssd_bwd_work, ssd_work)
 
 BF16_FLOP_PER_S = _hw.PEAK_FLOPS_BF16   # H100 SXM dense bf16 (data sheet)
 
@@ -457,13 +492,24 @@ MESH_FLASH = tuple((8 // data, HEADS["Hq"] // model, HEADS["Hkv"] // model,
 MESH_SERVE_FLASH = ((4 // 2, HEADS["Hq"] // 2, HEADS["Hkv"] // 2, 1000,
                      HEADS["D"]),
                     (1, HEADS["Hq"] // 2, HEADS["Hkv"] // 2, 8192, HEADS["D"]))
+# --train-100m's attention (8/4 heads of 80) at examples/train_100m.py's
+# seq 512 x batch 8, causal, bf16: head dim 80 takes flash_tc_kernel with
+# five 32-byte boxes a row, and the CUDA-core backward; then a small float32
+# case at D 80 (flash_f32_kernel, the CUDA-core backward). (B, Hq, Hkv, S,
+# D, dtype, causal, window)
+TRAIN_100M_FLASH = ((8, 8, 4, 512, 80, "bfloat16", True, None),
+                    (2, 4, 2, 130, 80, "float32", True, None))
+# hymba-1.5b's attention as train_ssm runs it: 25/5 heads of 64 at seq 256
+# x batch 8, causal, its window of 1,024 (wider than the sequence), bf16.
+# (B, Hq, Hkv, S, D, dtype, causal, window)
+TRAIN_HYMBA_FLASH = (8, 25, 5, 256, 64, "bfloat16", True, 1024)
 # (B, Hq, Hkv, S, D, dtype, causal, window, q_mul): the serve prefill
 # first, then the same with q x 4 (peaked rows: the online softmax rescales
 # at large logits); a window of 48 at D=64, non-causal with a group of 4
 # at D=32, a window of 8 at D=16, each in both dtypes; D=256 with a ragged S;
 # then ``FAMILY_FLASH`` and ``AV_FLASH`` at the serve cell's batch, and
 # ``MESH_FLASH`` in float32 (``flash_f32_kernel`` at D 128), then
-# ``MESH_SERVE_FLASH``
+# ``MESH_SERVE_FLASH``, then ``TRAIN_100M_FLASH`` and ``TRAIN_HYMBA_FLASH``
 FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                 HEADS["D"], "bfloat16", True, None, 1.0),
                (SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
@@ -481,7 +527,9 @@ FLASH_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"], SERVE["prompt_len"],
                *((*shape, "float32", True, None, 1.0)
                  for shape in MESH_FLASH),
                *((*shape, "bfloat16", True, None, 1.0)
-                 for shape in MESH_SERVE_FLASH))
+                 for shape in MESH_SERVE_FLASH),
+               *((*case, 1.0) for case in (*TRAIN_100M_FLASH,
+                                           TRAIN_HYMBA_FLASH)))
 # decode_attention's log-sum-exp (float32 from float32 logits in both; the
 # kernel sums its splits in another order and takes CUDA's expf and logf)
 LSE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -542,12 +590,18 @@ DECODE_CASES = ((SERVE["batch"], HEADS["Hq"], HEADS["Hkv"],
 SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
            "bfloat16": dict(rtol=2.0 ** -7, atol=1e-2)}
 SSM = dict(H=64, P=64, N=128, chunk=256)           # mamba2-1.3b SSD
+# the SSD scans train_ssm runs, (B, S, H, P, N, chunk) at seq 256 x batch
+# 8: mamba2-1.3b's (one 256-row chunk), hymba-1.5b's (25 heads of 64, N
+# 16, two 128-row chunks)
+TRAIN_SSM_SSD = ((8, 256, SSM["H"], SSM["P"], SSM["N"], SSM["chunk"]),
+                 (8, 256, 25, 64, 16, 128))
 # (B, S, H, P, N, chunk, dtype, model-made inputs): the serve prefill
 # first; then tests/test_kernels.py's mamba2-like case, a ragged S at the
 # reduced config's widths and a ragged S with three heads; then the
 # bfloat16 passes at hymba's widths (N=16, P=64) over two chunks, the last
 # ragged, at the reduced widths (N=8, P=16), and at N=128, P=32 over three
-# chunks with 3 heads (a head group of 8 only partly filled)
+# chunks with 3 heads (a head group of 8 only partly filled); then hymba's
+# prefill and ``TRAIN_SSM_SSD``
 SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
               SSM["N"], SSM["chunk"], "bfloat16", True),
              (1, 256, 2, 64, 128, 128, "float32", False),
@@ -558,7 +612,29 @@ SSD_CASES = ((SERVE["batch"], SERVE["prompt_len"], SSM["H"], SSM["P"],
              (1, 520, 3, 32, 128, 256, "bfloat16", False),
              # hymba-1.5b's SSD heads at the decode graph's prompt: H = 25
              # leaves the last group of 8 heads one
-             (SERVE["batch"], 1100, 25, 64, 16, 128, "bfloat16", True))
+             (SERVE["batch"], 1100, 25, 64, 16, 128, "bfloat16", True),
+             *((*case, "bfloat16", True) for case in TRAIN_SSM_SSD))
+# The SSD backward against ref.ssd_grads (float32 autograd through the
+# sequential scan), element by element, |grad - plain| <= scale max|plain| +
+# rtol |plain| by the gradient's dtype: every float32 gradient (ddt, dB, dC,
+# and dx of float32 x) to 2e-5 of its scale plus 1e-4 of itself (sums of up
+# to S terms in another order, CUDA's expf; the kernel's schedule modelled
+# in float32 on the CPU, tests/test_torch_ssd_bwd.py, stays within 2.1e-6
+# of the scale); a bfloat16 dx also within one bfloat16 step of itself
+# (rtol 2**-7: its float32 value rounds once). dA sums B S terms dt_i
+# ddA_i, each ddA_i itself a reverse sum of r over the sequence, so its
+# error grows with the terms, not with the result: within ``terms`` (1e-3)
+# of the sum of the terms' magnitudes, sum |dt_i ddt_i - x_i . dx_i| / |A|
+# from the plain version's gradients (the model: <= 5e-5 at S 256)
+SSD_BWD_TOL = {"float32": dict(scale=2e-5, rtol=1e-4),
+               "bfloat16": dict(scale=2e-5, rtol=2.0 ** -7), "terms": 1e-3}
+# (B, S, H, P, N, chunk, dtype, strided dy): ``TRAIN_SSM_SSD``, mamba2-1.3b's
+# and hymba-1.5b's training shapes; hymba's SSD heads over an S of 300, no
+# multiple of a chunk or of the backward's 32-row tile, with dy strided; a
+# small float32 case
+SSD_BWD_CASES = (*((*case, "bfloat16", False) for case in TRAIN_SSM_SSD),
+                 (8, 300, 25, 64, 16, 128, "bfloat16", True),
+                 (2, 70, 4, 16, 8, 16, "float32", False))
 # (rows, R): benchmarks/footprint.py's shape, then tests/test_kernels.py's
 KDE_SIZES = ((65536, 64), (300, 64))
 # R of the adversarial maintenance and KDE rows: one sample (a lane a row),
@@ -586,6 +662,34 @@ BWD_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
 # fewest that keep the whole warm-up
 TRAIN = dict(arch="qwen3-4b", steps=20, seq_len=256, batch=8, lr=3e-4,
              budget_s=90.0)
+# The SSM and hybrid training cells (train_ssm): mamba2-1.3b and hymba-1.5b
+# at their published widths and depths, TRAIN's sequence, batch, optimizer
+# and remat, 20 steps each (the whole warm-up, as TRAIN; at 10 on an H100,
+# mamba2's loss fell only 11.37 -> 11.30); the phase's budget with the models'
+# builds. Then --train-100m at examples/train_100m.py's seq 512 x batch 8,
+# 20 steps
+TRAIN_SSM = dict(steps=20, seq_len=TRAIN["seq_len"], batch=TRAIN["batch"],
+                 lr=TRAIN["lr"], last=5, budget_s=60.0)
+TRAIN_100M = dict(steps=20, seq_len=512, batch=8, lr=TRAIN["lr"], last=5)
+# ``--ssd-witness``: train_ssm's mamba2-1.3b (published width, seed 0, its
+# first batch), the SSD kernels against the plain scan (``ref.ssd`` and its
+# float32 autograd). At 48 layers the two losses part by 0.28 % and leaves'
+# gradients are near orthogonal (NVIDIA H100 80GB HBM3, 700 W), so the
+# witness tells a kernel fault from the model's own sensitivity to rounding. Gated: the kernels at the inputs the
+# model gives its first and last layer (``SSD_TOL``, ``SSD_BWD_TOL``); the
+# backward kernel against the plain backward under the same forward at 48
+# layers; and the kernels against the plain scan at ``shallow`` layers,
+# where little amplifies: the loss within ``loss_rtol``, every leaf's
+# gradient norm within ``norm_rtol`` and its cosine at least ``min_cos``
+# (bf16 activations and gradients, y rounded to bf16 either way). Reported:
+# the kernels against the plain scan at 48 layers, and how far each layer's
+# y parts from the plain run's when the kernels run every layer and when
+# only the first layer's y is perturbed by as much as the kernel parts
+# from the plain scan there (``noise_seed``); and how far the gradients part
+# when only the last layer's dx is perturbed by as much as the kernel's dx
+# parts from the plain backward's there.
+WITNESS = dict(arch="mamba2-1.3b", shallow=2, loss_rtol=1e-3, norm_rtol=0.02,
+               min_cos=0.99, noise_seed=1)
 # (B, Hq, Hkv, S, D, dtype, causal, window): the training shape (qwen3-4b's
 # heads, batch 8, seq 256; its dO strided, as the model's transpose gives it),
 # gemma3-1b's local layers (4/1 heads of 256, window 512, S 1,000, the serve
@@ -593,15 +697,17 @@ TRAIN = dict(arch="qwen3-4b", steps=20, seq_len=256, batch=8, lr=3e-4,
 # 1,024, S 1,100 past the window and no multiple of the 64-row tile), a
 # small float32 case with a window, and Whisper's bidirectional encoder mask
 # in float32, then ``MESH_FLASH`` (float32 at D 128, as mesh_train's ranks
-# run it). bfloat16 at D 64 and 128 takes the tensor-core kernels, D 256
-# and float32 the CUDA-core ones (``flash_attention.bwd_tensor_cores``)
+# run it), then ``TRAIN_100M_FLASH`` and ``TRAIN_HYMBA_FLASH``. bfloat16 at
+# D 64 and 128 takes the tensor-core kernels, D 80 and 256 and float32 the
+# CUDA-core ones (``flash_attention.bwd_tensor_cores``)
 BWD_CASES = ((TRAIN["batch"], HEADS["Hq"], HEADS["Hkv"], TRAIN["seq_len"],
               HEADS["D"], "bfloat16", True, None),
              (SERVE["batch"], 4, 1, 1000, 256, "bfloat16", True, 512),
              (2, 25, 5, 1100, 64, "bfloat16", True, 1024),
              (2, 4, 2, 130, 64, "float32", True, 48),
              (2, 4, 1, 70, 32, "float32", False, None),
-             *((*shape, "float32", True, None) for shape in MESH_FLASH))
+             *((*shape, "float32", True, None) for shape in MESH_FLASH),
+             *TRAIN_100M_FLASH, TRAIN_HYMBA_FLASH)
 # The sharded-training cell: qwen3-4b at its published widths cut to
 # MESH_TRAIN["layers"] layers (two data replicas of the weights and AdamW
 # moments in float32 share the one card), the reference SPMD test's
@@ -657,7 +763,8 @@ PORT_KERNELS = ("round_kernel", "maintenance_kernel", "kde_kernel",
                 "flash_tc_kernel", "flash_f32_kernel", *FLASH_BWD_TC,
                 "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                 "decode_split_kernel", "decode_combine_kernel", "ssd_kernel",
-                *SSD_PASSES)
+                *SSD_PASSES, "ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
+                "ssd_bwd_dt_kernel", "ssd_bwd_reduce_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -996,6 +1103,7 @@ def phase_kernels(dev) -> dict:
         emit(phase="kernels", kernel="kde_success_prob", rows=rows, R=R,
              max_abs_err=err, **KDE_TOL)
     errs["flash_attention_bwd"] = check_flash_bwd(dev)
+    errs["ssd_bwd"] = check_ssd_bwd(dev)
     check_grad_refusal(dev)
     return errs
 
@@ -1085,26 +1193,117 @@ def check_flash_bwd(dev) -> float:
     return first
 
 
+def ssd_bwd_used(g, plain, tol: dict, terms=None) -> dict:
+    """One SSD gradient against its plain version (``SSD_BWD_TOL``): the
+    worst element's share of its allowance, ``scale max|plain| + rtol
+    |plain|``, or of ``terms`` (dA's)."""
+    diff = (g.double() - plain.double()).abs()
+    allow = (tol["scale"] * plain.double().abs().max()
+             + tol["rtol"] * plain.double().abs()) if terms is None else terms
+    return dict(max_abs_err=diff.max().item(),
+                allowance_used=(diff / allow).max().item(),
+                grad_max_abs=plain.abs().max().item())
+
+
+def check_ssd_bwd(dev) -> float:
+    """``ssd_bwd`` against ``ref.ssd_grads`` at ``SSD_BWD_CASES``: dx,
+    ddt, dA, dB and dC within ``SSD_BWD_TOL`` (dA against the sum of its
+    terms' magnitudes), a second call bit-identical (no atomics), on
+    inputs made as the model makes them and a unit-scale dy drawn on the
+    card; ``ops.ssd`` under grad mode giving the same forward bits as
+    under ``no_grad`` and these gradients through ``SSDScan``, at
+    ``TRAIN_SSM_SSD`` and the small float32 case. Returns
+    the training shape's largest error."""
+    import torch
+    from repro_torch.kernels import ops, ref, ssd
+    first = None
+    for seed, case in enumerate(SSD_BWD_CASES, 96):
+        B, S, H, P, N, chunk, dtype, strided = case
+        args = ssd_inputs(B, S, H, P, N, dtype, True, seed, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        shape = (B, S, P, H) if strided else (B, S, H, P)
+        dy = torch.randn(shape, generator=gen, device=dev).to(args[0].dtype)
+        if strided:
+            dy = dy.transpose(2, 3)
+        grads = ssd.ssd_bwd(*args, dy)
+        again = ssd.ssd_bwd(*args, dy)
+        plain = ref.ssd_grads(*args, dy)
+        torch.cuda.synchronize()
+        x, dt, A = args[:3]
+        terms = ((dt.double() * plain[1].double()
+                  - (x.double() * plain[0].double()).sum(-1))
+                 / A.double()).abs().sum((0, 1))
+        res = {}
+        for name, g, gp, g2, arg in zip(("dx", "ddt", "dA", "dB", "dC"),
+                                        grads, plain, again, args):
+            if g.shape != arg.shape or g.dtype != arg.dtype:
+                raise AssertionError(f"ssd_bwd {case} {name}: {g.shape} "
+                                     f"{g.dtype}")
+            res[name] = ssd_bwd_used(
+                g, gp, SSD_BWD_TOL[str(g.dtype).split(".")[1]],
+                SSD_BWD_TOL["terms"] * terms if name == "dA" else None)
+            if not res[name]["allowance_used"] <= 1.0:
+                raise AssertionError(f"ssd_bwd {case} {name}: {res[name]} "
+                                     f"against {SSD_BWD_TOL}")
+            if not same_bits(g, g2):
+                raise AssertionError(f"ssd_bwd {case}: a second call "
+                                     f"differs in {name}")
+        first = first if first is not None else max(
+            r["max_abs_err"] for r in res.values())
+        emit(phase="kernels", kernel="ssd_bwd", B=B, S=S, H=H, P=P, N=N,
+             chunk=chunk, dtype=dtype, dy_strided=not dy.is_contiguous(),
+             repeat_identical=True, **res, tol=SSD_BWD_TOL)
+        del args, dy, grads, again, plain
+    # through ops.ssd, at train_ssm's shapes and the small float32 case:
+    # the autograd Function records the forward kernel's bits and hands
+    # ssd_bwd's gradients back in the inputs' order
+    for seed, case in enumerate((*((*c, "bfloat16") for c in TRAIN_SSM_SSD),
+                                 SSD_BWD_CASES[-1][:7]), 120):
+        B, S, H, P, N, chunk, dtype = case
+        args = ssd_inputs(B, S, H, P, N, dtype, True, seed, dev)
+        dy = torch.randn_like(args[0])
+        leaves = [t.clone().requires_grad_() for t in args]
+        out = ops.ssd(*leaves, chunk=chunk)
+        got = torch.autograd.grad(out, leaves, dy)
+        with torch.no_grad():
+            plain_out = ops.ssd(*args, chunk=chunk)
+        want = ssd.ssd_bwd(*args, dy)
+        torch.cuda.synchronize()
+        if not (same_bits(out.detach(), plain_out)
+                and all(same_bits(g, w) for g, w in zip(got, want))):
+            raise AssertionError(f"ops.ssd {case} under grad mode: the "
+                                 f"forward or the gradients differ from the "
+                                 f"kernels called alone")
+        emit(phase="kernels", kernel="ssd_bwd", through_ops_ssd=True, B=B,
+             S=S, H=H, P=P, N=N, chunk=chunk, dtype=dtype,
+             forward_bits_equal=True, grads_bits_equal=True)
+        del args, dy, leaves, out, got, plain_out, want
+    return first
+
+
 def check_grad_refusal(dev) -> None:
     """A kernel without a backward refuses an input that requires grad
-    (``ops.ssd`` on the card), and gives its answer under ``no_grad``."""
+    (``ops.decode_attention`` on the card), and gives its answer under
+    ``no_grad``."""
     import torch
     from repro_torch.kernels import ops
-    args = ssd_inputs(1, 64, 2, 64, 128, "float32", False, 95, dev)
-    x = args[0].clone().requires_grad_()
+    q, k, v, length = decode_inputs(1, 4, 1, 64, 64, "float32", (64,), 95,
+                                    dev)
+    q = q.clone().requires_grad_()
     try:
-        ops.ssd(x, *args[1:])
+        ops.decode_attention(q, k, v, length)
     except RuntimeError as e:
         if "no backward" not in str(e):
             raise
         refused = str(e)
     else:
-        raise AssertionError("ops.ssd took an input that requires grad")
+        raise AssertionError("ops.decode_attention took an input that "
+                             "requires grad")
     with torch.no_grad():
-        out = ops.ssd(x, *args[1:])
+        out = ops.decode_attention(q, k, v, length)
     torch.cuda.synchronize()
-    emit(phase="kernels", kernel="ssd", grad_refused=True, message=refused,
-         no_grad_finite=bool(torch.isfinite(out).all()))
+    emit(phase="kernels", kernel="decode_attention", grad_refused=True,
+         message=refused, no_grad_finite=bool(torch.isfinite(out).all()))
 
 
 def check_adversarial_rows(dev) -> None:
@@ -2768,26 +2967,20 @@ def phase_audio_vlm(dev) -> dict:
     return served
 
 
-def phase_train(dev) -> dict:
-    """``repro_torch.launch.train`` with ``TRAIN``'s model at its
-    published width on the card (random weights from seed 0, the
-    numpy-seeded LCG stream, remat): every loss finite, the mean of the
-    last five below the first, peak memory under the card's; the flash
-    kernel twice a layer a step (the step's forward and remat's
-    recomputation) and its backward once, no other kernel. Prints
-    tokens/s, the median step, peak memory, each loss and the model
-    FLOP/s (6 x parameters x tokens a step) as a share of the bf16 peak.
-    Returns the launches of each kernel in the run."""
+def train_run(dev, phase: str, cfg, argv: list, steps: int, want: dict,
+              budget_s: float, last: int = 5) -> tuple:
+    """``repro_torch.launch.train.main(argv)`` on the card (random
+    weights from seed 0, the numpy-seeded LCG stream, remat), ``cfg``
+    its model: every loss finite, the mean of the last ``last`` below the
+    first, peak memory under the card's, each kernel launched as ``want``
+    says (every other kernel not at all). Prints tokens/s, the median
+    step, peak memory, each loss and the model FLOP/s (6 x parameters x
+    tokens a step) as a share of the bf16 peak. Returns the launches of
+    each kernel in the run and its seconds."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import train
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN["arch"])
-    argv = ["--arch", TRAIN["arch"], "--device", "cuda", "--steps",
-            str(TRAIN["steps"]), "--seq-len", str(TRAIN["seq_len"]),
-            "--batch", str(TRAIN["batch"]), "--lr", str(TRAIN["lr"]),
-            "--log-every", "1"]
     base = memory_baseline(dev)
     for fn in all_kernels():
         fn.launches = 0
@@ -2799,17 +2992,18 @@ def phase_train(dev) -> dict:
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {fn.__name__: fn.launches for fn in all_kernels()}
-    *text, last = out.getvalue().strip().splitlines()
+    *text, line = out.getvalue().strip().splitlines()
     print("\n".join(text), file=sys.stderr)
-    rep = json.loads(last)
-    steps, layers = TRAIN["steps"], cfg.num_layers
+    rep = json.loads(line)
     step_s = rep["step_s"][1:]                 # the first step warms up
     median = float(np.median(step_s))
     tokens = rep["tokens_per_step"]
     model_flops = 6 * cfg.param_count() * tokens
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
-    emit(phase="train", arch=cfg.name, layers=layers, d_model=cfg.d_model,
+    emit(phase=phase, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model,
          heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+         ssm=[cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state],
          vocab=cfg.vocab_size, params=cfg.param_count(), argv=argv,
          steps=steps, tokens_per_step=tokens, losses=losses,
          step_s=rep["step_s"], first_step_s=rep["step_s"][0],
@@ -2817,28 +3011,328 @@ def phase_train(dev) -> dict:
          model_flops_per_step=model_flops,
          model_flops_share_of_bf16_peak=model_flops / median
          / BF16_FLOP_PER_S,
-         flash_launches_per_step=launches["flash_attention"] / steps,
-         flash_bwd_launches_per_step=launches["flash_attention_bwd"] / steps,
+         launches_per_step={k: n / steps for k, n in launches.items() if n},
          launches=launches, peak_mem_bytes=peak, card_mem_bytes=card_bytes,
-         **base, seconds=secs, budget_s=TRAIN["budget_s"], card=nvidia_smi())
+         **base, seconds=secs, budget_s=budget_s, card=nvidia_smi())
     if not (len(losses) == steps and np.isfinite(losses).all()):
-        raise AssertionError(f"train: losses {losses}")
-    if not np.mean(losses[-5:]) < losses[0]:
-        raise AssertionError(f"train: the last five losses average "
-                             f"{np.mean(losses[-5:])}, not below the first "
-                             f"{losses[0]}")
+        raise AssertionError(f"{phase} {cfg.name}: losses {losses}")
+    if not np.mean(losses[-last:]) < losses[0]:
+        raise AssertionError(f"{phase} {cfg.name}: the last {last} losses "
+                             f"average {np.mean(losses[-last:])}, not below "
+                             f"the first {losses[0]}")
     if not peak < card_bytes:
-        raise AssertionError(f"train: peak {peak} B of {card_bytes} B")
-    want = {fn.__name__: 0 for fn in all_kernels()}
-    want.update(flash_attention=2 * layers * steps,
-                flash_attention_bwd=layers * steps)
-    if launches != want:
-        raise AssertionError(f"train: launches {launches}, the path needs "
-                             f"{want}")
+        raise AssertionError(f"{phase} {cfg.name}: peak {peak} B of "
+                             f"{card_bytes} B")
+    need = {fn.__name__: 0 for fn in all_kernels()}
+    need.update({k: n * steps for k, n in want.items()})
+    if launches != need:
+        raise AssertionError(f"{phase} {cfg.name}: launches {launches}, the "
+                             f"path needs {need}")
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, secs
+
+
+def train_argv(arch: str, run: dict, *extra) -> list:
+    return ["--arch", arch, "--device", "cuda", "--steps", str(run["steps"]),
+            "--seq-len", str(run["seq_len"]), "--batch", str(run["batch"]),
+            "--lr", str(run["lr"]), "--log-every", "1", *extra]
+
+
+def phase_train(dev) -> dict:
+    """``TRAIN``'s model at its published width (``train_run``): the flash
+    kernel twice a layer a step (the step's forward and remat's
+    recomputation) and its backward once, no other kernel. Returns the
+    launches of each kernel in the run."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN["arch"])
+    n = cfg.num_layers
+    launches, _ = train_run(
+        dev, "train", cfg, train_argv(TRAIN["arch"], TRAIN), TRAIN["steps"],
+        dict(flash_attention=2 * n, flash_attention_bwd=n),
+        TRAIN["budget_s"])
     return launches
+
+
+def phase_train_ssm(dev) -> dict:
+    """``TRAIN_SSM``'s three runs through ``train_run``, one at a time: (a)
+    mamba2-1.3b at its published width and depth: ``ssd`` twice a layer a
+    step (forward and remat) and ``ssd_bwd`` once, no other kernel; (b)
+    hymba-1.5b at its published width and depth: ``ssd`` and flash twice
+    a layer a step, ``ssd_bwd`` and flash's backward once; (c)
+    ``--train-100m`` (8 layers of 8/4 heads of 80) at its example's seq
+    512 x batch 8: flash twice a layer a step and its backward once, at
+    D 80. Returns the launches summed over the three runs; prints the
+    phase's seconds beside its budget."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    total = {}
+    runs = []
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = get_config(arch)
+        n = cfg.num_layers
+        want = dict(ssd=2 * n, ssd_bwd=n)
+        if cfg.num_heads:
+            want.update(flash_attention=2 * n, flash_attention_bwd=n)
+        runs.append((cfg, train_argv(arch, TRAIN_SSM), TRAIN_SSM, want))
+    cfg = train.train_100m_config()
+    runs.append((cfg, train_argv("qwen3-4b", TRAIN_100M, "--train-100m"),
+                 TRAIN_100M, dict(flash_attention=2 * cfg.num_layers,
+                                  flash_attention_bwd=cfg.num_layers)))
+    seconds = {}
+    for cfg, argv, run, want in runs:
+        launches, secs = train_run(dev, "train_ssm", cfg, argv, run["steps"],
+                                   want, TRAIN_SSM["budget_s"], run["last"])
+        seconds[cfg.name] = secs
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    emit(phase="train_ssm", seconds=time.perf_counter() - t0,
+         run_seconds=seconds, budget_s=TRAIN_SSM["budget_s"])
+    return total
+
+
+def leaf_gaps(got: dict, want: dict) -> dict:
+    """Each kind of leaf (its name's last part): the worst gradient norm
+    gap (relative to ``want``'s) and the worst cosine between the two,
+    and the leaf where the cosine is worst."""
+    kinds: dict = {}
+    for name, g in got.items():
+        g, w = g.double(), want[name].double()
+        ng, nw = g.norm().item(), w.norm().item()
+        gap = abs(ng - nw) / nw if nw else abs(ng - nw)
+        cos = (g * w).sum().item() / (ng * nw) if ng * nw else float(ng == nw)
+        k = kinds.setdefault(name.rsplit(".", 1)[-1], dict(
+            leaves=0, worst_norm_gap=0.0, worst_cos=1.0, where=None))
+        k["leaves"] += 1
+        k["worst_norm_gap"] = max(k["worst_norm_gap"], gap)
+        if cos < k["worst_cos"]:
+            k["worst_cos"], k["where"] = cos, name
+    return kinds
+
+
+def rel_rms(a, b) -> float:
+    """rms(a - b) / rms(b), in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_ssd_witness(dev) -> None:
+    """``WITNESS`` (its comment says what it compares and gates): every
+    reading is printed, then the gates that failed are raised together."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models import build_model
+    from repro_torch.training import synthetic_batch
+    full = get_config(WITNESS["arch"])
+    shape = ShapeConfig("witness", "train", TRAIN_SSM["seq_len"],
+                        TRAIN_SSM["batch"])
+    batch = synthetic_batch(full, shape, 0, dev)
+    kernel_fwd, kernel_bwd = ops.ssd, ssd_mod.ssd_bwd
+    failed = []
+
+    def plain(x, dt, A, Bm, Cm, chunk):
+        return ref.ssd(x, dt, A, Bm, Cm)
+
+    def plain_bwd(*args):
+        return ref.ssd_grads(*args)
+
+    def first_perturbed(fn, rel: float, index: int = 0):
+        """``fn`` with its first call's output ``index`` (a tensor, or one
+        of a tuple) plus Gaussian noise of ``rel`` times its rms."""
+        calls = []
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append(None)
+            if len(calls) > 1:
+                return out
+            outs = list(out) if isinstance(out, tuple) else [out]
+            t = outs[index]
+            gen = torch.Generator(device=dev).manual_seed(
+                WITNESS["noise_seed"])
+            noise = torch.randn(t.shape, generator=gen, device=dev)
+            outs[index] = (t.float() + noise * rel * t.float().square()
+                           .mean().sqrt()).to(t.dtype)
+            return tuple(outs) if isinstance(out, tuple) else outs[0]
+        return call
+
+    @contextlib.contextmanager
+    def scan(fwd, bwd=kernel_bwd):
+        ops.ssd, ssd_mod.ssd_bwd = fwd, bwd
+        try:
+            yield
+        finally:
+            ops.ssd, ssd_mod.ssd_bwd = kernel_fwd, kernel_bwd
+
+    def grads(model, fwd, bwd=kernel_bwd):
+        params = dict(model.named_parameters())
+        with scan(fwd, bwd):
+            loss = model.loss(batch, remat=True)
+            g = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, g))
+
+    def outputs(model, fwd, keep_inputs=False):
+        """y of every layer's scan, forward only (and the inputs of the
+        first and last layer's)."""
+        ys, inputs = [], []
+
+        def rec(*args, chunk):
+            y = fwd(*args, chunk=chunk)
+            ys.append(y)
+            if keep_inputs:
+                inputs.append((args, chunk))
+            return y
+        with torch.no_grad(), scan(rec):
+            model.loss(batch, remat=False)
+        return ys, [inputs[0], inputs[-1]] if keep_inputs else None
+
+    def compared(what, layers, got, want, gated) -> None:
+        kinds = leaf_gaps(got[1], want[1])
+        res = dict(what=what, layers=layers, loss=got[0], loss_plain=want[0],
+                   loss_rel_gap=abs(got[0] - want[0]) / abs(want[0]),
+                   worst_norm_gap=max(k["worst_norm_gap"]
+                                      for k in kinds.values()),
+                   worst_cos=min(k["worst_cos"] for k in kinds.values()),
+                   kinds=kinds, gated=gated)
+        emit(phase="ssd_witness", **res, bounds=WITNESS)
+        if gated and not (res["loss_rel_gap"] <= WITNESS["loss_rtol"]
+                          and res["worst_norm_gap"] <= WITNESS["norm_rtol"]
+                          and res["worst_cos"] >= WITNESS["min_cos"]):
+            failed.append(f"{what} at {layers} layers: loss gap "
+                          f"{res['loss_rel_gap']}, norm gap "
+                          f"{res['worst_norm_gap']}, cosine "
+                          f"{res['worst_cos']}")
+
+    # (1) the shallow model: little amplifies, so the two scans agree
+    model = build_model(dataclasses.replace(
+        full, num_layers=WITNESS["shallow"]), device=dev, seed=0).trainable()
+    compared("kernels against the plain scan", WITNESS["shallow"],
+             grads(model, kernel_fwd), grads(model, plain), True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) 48 layers: the kernels at the model's own inputs, the first and
+    # the last layer's
+    model = build_model(full, device=dev, seed=0).trainable()
+    ys_k, edges = outputs(model, kernel_fwd, keep_inputs=True)
+    dx_gap = 0.0
+    for where, (args, chunk) in zip(("first", "last"), edges):
+        out, want = ssd_mod.ssd(*args, chunk=chunk), ref.ssd(*args)
+        tol = SSD_TOL["bfloat16"]
+        used = ((out.float() - want.float()).abs()
+                / (tol["atol"] + tol["rtol"] * want.float().abs())).max().item()
+        gen = torch.Generator(device=dev).manual_seed(7)
+        dy = torch.randn(args[0].shape, generator=gen, device=dev).to(
+            args[0].dtype)
+        got_g, want_g = ssd_mod.ssd_bwd(*args, dy), ref.ssd_grads(*args, dy)
+        x, dt, A = args[:3]
+        terms = ((dt.double() * want_g[1].double()
+                  - (x.double() * want_g[0].double()).sum(-1))
+                 / A.double()).abs().sum((0, 1))
+        bwd = {name: ssd_bwd_used(g, w, SSD_BWD_TOL[str(g.dtype).split(".")[1]],
+                                  SSD_BWD_TOL["terms"] * terms
+                                  if name == "dA" else None)
+               for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got_g,
+                                     want_g)}
+        dx_gap = rel_rms(got_g[0], want_g[0].to(got_g[0].dtype))
+        emit(phase="ssd_witness", what="kernels at the model's inputs",
+             layer=where, x_max_abs=x.float().abs().max().item(),
+             dt_max=dt.max().item(), forward_allowance_used=used,
+             forward_max_abs_err=(out.float() - want.float()).abs().max()
+             .item(), y_rel_rms_gap=rel_rms(out, want), dx_rel_rms_gap=dx_gap,
+             **bwd)
+        if not (used <= 1.0 and all(r["allowance_used"] <= 1.0
+                                    for r in bwd.values())):
+            failed.append(f"the kernels at the {where} layer's inputs: "
+                          f"forward {used}, {bwd}")
+        del out, want, got_g, want_g, dy
+    del edges
+
+    # (3) how far each layer's y parts from the plain run's: the kernels
+    # in every layer, and the plain scan with only the first layer's y
+    # perturbed by as much as the kernel parts from it there
+    ys_p, _ = outputs(model, plain)
+    kernel_curve = [rel_rms(a, b) for a, b in zip(ys_k, ys_p)]
+    del ys_k
+    ys_n, _ = outputs(model, first_perturbed(plain, kernel_curve[0]))
+    noise_curve = [rel_rms(a, b) for a, b in zip(ys_n, ys_p)]
+    del ys_p, ys_n
+    emit(phase="ssd_witness", what="each layer's y against the plain run's",
+         layers=full.num_layers, kernels_every_layer=kernel_curve,
+         plain_first_layer_perturbed=noise_curve)
+
+    # (4) the gradients at 48 layers: the backward kernel against the plain
+    # backward under the same forward (gated); the plain backward with only
+    # the last layer's dx perturbed by as much as the kernel's dx parts from
+    # it at that layer's inputs (the same growth, from one layer); the
+    # kernels against the plain scan
+    t = time.perf_counter()
+    k = grads(model, kernel_fwd)
+    kernel_s = time.perf_counter() - t
+    f = grads(model, kernel_fwd, plain_bwd)
+    compared("ssd_bwd against the plain backward, the same forward",
+             full.num_layers, k, f, True)
+    compared("the plain backward, the last layer's dx perturbed, against "
+             "the plain backward", full.num_layers,
+             grads(model, kernel_fwd, first_perturbed(plain_bwd, dx_gap)), f,
+             False)
+    del f
+    t = time.perf_counter()
+    p = grads(model, plain)
+    plain_s = time.perf_counter() - t
+    compared("kernels against the plain scan", full.num_layers, k, p, False)
+    emit(phase="ssd_witness", kernel_s=kernel_s, plain_s=plain_s,
+         card=nvidia_smi())
+    del k, p, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"ssd_witness against {WITNESS}: "
+                             + "; ".join(failed))
+
+
+def save_rank(ckdir: str, runs: int) -> list:
+    """One of ``--save-only``'s 4 ranks: mesh_train's model and fresh
+    AdamW moments on the (2, 2) mesh, saved ``runs`` times (no step, no
+    kernel); each save's seconds, each checkpoint removed after it."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.fault import build_mesh
+    mesh = build_mesh(4, model_axis=MESH_TRAIN["mesh"][1])
+    out = []
+    for i in range(runs):
+        path = os.path.join(ckdir, str(i))
+        out.append(mesh_train_run(0, mesh, path)["save_s"])
+        gc.collect()
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def phase_save_only(runs: int) -> None:
+    """mesh_train's checkpoint save alone (``save_rank`` on 4 ranks of the
+    card): each rank's seconds of each save, rank 0's the writer's. Copied
+    into the root of another tree, this script times that tree's
+    ``Checkpointer``."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    ckdir = tempfile.mkdtemp(prefix="save_only_")
+    try:
+        got = spawn(save_rank, 4, ckdir, runs, every_rank=True,
+                    timeout=4 * MESH_TRAIN["budget_s"])
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit(phase="save_only", tree=str(ROOT), save_s_rank0=got[0],
+         save_s=got, card=nvidia_smi())
 
 
 def mesh_train_config():
@@ -3484,6 +3978,10 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
     # v and dO read once, dq, dk, dv written once
     b_work = (nbytes(bq, bk, bv, bdo) + nbytes(bq, bk, bv),
               int(2.5 * attention_work(bq, bk, bv)[1]))
+    sb = SSD_BWD_CASES[0]
+    sb_args = (*ssd_inputs(*sb[:5], sb[6], True, 37, dev),)
+    sb_args += (torch.randn(sb_args[0].shape, generator=torch.Generator(
+        device=dev).manual_seed(38), device=dev).to(sb_args[0].dtype),)
     k_rows, k_R = KDE_SIZES[0]
     k_lat, k_mask, k_bw = kde_inputs(k_rows, k_R, 33, dev)
     k_args = (k_lat, k_mask, 0.08, k_bw)
@@ -3525,6 +4023,10 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
              "src/repro/kernels/ssd.py:66",
              functools.partial(ssd.ssd, chunk=chunk), ref.ssd, None, s_args,
              {}, ssd_work(*s_args), 20),
+            ("ssd_bwd", "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+             "none (port-only backward of src/repro/kernels/ssd.py:66)",
+             ssd.ssd_bwd, ref.ssd_grads, None, sb_args, {},
+             ssd_bwd_work(*sb_args[:5]), 10),
             ("kde_success_prob", "src/repro_torch/kernels/csrc/maintenance.cu",
              "src/repro/kernels/kde.py:50", kde.kde_success_prob,
              ref.kde_success_prob, None, k_args, {}, (k_bytes, 0), 200)):
@@ -3544,7 +4046,12 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
                       "cuda_launches_per_call": ssd.LAUNCHES_PER_CALL[
                           s_args[0].dtype]} if name == "ssd" else
                      round_launch_fields(K, M, C, dev)
-                     if name == "round_step_swrr" else {})
+                     if name == "round_step_swrr" else
+                     {"cuda_launches_per_call": ssd.BWD_LAUNCHES_PER_CALL,
+                      "workspace_bytes": 4 * ssd._bwd_workspace_floats(
+                          *sb[:3], sb[4], sb[3]),
+                      "shape": dict(zip("BSHPN", sb[:5]))}
+                     if name == "ssd_bwd" else {})
         if name == "decode_attention":       # the log-sum-exp beside it
             extra = dict(ms_with_lse=cuda_ms(lambda: kern(
                 *args, with_lse=True), iters), lse_bytes=dq.shape[0]
@@ -3565,7 +4072,55 @@ def phase_times(dev, launches: dict, errs: dict) -> list:
         emit(phase="times_lanes", name="round_step_swrr", lanes=S, K=Kl,
              M=Ml, **row, bytes=l_bytes,
              **round_launch_fields(S * Kl, Ml, C, dev, S))
+    phase_train_times(dev)
     return rows_out
+
+
+def phase_train_times(dev) -> None:
+    """The training kernels at train_ssm's other shapes (``time_row``):
+    ``ssd_bwd`` at hymba-1.5b's heads (``SSD_BWD_CASES[1]``, no library
+    call: no PyTorch call computes the SSD backward), and flash at D 80
+    (``TRAIN_100M_FLASH[0]``), forward beside SDPA and backward beside
+    SDPA's backward through ``torch.autograd.grad``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, ssd
+    B, S, H, P, N, chunk, dtype, _ = SSD_BWD_CASES[1]
+    args = ssd_inputs(B, S, H, P, N, dtype, True, 39, dev)
+    dy = torch.randn(args[0].shape, generator=torch.Generator(device=dev)
+                     .manual_seed(40), device=dev).to(args[0].dtype)
+    work = ssd_bwd_work(*args)
+    emit(phase="times_train", name="ssd_bwd",
+         shape=dict(B=B, S=S, H=H, P=P, N=N),
+         **time_row(functools.partial(ssd.ssd_bwd, *args, dy),
+                    functools.partial(ref.ssd_grads, *args, dy), None, work,
+                    20), bytes=work[0], flops=work[1])
+    del args, dy
+    B, Hq, Hkv, S, D, dtype, causal, window = TRAIN_100M_FLASH[0]
+    q, k, v = attention_inputs(B, Hq, Hkv, S, D, dtype, 41, dev)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(42), device=dev).to(q.dtype)
+    work = attention_work(q, k, v)
+    shape = dict(B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, causal=causal)
+    emit(phase="times_train", name="flash_attention", shape=shape,
+         **time_row(functools.partial(flash_attention.flash_attention, q, k,
+                                      v),
+                    functools.partial(ref.attention, q, k, v),
+                    functools.partial(F.scaled_dot_product_attention, q, k,
+                                      v, is_causal=True, enable_gqa=True),
+                    work, 20), bytes=work[0], flops=work[1])
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    l_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                           enable_gqa=True)
+    b_work = (nbytes(q, k, v, do) + nbytes(q, k, v), int(2.5 * work[1]))
+    emit(phase="times_train", name="flash_attention_bwd", shape=shape,
+         tensor_cores=flash_attention.bwd_tensor_cores(q.dtype, D),
+         **time_row(functools.partial(flash_attention.flash_attention_bwd, q,
+                                      k, v, do),
+                    functools.partial(ref.attention_grads, q, k, v, do),
+                    lambda: torch.autograd.grad(l_out, (lq, lk, lv), do,
+                                                retain_graph=True),
+                    b_work, 10), bytes=b_work[0], flops=b_work[1])
 
 
 def phase_family_times(dev) -> None:
@@ -3843,6 +4398,14 @@ def main() -> int:
                          "with each of MERGE_FAULTS planted in a copy of "
                          "decode_attend made in memory, each against one "
                          "rank: what MESH_SERVE's bound tells apart")
+    ap.add_argument("--ssd-witness", action="store_true",
+                    help="build the kernels, then mamba2-1.3b's loss, "
+                         "gradients and layer outputs through the SSD "
+                         "kernels against the plain scan's (WITNESS)")
+    ap.add_argument("--save-only", type=int, default=0, metavar="N",
+                    help="time only mesh_train's checkpoint save, N times "
+                         "on 4 ranks (no kernel built): to compare two "
+                         "trees' Checkpointer on one card")
     args = ap.parse_args()
     t_start = time.perf_counter()
     import torch
@@ -3861,6 +4424,9 @@ def main() -> int:
         _build.load()
         phase_fleet_only(dev, args.fleet_only, args.profile)
         return 0
+    if args.save_only:
+        phase_save_only(args.save_only)
+        return 0
     build_s = _build.build()
     ptxas = ptxas_report((_build.BUILD_DIR / "build.log").read_text())
     emit(phase="build", seconds=build_s,
@@ -3868,6 +4434,9 @@ def main() -> int:
          ptxas=ptxas)
     if args.profile_only and args.profile is not None:
         phase_profile(dev, args.profile)
+        return 0
+    if args.ssd_witness:
+        phase_ssd_witness(dev)
         return 0
     spilled = [k for k in ptxas if k["spill_stores"]
                and k["kernel"].startswith(NO_SPILL)]
@@ -3897,6 +4466,7 @@ def main() -> int:
     families = phase_families(dev)
     phase_audio_vlm(dev)
     trained = phase_train(dev)
+    trained_ssm = phase_train_ssm(dev)
     phase_mesh_train(dev)
     # each kernel's launches on its main path: the simulator kernels in the
     # fleet run, the serving kernels in their serve runs, the flash backward
@@ -3907,6 +4477,7 @@ def main() -> int:
                          if k not in launches})
         launches["kde_success_prob"] += run["launches"]["kde_success_prob"]
     launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    launches["ssd_bwd"] = trained_ssm["ssd_bwd"]
     kernels = phase_times(dev, launches, errs)
     phase_family_times(dev)
     times = {row["name"]: row["ms"] for row in kernels}

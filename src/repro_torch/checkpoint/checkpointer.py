@@ -18,8 +18,10 @@ foreign-version checkpoint (before any other error the parse of a
 corrupt payload raises). ``save`` snapshots every leaf to numpy on
 the caller's thread, so an async write never races the caller's next
 step; ``keep`` bounds the steps kept on disk. The payload is written in
-one pass, hashed as it is written (``_Hashed``: ``np.savez`` streams
-into a file it cannot seek), and ``restore`` reads each member in place
+one pass, a leaf while the next is snapshot (and gathered), and hashed
+as it is written (``_Hashed``: the zip of ``.npy`` members that
+``np.savez`` writes, streamed into a file that cannot seek), and
+``restore`` reads each member in place
 (a memmap of its bytes) and copies only the blocks it keeps. numpy has
 no bfloat16: a bfloat16 leaf is stored as its int16 bits and restored
 into the template's bfloat16.
@@ -36,6 +38,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import queue
 import shutil
 import struct
 import threading
@@ -74,31 +77,32 @@ def _children(tree):
     return None
 
 
-def _flatten(tree, path: str = "", out: dict | None = None,
-             keep: bool = True) -> dict:
-    """Every leaf as a numpy copy, keyed by its path (``None`` has no
-    leaf); a rank's block is gathered whole onto the first rank of its
-    mesh (the writer) first. Without ``keep`` the leaves are sent and
-    dropped (a rank that does not write)."""
-    out = {} if out is None else out
+def _leaves(tree, path: str = "", keep: bool = True):
+    """Every leaf as ``(path, numpy array)``, the array the checkpoint's
+    own (a fresh host copy), in the tree's order (``None`` has no leaf);
+    a rank's block is gathered whole onto the first rank of its mesh (the
+    writer) first, when its turn comes. Without ``keep`` the leaves are
+    sent and nothing is yielded (a rank that does not write)."""
     if tree is None:
-        return out
+        return
     kids = _children(tree)
     if kids is None:
         if isinstance(tree, torch.Tensor):
             t = gather_to_first(tree)
             if not keep:
-                return out
+                return
+            # a gathered leaf, or one copied off the card, is already fresh
+            fresh = t is not tree or tree.device.type != "cpu"
             t = t.detach().cpu()
             leaf = (t.view(torch.int16) if t.dtype == torch.bfloat16
                     else t).numpy()
         else:
-            leaf = np.asarray(tree)
-        out[path] = np.array(leaf, copy=True)
-        return out
+            fresh, leaf = False, np.asarray(tree)
+        yield path, leaf if fresh else np.array(leaf, copy=True)
+        return
     for name, child in kids:
-        _flatten(child, f"{path}{_SEP}{name}" if path else name, out, keep)
-    return out
+        yield from _leaves(child, f"{path}{_SEP}{name}" if path else name,
+                           keep)
 
 
 def _unflatten(template, data, path: str = "", shardings=None):
@@ -182,8 +186,8 @@ def _sha256(path: str) -> str:
 class _Hashed:
     """A file to write once, front to back, that takes the SHA-256 of
     what is written (in a thread, beside the writes). It cannot seek, so
-    ``np.savez`` streams its zip in one pass (each member's sizes after
-    its data) and the hash is the file's."""
+    ``zipfile`` streams the payload in one pass (each member's sizes
+    after its data) and the hash is the file's."""
 
     def __init__(self, f):
         self.f, self.h, self.n = f, hashlib.sha256(), 0
@@ -201,7 +205,7 @@ class _Hashed:
     def tell(self) -> int:
         return self.n
 
-    def read(self, *args):            # np.savez takes a file that has one
+    def read(self, *args):            # zipfile takes a file that has one
         raise OSError("a checkpoint's payload is written, not read here")
 
     def flush(self) -> None:
@@ -212,6 +216,29 @@ class _Hashed:
             self.pending.result()
         self.pool.shutdown()
         return self.h.hexdigest()
+
+
+_DONE, _ABORT = object(), object()     # the writer's last queue items
+
+
+class _Writer(threading.Thread):
+    """``fn`` in a thread whose ``join`` raises what ``fn`` raised."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self.fn, self.error = fn, None
+        self.start()
+
+    def run(self):
+        try:
+            self.fn()
+        except BaseException as e:           # re-raised by join
+            self.error = e
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
 
 
 class Checkpointer:
@@ -230,20 +257,23 @@ class Checkpointer:
         """Snapshot on the caller's thread, write (optionally) async.
         ``meta`` is stored verbatim in the manifest; restore ignores
         it. A tree with ranks' blocks is gathered (every rank calls) and
-        written by rank 0 alone."""
+        written by rank 0 alone. The writer thread writes each leaf while
+        the caller's thread snapshots (and gathers) the next; the save
+        returns once every leaf is snapshot and, if ``blocking``, the
+        checkpoint is committed (a writer's error is raised then, or by
+        the next ``save`` or ``wait``)."""
         final = self._path(step)
         writes = _writes() or not _is_sharded(tree)
-        arrays = _flatten(tree, keep=writes)
+        leaves = _leaves(tree, keep=writes)
         if not writes:
+            for _ in leaves:                 # the gathers every rank joins
+                pass
             return final
-        manifest = {
-            "schema": SCHEMA_VERSION,
-            "step": int(step),
-            "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
-                     for k, v in arrays.items()},
-        }
+        self.wait()
+        manifest = {"schema": SCHEMA_VERSION, "step": int(step), "keys": {}}
         if meta is not None:
             manifest["meta"] = meta
+        todo: queue.Queue = queue.Queue()
 
         def write():
             tmp = final + ".tmp"
@@ -252,9 +282,19 @@ class Checkpointer:
             os.makedirs(tmp)
             with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
                 out = _Hashed(f)
-                np.savez(out, **arrays)
+                # np.savez's layout: stored .npy members, zip64 forced
+                with zipfile.ZipFile(out, mode="w", allowZip64=True,
+                                     compression=zipfile.ZIP_STORED) as z:
+                    while (item := todo.get()) not in (_DONE, _ABORT):
+                        with z.open(item[0] + ".npy", "w",
+                                    force_zip64=True) as member:
+                            np.lib.format.write_array(member, item[1],
+                                                      allow_pickle=False)
                 # checksum the bytes as they were written, in one pass
                 manifest["checksum"] = "sha256:" + out.hexdigest()
+            if item is _ABORT:
+                shutil.rmtree(tmp)
+                return
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
                 f.flush()
@@ -264,18 +304,26 @@ class Checkpointer:
             os.replace(tmp, final)          # atomic commit
             self._gc()
 
-        self.wait()
+        self._thread = _Writer(write)
+        try:
+            for key, leaf in leaves:
+                manifest["keys"][key] = {"shape": list(leaf.shape),
+                                         "dtype": str(leaf.dtype)}
+                todo.put((key, leaf))
+        except BaseException:
+            todo.put(_ABORT)
+            self.wait()
+            raise
+        todo.put(_DONE)
         if blocking:
-            write()
-        else:
-            self._thread = threading.Thread(target=write, daemon=True)
-            self._thread.start()
+            self.wait()
         return final
 
     def wait(self):
+        """Join the last save's writer; raise the error it met, if any."""
         if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+            writer, self._thread = self._thread, None
+            writer.join()
 
     def _gc(self):
         for s in self.all_steps()[:-self.keep]:

@@ -31,7 +31,10 @@
 //   (D, S, B*H), so rows past S in a box are out of bounds and arrive as
 //   zeros. Rows are swizzled by 128 bytes (64 bf16), so a row of D > 64
 //   comes as D / 64 boxes of 64 columns; D = 16 and 32 use the 32- and
-//   64-byte swizzles.
+//   64-byte swizzles, and D = 80, whose 160-byte rows no 128- or 64-byte
+//   box divides, five 32-byte boxes of 16 columns: Q . K^T then takes one
+//   box a k-step, and P . V is one n80 product whose MN-major V spans the
+//   five boxes (leading byte offset: one box, as the two boxes of D = 128).
 // - Products. S = Q . K^T is wgmma m64n64k16 with both operands in shared
 //   memory (K-major), float32 accumulators in registers. The scale is
 //   applied in float32 after the product (the reference scales q before:
@@ -282,7 +285,9 @@ struct Cfg {
   static constexpr int kWG = D == 256 ? 1 : 2;  // consumer warpgroups, 64 q rows each
   static constexpr int kBQ = 64 * kWG;          // q rows per CTA
   static constexpr int kThreads = 128 * kWG + 32;  // and one producer warp
-  static constexpr int kSpan = D * 2 < 128 ? D * 2 : 128;  // bytes of a swizzled row
+  // bytes of a swizzled row: the largest of the 128, 64 and 32-byte swizzles
+  // that divides a row of D bf16 (D 80: 32 bytes, five boxes of 16 columns)
+  static constexpr int kSpan = (2 * D) % 128 == 0 ? 128 : (2 * D) % 64 == 0 ? 64 : 32;
   static constexpr int kBoxCols = kSpan / 2;               // columns of one TMA box
   static constexpr int kBoxes = D / kBoxCols;              // boxes across a row
   static constexpr int kQBytes = kBQ * D * 2;
@@ -290,6 +295,7 @@ struct Cfg {
   // wgmma's swizzle code for the span: 1 = 128 B, 2 = 64 B, 3 = 32 B
   static constexpr uint64_t kMode = kSpan == 128 ? 1 : kSpan == 64 ? 2 : 3;
   static constexpr int kNC = D < 128 ? D : 128;            // columns of one P.V wgmma
+  static_assert((2 * D) % kSpan == 0 && D % 16 == 0, "D must be a multiple of 16");
   // 1024 B of alignment slack, q, two stages of (K, V), five mbarriers
   static constexpr int kSmem = 1024 + kQBytes + 4 * kTileBytes + 64;
 };
@@ -540,7 +546,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int dtype, int 
 
 // q (B, Hq, S, D), k and v (B, Hkv, S, D), o (B, Hq, S, D), contiguous and
 // 16-byte aligned, of one dtype (0: float32 -> CUDA cores, 1: bfloat16 ->
-// tensor cores); D in {16, 32, 64, 128, 256}; window <= 0 means none.
+// tensor cores); D in {16, 32, 64, 80, 128, 256}; window <= 0 means none.
 // Launches on `stream`; returns the cudaError_t (cudaErrorInvalidValue when
 // a tensor map cannot be encoded).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -552,6 +558,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 16: return launch<16>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
     case 32: return launch<32>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
     case 64: return launch<64>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
+    case 80: return launch<80>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
     case 128: return launch<128>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
     case 256: return launch<256>(q, k, v, o, dtype, B, Hq, Hkv, S, scale, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -63,7 +63,8 @@
 //   skipped; only tiles that cross the diagonal, the window's edge or S are
 //   masked element by element.
 // - Not yet: D 256 (dK and dV of 64 rows would hold 256 float32 registers a
-//   thread), overlap of one tile's softmax with the next tile's products,
+//   thread), D 80 (its 160-byte rows fit no 128-byte swizzle: five 32-byte
+//   boxes, as the forward takes them), overlap of one tile's softmax with the next tile's products,
 //   one pass for dQ (lse and delta from the forward), and reading a strided
 //   dO where it lies (the wrapper makes it contiguous).
 //
@@ -87,7 +88,7 @@ namespace {
 constexpr float kNeg = -1e30f;
 
 // ---------------------------------------------------------------------------
-// CUDA cores: float32, and bfloat16 at D 16, 32 and 256.
+// CUDA cores: float32, and bfloat16 at D 16, 32, 80 and 256.
 // ---------------------------------------------------------------------------
 
 namespace cc {
@@ -967,7 +968,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, void* 
 // aligned, of one dtype (0: float32, 1: bfloat16); dq, dk, dv the same
 // shapes and dtype; lse and delta float32 scratch of B * Hq * Sp rows (Sp
 // = S rounded up to 64) that the first kernel writes and the second reads;
-// D in {16, 32, 64, 128, 256}; window <= 0 means none. tensor_cores 1 takes
+// D in {16, 32, 64, 80, 128, 256}; window <= 0 means none. tensor_cores 1 takes
 // the tensor-core kernels (bfloat16 at D 64 or 128 only), 0 the CUDA-core
 // ones. Launches the two kernels on `stream`; returns the cudaError_t
 // (cudaErrorInvalidValue for a route the inputs cannot take or a tensor map
@@ -997,6 +998,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
     FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(80)
     FLASH_BWD_CASE(128)
     FLASH_BWD_CASE(256)
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -21,12 +21,15 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SMEM_LIMIT = 232_448          # bytes of shared memory a block may opt into
 CHUNK = 64                     # cache slots per split
+# head dims the decode kernel takes (the card has checked these; flash also
+# takes 80, which no served model uses)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 @functools.cache

@@ -18,8 +18,8 @@ kernels in ``csrc/flash_attention_bwd.cu`` that recompute the
 probabilities from q and k, deterministic (no atomics). The route goes
 by dtype and head dim (``bwd_tensor_cores``): bfloat16 at D 64 and 128
 on the tensor cores (``wgmma`` on TMA-loaded tiles, P and dS in two
-bfloat16 terms), float32 and bfloat16 at D 16, 32 and 256 on the CUDA
-cores in float32. ``ref.attention_grads`` is its plain version;
+bfloat16 terms), float32 and bfloat16 at D 16, 32, 80 and 256 on the
+CUDA cores in float32. ``ref.attention_grads`` is its plain version;
 ``ops.attention`` pairs the two kernels in an autograd Function.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ from repro_torch.kernels import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # head dims whose bfloat16 backward runs on the tensor cores; D 256 would
 # hold 256 float32 accumulators a thread in the dK/dV kernel
 BWD_TC_HEAD_DIMS = (64, 128)
@@ -43,7 +43,8 @@ BWD_TC_HEAD_DIMS = (64, 128)
 def _smem_bytes(D: int) -> int:
     """The bfloat16 kernel's shared memory (``tc::Cfg<D>::kSmem``): 1024
     bytes of alignment slack, the q block (128 rows, 64 at D = 256), two
-    stages of a 64-row K and V tile, five mbarriers."""
+    stages of a 64-row K and V tile, five mbarriers. Rows are stored
+    whole whatever the swizzle (D 80 in five 32-byte boxes)."""
     rows = 64 if D == 256 else 128
     return 1024 + rows * D * 2 + 4 * 64 * D * 2 + 64
 

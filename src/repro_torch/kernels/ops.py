@@ -6,13 +6,16 @@ missing ``nvcc``, a failed build, a tensor the kernel does not take, a
 refused launch). There is no mode switch and no fallback.
 
 Gradients. On the CPU the plain versions carry PyTorch's autograd. On
-the card ``attention`` is the one kernel with a backward: it runs as
-``FlashAttention``, an autograd Function whose forward is the flash
-kernel and whose backward is ``flash_attention_bwd`` (bfloat16 at head
-dims 64 and 128 on the tensor cores, float32 and the other head dims on
-the CUDA cores; where no input requires grad, as in serving, it records
-nothing and launches the forward alone). The other kernels have no backward yet, and their
-wrappers raise on an input that requires grad rather than cut the graph
+the card two kernels have a backward, each paired with it in an autograd
+Function: ``attention`` runs as ``FlashAttention`` (the flash kernel,
+then ``flash_attention_bwd``: bfloat16 at head dims 64 and 128 on the
+tensor cores, float32 and the other head dims on the CUDA cores), and
+``ssd`` as ``SSDScan`` (the SSD kernels, then ``ssd_bwd`` on the CUDA
+cores). Where no input requires grad, as in serving, or under
+``torch.no_grad()``, a Function records nothing and launches the forward
+alone. The other kernels (decode attention, the maintenance and KDE
+kernels, the round kernel) have no backward, and their wrappers raise on
+an input that requires grad rather than cut the graph
 (``_build.refuse_grad``).
 """
 from __future__ import annotations
@@ -30,7 +33,8 @@ from repro_torch.kernels import ssd as _ssd
 # every kernel wrapper of the port; each counts its launches in ``launches``
 WRAPPERS = (_round.round_step_swrr, _kde.fused_maintenance,
             _kde.kde_success_prob, _fa.flash_attention,
-            _fa.flash_attention_bwd, _dec.decode_attention, _ssd.ssd)
+            _fa.flash_attention_bwd, _dec.decode_attention, _ssd.ssd,
+            _ssd.ssd_bwd)
 
 
 def _on_host(x: torch.Tensor) -> bool:
@@ -115,11 +119,27 @@ def decode_attention(q, k, v, length, scale: float | None = None,
     return fn(q, k, v, length, scale=scale, with_lse=with_lse)
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD kernels with their backward kernel: saves x, dt, A, Bm and
+    Cm (the backward recomputes the states from them) and returns dx,
+    ddt, dA, dB, dC from ``ssd_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return _ssd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_ssd.ssd_bwd(*ctx.saved_tensors, dy), None)
+
+
 def ssd(x, dt, A, Bm, Cm, chunk: int = 128):
-    """Mamba-2 SSD over a sequence. (B,S,H,P) -> (B,S,H,P) in x's dtype."""
+    """Mamba-2 SSD over a sequence. (B,S,H,P) -> (B,S,H,P) in x's dtype;
+    differentiable on every device."""
     if _on_host(x):
         return ref.ssd(x, dt, A, Bm, Cm)
-    return _ssd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
 
 
 def ssd_decode_step(h, x, dt, A, Bm, Cm):

@@ -8,8 +8,9 @@ SSD scan. They are what the CPU runs for the kernels
 ``chip_smoke.py`` holds each CUDA kernel against on the card. Two have
 no kernel and run here on every device: the SSD single-token update
 and the proxy-mity round (``round_step_gumbel``). ``attention_grads``
-is the plain version of the attention backward, a kernel of the port
-alone (the reference differentiates its plain attention).
+and ``ssd_grads`` are the plain versions of the attention and SSD
+backwards, kernels of the port alone (the reference differentiates its
+plain attention and scan).
 
 Kept free of module-level ``repro_torch.core`` imports for the reason
 the reference gives: ``core -> kernels -> core`` would cycle.
@@ -125,14 +126,14 @@ def ssd(
     Cm: torch.Tensor,           # (B, S, N) output projections
 ) -> torch.Tensor:
     """``h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t^T``, ``y_t = C_t^T h_t``
-    in float32, the state (H, N, P) per batch row starting at zero.
-    Returns (B, S, H, P) in x's dtype. A loop over S: slow on the card,
-    it is only the plain version."""
+    in float32 (float64 inputs stay float64), the state (H, N, P) per
+    batch row starting at zero. Returns (B, S, H, P) in x's dtype. A loop
+    over S: slow on the card, it is only the plain version."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
-    xf, dtf, Af = x.float(), dt.float(), A.float()
-    Bf, Cf = Bm.float(), Cm.float()
-    h = torch.zeros(Bsz, H, N, P, dtype=torch.float32, device=x.device)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Af, Bf, Cf = (t.to(wide) for t in (x, dt, A, Bm, Cm))
+    h = torch.zeros(Bsz, H, N, P, dtype=wide, device=x.device)
     ys = []
     for t in range(S):
         decay = torch.exp(Af * dtf[:, t])                     # (B, H)
@@ -141,6 +142,21 @@ def ssd(
             * xf[:, t, :, None, :])
         ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_grads(x, dt, A, Bm, Cm, dy):
+    """The plain version of ``ssd_bwd``: ``(dx, ddt, dA, dB, dC)`` of
+    ``ssd(x, dt, A, Bm, Cm)`` against the output gradient ``dy``, by
+    ``torch.autograd.grad`` through ``ssd`` on float32 copies of the
+    inputs; float32 gradients whatever x's dtype (float64 inputs stay
+    float64). The tests and ``chip_smoke.py`` hold the kernel to it; no
+    training path runs it on the card."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    with torch.enable_grad():
+        leaves = [t.detach().to(wide).requires_grad_()
+                  for t in (x, dt, A, Bm, Cm)]
+        y = ssd(*leaves)
+        return torch.autograd.grad(y, leaves, dy.to(wide))
 
 
 def ssd_decode_step(

@@ -12,6 +12,13 @@ one kernel on the CUDA cores (one CTA per (batch row, head), walking the
 sequence in tiles of 32 rows). The header says what bounds them and
 why they are built so; ``ref.ssd``, the sequential recurrence, is their
 plain PyTorch version.
+
+``ssd_bwd`` is the backward, a kernel the TPU package does not have (its
+training differentiates the plain scan): four CUDA kernels in
+``csrc/ssd_bwd.cu``, float32 on the CUDA cores for both dtypes of x, in
+tiles of ``BWD_TILE`` rows, deterministic (no atomics).
+``ref.ssd_grads`` is its plain version; ``ops.ssd`` pairs the two in an
+autograd Function.
 """
 from __future__ import annotations
 
@@ -32,6 +39,11 @@ ROWS = 64                             # rows of one wgmma tile
 SCAN_HEADS = 8                        # heads per CTA of the chunk scan
 SCAN_ROWS = 128                       # rows per CTA of the chunk scan
 LAUNCHES_PER_CALL = {torch.float32: 1, torch.bfloat16: 4}   # CUDA launches
+BWD_TILE = 32                         # rows of a tile of the backward
+# (N, P) the backward is built for: the SSM and hybrid configs', reduced
+# (8, 16), hymba (16, 64), mamba2 (128, 64)
+BWD_WIDTHS = ((8, 16), (16, 64), (128, 64))
+BWD_LAUNCHES_PER_CALL = 4             # CUDA launches of one ssd_bwd call
 
 
 def _padded_state(N: int) -> int:
@@ -50,6 +62,20 @@ def _workspace_floats(B: int, S: int, H: int, N: int, P: int) -> int:
     bc = B * _chunks(S)
     return (bc * CHUNK * CHUNK + bc * H * N * P + bc * H * 2 * CHUNK
             + bc * H)
+
+
+def _bwd_tiles(S: int) -> int:
+    return -(-S // BWD_TILE)
+
+
+def _bwd_workspace_floats(B: int, S: int, H: int, N: int, P: int) -> int:
+    """float32 entries of the backward's workspace (``bwd::launch``): the
+    state entering each tile and the adjoint leaving it (B, H, tiles, N,
+    P) each, the heads' partials of dB and dC (B, H, S, N) each, r and
+    x . v (B, H, S) each, dA's partials (B, H)."""
+    bh = B * H
+    return (2 * bh * _bwd_tiles(S) * N * P + 2 * bh * S * N + 2 * bh * S
+            + bh)
 
 
 def _h_rows(N: int) -> int:
@@ -136,12 +162,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     One call is one count of ``ssd.launches`` and ``LAUNCHES_PER_CALL``
     CUDA launches on the current stream; bfloat16 also allocates a float32
     workspace of ``_workspace_floats`` entries (33.5 MB of chunk states at
-    the serving shape). It has no backward yet: an input that requires
-    grad under grad mode raises (``_build.refuse_grad``), so the SSM and
-    hybrid families train on the CPU only.
+    the serving shape). It records no autograd graph: ``ops.ssd`` wraps
+    it with ``ssd_bwd`` in an autograd Function.
     """
     launch = _launcher()
-    _build.refuse_grad("ssd", x, dt, A, Bm, Cm)
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     _require(chunk >= 1, f"chunk {chunk} < 1")
@@ -173,3 +197,63 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd.launches = 0
+
+
+@functools.cache
+def _bwd_launcher():
+    return _build.function("ssd_bwd_launch", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _P])
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor):
+    """The gradients ``(dx, ddt, dA, dB, dC)`` of ``ssd(x, dt, A, Bm,
+    Cm)`` against the output gradient ``dy``, as ``ref.ssd_grads``.
+
+    The inputs follow ``ssd``'s rules, (N, P) in ``BWD_WIDTHS``; ``dy``
+    (B, S, H, P) in x's dtype may be strided (it is made contiguous). Returns dx in x's dtype, ddt
+    (B, S, H), dA (H,), dB and dC (B, S, N) in float32, all computed in
+    float32 on the CUDA cores: float32 sums in another order than the
+    plain version's (CUDA's expf), dx rounded once to x's dtype. Four
+    CUDA launches on the current stream (``BWD_LAUNCHES_PER_CALL``), no
+    atomics (two calls give the same bits); allocates a float32
+    workspace of ``_bwd_workspace_floats`` entries (404 MB at
+    mamba2-1.3b's training shape, B 8, S 256). Counts one launch a call.
+    A training step with remat runs ``ssd`` twice a layer (the step's
+    forward and the checkpoint's recomputation) and this once.
+    """
+    launch = _bwd_launcher()
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    dy = dy.contiguous()
+    _require(x.is_cuda and all(t.device == x.device
+                               for t in (dt, A, Bm, Cm, dy)),
+             "tensors must share a CUDA device")
+    _require(x.dtype in DTYPES and dy.dtype == x.dtype
+             and all(t.dtype == torch.float32 for t in (dt, A, Bm, Cm)),
+             "x and dy must be float32 or bfloat16, dt, A, Bm, Cm float32")
+    _require(dt.shape == (Bsz, S, H) and A.shape == (H,)
+             and Bm.shape == (Bsz, S, N) and Cm.shape == Bm.shape
+             and dy.shape == x.shape, "shapes")
+    _require((N, P) in BWD_WIDTHS,
+             f"(state, head) dims {(N, P)} not in {BWD_WIDTHS}")
+    _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                 for t in (x, dt, A, Bm, Cm, dy)),
+             "tensors must be contiguous")
+    dx = torch.empty_like(x)
+    ddt, dA, dB, dC = (torch.empty_like(t) for t in (dt, A, Bm, Cm))
+    if x.numel() == 0:
+        return dx, ddt, dA.zero_(), dB, dC
+    ws = torch.empty(_bwd_workspace_floats(Bsz, S, H, N, P),
+                     dtype=torch.float32, device=x.device)
+    err = launch(*(t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dA,
+                                          dB, dC, ws)),
+                 DTYPES[x.dtype], Bsz, S, H, N, P,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_bwd_launch")
+    ssd_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_bwd.launches = 0

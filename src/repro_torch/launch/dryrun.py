@@ -163,26 +163,26 @@ class _Bytes(torch.utils._python_dispatch.TorchDispatchMode):
 
 class _Counted(torch.autograd.Function):
     """An uninitialised result like ``like`` that adds ``work`` to the
-    totals ``into`` (and, in the backward, ``bwd_times`` times it)."""
+    totals ``into`` (and, in the backward, ``bwd_work``)."""
 
     @staticmethod
-    def forward(ctx, into, name, work, bwd_times, like, *inputs):
-        ctx.args = (into, name, work, bwd_times,
+    def forward(ctx, into, name, work, bwd_work, like, *inputs):
+        ctx.args = (into, name, bwd_work,
                     [(t.shape, t.dtype) for t in inputs])
         _count(into, name, work)
         return torch.empty_like(like)
 
     @staticmethod
     def backward(ctx, g):
-        into, name, work, times, shapes = ctx.args
-        _count(into, name + "_bwd", work, times)
+        into, name, bwd_work, shapes = ctx.args
+        _count(into, name + "_bwd", bwd_work)
         return (None,) * 5 + tuple(g.new_empty(s, dtype=d)
                                    for s, d in shapes)
 
 
-def _count(into: dict, name: str, work: tuple, times: float = 1.0) -> None:
-    into["flops"] += work[1] * times
-    into["bytes"] += work[0] * times
+def _count(into: dict, name: str, work: tuple) -> None:
+    into["flops"] += work[1]
+    into["bytes"] += work[0]
     into["calls"][name] = into["calls"].get(name, 0) + 1
 
 
@@ -196,8 +196,9 @@ def _counting_kernels():
 
     def attention(q, k, v, causal=True, window=None, scale=None):
         # the backward: dQ, dK and dV's 5 products against the forward's 2
-        return _Counted.apply(work, "flash_attention", analysis.attention_work(
-            q, k, v, window, causal), 2.5, q, q, k, v)
+        fwd = analysis.attention_work(q, k, v, window, causal)
+        return _Counted.apply(work, "flash_attention", fwd,
+                              tuple(2.5 * n for n in fwd), q, q, k, v)
 
     def decode_attention(q, k, v, length, scale=None, with_lse=False):
         live = length.shape[0] * k.shape[2]          # every slot counted
@@ -210,7 +211,8 @@ def _counting_kernels():
 
     def ssd(x, dt, A, Bm, Cm, chunk=128):
         return _Counted.apply(work, "ssd", analysis.ssd_work(x, dt, A, Bm, Cm),
-                              2.0, x, x, dt, A, Bm, Cm)
+                              analysis.ssd_bwd_work(x, dt, A, Bm, Cm), x, x,
+                              dt, A, Bm, Cm)
 
     saved = (ops.attention, ops.decode_attention, ops.ssd)
     ops.attention, ops.decode_attention, ops.ssd = (attention,

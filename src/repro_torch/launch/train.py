@@ -29,8 +29,14 @@ steps taken: a run resumed from step n takes step n next, so its losses
 equal an uninterrupted run's. (The reference labels a checkpoint by the
 step just taken and takes that step again on resume.)
 
-On the card, ``--train-100m`` raises the flash kernel's ``ValueError``:
-its head dim of 80 is not one the kernel takes (ROADMAP A11).
+Every family trains on the card through the port's kernels and their
+backwards: attention through ``flash_attention`` and
+``flash_attention_bwd`` (``--train-100m``'s head dim of 80 included),
+the SSM and hybrid families' scan through ``ssd`` and ``ssd_bwd``
+(``--arch mamba2-1.3b``, ``--arch hymba-1.5b``).
+
+  python -m repro_torch.launch.train --arch mamba2-1.3b --steps 20  # the card
+  python -m repro_torch.launch.train --train-100m --seq-len 512 --batch 8
 
 The last line of output is one JSON object: the config, the logged
 steps, their losses and each logged interval's seconds a step (host

@@ -171,6 +171,21 @@ def ssd_work(x, dt, A, Bm, Cm, tile: int = 32) -> tuple:
                                     + 4 * tile * N * P))
 
 
+def ssd_bwd_work(x, dt, A, Bm, Cm, tile: int = 32) -> tuple:
+    """(bytes, operations) of the SSD backward: x, dt, A, Bm, Cm and dy
+    (x's size) read once, dx (x's size), ddt, dA, dB and dC (their
+    inputs' sizes) written once, no workspace; the work, whatever
+    implements it, is the chunked algorithm at ``tile``-row tiles, per
+    tile and head the forward's states and the adjoints (2TNP each),
+    C.B^T and x.dy^T scaled by the decays (2T^2 N, 2T^2 P), dx (2T^2 P +
+    2TNP), dB and dC (2T^2 N + 2TNP each)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    return (2 * nbytes(x, dt, A, Bm, Cm) + nbytes(x),
+            B * H * -(-S // tile) * (2 * tile * tile * (3 * N + 2 * P)
+                                    + 10 * tile * N * P))
+
+
 def kernel_bound_s(work: tuple) -> tuple:
     """(seconds, "bytes" or "operations"): the least time the card takes
     for ``work`` and what bounds it."""

@@ -653,7 +653,7 @@ def test_build_flags_target_hopper_and_forbid_fma():
     assert "--fmad=false" in _build.COMPILE_FLAGS
     assert [s.name for s in _build.sources()] == [
         "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "maintenance.cu", "round_fused.cu", "ssd.cu"]
+        "maintenance.cu", "round_fused.cu", "ssd.cu", "ssd_bwd.cu"]
 
 
 def _no_nvcc(monkeypatch, tmp_path):

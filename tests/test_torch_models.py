@@ -302,15 +302,37 @@ def test_convert_refuses_a_misshapen_pytree():
 
 
 def test_remat_raises(monkeypatch):
-    # remat trains the decoders (tests/test_torch_train_step.py); on the
-    # card a stack whose kernel has no backward raises instead of losing
-    # the gradient: the SSM stack's ssd refuses an input that requires grad
-    from repro_torch.kernels import ops
+    # remat trains every stack (tests/test_torch_train_step.py); on the
+    # card the SSM stack's scan runs as ops.SSDScan (the ssd kernel, then
+    # ssd_bwd): with the two wrappers swapped for their plain versions it
+    # gives the CPU's loss and gradients; a kernel that has no backward
+    # (decode attention) still raises instead of losing the gradient
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd as tssd
-    monkeypatch.setattr(ops, "_on_host", lambda x: False)
-    monkeypatch.setattr(tssd, "_launcher", lambda: None)
     model = build_model(get_config("mamba2-1.3b", reduced=True),
                         device="cpu").trainable()
-    tokens = torch.zeros(1, 8, dtype=torch.int32)
+    tokens = torch.arange(8, dtype=torch.int32)[None] % 7
+    batch = {"tokens": tokens, "targets": (tokens + 1) % 7}
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss = model.loss(batch, remat=True)
+        return loss, torch.autograd.grad(loss, params)
+
+    want = loss_and_grads()
+    calls = []
+    monkeypatch.setattr(ops, "_on_host", lambda x: False)
+    monkeypatch.setattr(tssd, "ssd", lambda *a, chunk: ref.ssd(*a))
+    monkeypatch.setattr(tssd, "ssd_bwd",
+                        lambda *a: calls.append(1) or ref.ssd_grads(*a))
+    got = loss_and_grads()
+    assert len(calls) == model.cfg.num_layers
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+    for g, w in zip(got[1], want[1]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    monkeypatch.setattr(tdec, "_launcher", lambda: None)
+    q = torch.zeros(1, 4, 16, requires_grad=True)
+    kv = torch.zeros(1, 1, 8, 16)
     with pytest.raises(RuntimeError, match="no backward"):
-        model.loss({"tokens": tokens, "targets": tokens}, remat=True)
+        ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32))

@@ -140,3 +140,18 @@ def test_decode_and_ssd_work_and_the_bound():
     assert (s, what) == (pytest.approx(1.0), "bytes")
     s, what = analysis.kernel_bound_s((0.0, 2 * hw.PEAK_FLOPS_BF16))
     assert (s, what) == (pytest.approx(2.0), "operations")
+
+
+def test_ssd_bwd_work_counts_the_essential_traffic():
+    # mamba2-1.3b's training shape: x, dy, dx in bf16; dt, ddt, B, C, dB,
+    # dC (and A, dA) in float32, each read or written once, no workspace;
+    # the chunked backward's products at 32-row tiles
+    x = torch.zeros(8, 256, 64, 64, dtype=torch.bfloat16)
+    dt, A = torch.zeros(8, 256, 64), torch.zeros(64)
+    Bm = torch.zeros(8, 256, 128)
+    by, ops = analysis.ssd_bwd_work(x, dt, A, Bm, Bm)
+    assert by == 3 * x.numel() * 2 + 2 * dt.numel() * 4 + 2 * 64 * 4 \
+        + 4 * Bm.numel() * 4 == 55_575_040
+    assert ops == 8 * 64 * 8 * (2 * 32 * 32 * (3 * 128 + 2 * 64)
+                                + 10 * 32 * 128 * 64)
+    assert analysis.kernel_bound_s((by, ops))[1] == "bytes"
